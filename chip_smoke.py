@@ -1,15 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # every phase (needs one CUDA card)
-    python3 chip_smoke.py --profile DIR   # also the UNet step's device profile
+    python3 chip_smoke.py --profile DIR   # also the UNet and train steps' device profiles
 
 Phases, each fatal on failure:
   1. device and build: prints the card (nvidia-smi name, power limit) and
      builds every kernel of ``diffusion_finetuning_tpu_torch/csrc`` with nvcc,
      one process per source, all at once;
   2. kernels against their plain PyTorch versions on the card, bf16, at every
-     shape the SD1.5 512^2 CFG main path gives them: error, kernel time,
-     plain-version time, one PyTorch library call's time, and the bound;
+     shape the SD1.5 512^2 main paths give them (the flash backward at the
+     training shapes, BH = 8): error, kernel time, plain-version time, one
+     PyTorch library call's time (SDPA's backward alone for the flash
+     backward), and the bound;
   3. the UNet step of ``entry()``: full SD1.5 width in bf16 with a rank-4
      dynamic LoRA (non-zero up), CFG batch 2 at 64x64 latents, through both
      kernels, held against the same UNet run on the CPU in fp32 through the
@@ -19,7 +21,15 @@ Phases, each fatal on failure:
      ``StableDiffusionPipeline.__call__`` (512^2, 50 DDIM steps, CFG, seeds)
      with the LoRA merged and dynamic; the kernels' launch counters are set
      to 0 just before the requests and read just after, and must show 32
-     flash launches per UNet step and 144 LoRA launches per dynamic step.
+     flash launches per UNet step and 144 LoRA launches per dynamic step;
+  5. training: one ``loss_step`` and its backward at full SD1.5 width in
+     bf16 on the card held against the same step in fp32 on the CPU (same
+     LoRA, same cached latent moments, same draws), then the training path,
+     ``build_train_step`` at 512^2, batch 1, uint8 pixels, rank-4 LoRA,
+     AdamW with max_grad_norm 1.0: 2 warm-up and 10 timed steps with the
+     launch counters set to 0 just before the 10 and read just after (32
+     flash forward, 32 flash backward and 144 LoRA launches a step), then
+     one step with gradient checkpointing (64 / 32 / 288).
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -30,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,12 +52,14 @@ sys.path.insert(0, HERE)
 # (Sq, Skv, head dim, calls per UNet step) of SD1.5 at 512^2 with CFG
 # (batch 2 x 8 heads): attn1 is self-attention, attn2 attends to the 77 text
 # tokens; levels 64^2/32^2/16^2 have 5 transformer blocks each, the 8^2 mid
-# block one.
+# block one.  Training runs the same calls at batch 1 (8 heads), forward and
+# backward.
 FLASH_SHAPES = [
     (4096, 4096, 40, 5), (1024, 1024, 80, 5), (256, 256, 160, 5), (64, 64, 160, 1),
     (4096, 77, 40, 5), (1024, 77, 80, 5), (256, 77, 160, 5), (64, 77, 160, 1),
 ]
 FLASH_BH = 16
+FLASH_BWD_BH = 8  # training: batch 1 without CFG
 # (M tokens, K, N, calls per UNet step) of the LoRA'd projections: per block
 # attn1 q/k/v/out + attn2 q/out (C->C), attn2 k/v (77x2 text tokens, 768->C),
 # GEGLU proj (C->8C)
@@ -65,8 +78,12 @@ PEAK_BYTES = 3.35e12
 # tolerances (bf16 kernel vs the plain version on the same bf16 inputs:
 # rounding of p / h to bf16 and of the output flips at ulp boundaries)
 FLASH_TOL = {"max_abs": 2e-2, "rel_l2": 1e-2, "lse_abs": 1e-3}
+# dQ/dK/dV: max |err| relative to the largest reference value, and rel L2
+# (dS rounds to bf16 from sums in another order; dQ sums by fp32 atomics)
+FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
 LORA_TOL = {"max_abs": 5e-2, "rel_l2": 1e-2}
 UNET_REL_L2 = 5e-2  # bf16 card run vs fp32 CPU run of the whole UNet
+TRAIN_GRAD_REL_L2 = 1e-1  # bf16 card vs fp32 CPU: the whole LoRA gradient of one step
 
 
 def log(*a):
@@ -259,6 +276,7 @@ def phase_kernels():
     if not (mx <= 1e-4 and float((lse - lse_ref).abs().max()) <= 1e-4):
         fail("fp32 flash attention kernel disagrees")
     results["flash_attention_fwd"] = rows
+    results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
 
     rows = []
     for m, kdim, n, count in LORA_SHAPES:
@@ -308,6 +326,74 @@ def phase_kernels():
         fail("fp32 LoRA dense kernel disagrees")
     results["lora_dense"] = rows
     return results
+
+
+def flash_bwd_rows(gen, flush, iters):
+    """K3 at every training shape (BH = 8): dQ, dK, dV against the plain
+    version on the same bf16 inputs (O and lse from K1), its time, the
+    plain version's, SDPA's backward alone, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    bh = FLASH_BWD_BH
+    log(f"limits, flash backward bf16 kernel vs plain version: {FLASH_BWD_TOL}")
+    rows = []
+    for sq, skv, d, count in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev, dtype=torch.bfloat16)
+                       for s in (sq, skv, skv, sq))
+        scale = d ** -0.5
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, scale)
+            delta = fa._delta(o, do)
+            got = fa.flash_bwd(q, k, v, o, lse, do, scale)
+            want = fa.flash_backward_plain(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            errs = {}
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                mx, rel = errors(a, b)
+                errs[name] = (mx, mx / float(b.float().abs().max()), rel,
+                              bool(torch.isfinite(a).all()))
+            ok = all(r <= FLASH_BWD_TOL["max_rel"] and l2 <= FLASH_BWD_TOL["rel_l2"] and fin
+                     for _, r, l2, fin in errs.values())
+            ms = cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale), iters, flush)
+            plain_ms = cuda_time(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale),
+                                 3, flush, hide_host=False)
+        q4, k4, v4 = (t.reshape(1, bh, -1, d).detach().requires_grad_(True) for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4)
+        do4 = do.reshape(1, bh, sq, d)
+        lib_ms = cuda_time(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                       retain_graph=True), iters, flush)
+        flops = 10 * bh * sq * skv * d
+        nbytes = 2 * bh * (3 * sq + 4 * skv) * d + 8 * bh * sq
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        row = dict(shape=[bh, sq, skv, d], per_step=count,
+                   max_abs_err=max(e[0] for e in errs.values()),
+                   rel_l2=max(e[2] for e in errs.values()),
+                   errors={n: dict(max_abs=e[0], max_rel=e[1], rel_l2=e[2])
+                           for n, e in errs.items()},
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        rows.append(row)
+        log(f"flash bwd BH={bh} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+            + " ".join(f"{n} max_abs={e[0]:.2e} rel_l2={e[2]:.2e}" for n, e in errs.items())
+            + f" ms={ms:.4f} plain={plain_ms:.3f} sdpa_bwd={lib_ms:.4f} "
+            f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash attention backward kernel disagrees at {row['shape']}")
+    # fp32 inputs take the FMA kernel: check it once, ragged
+    q, k, v, do = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77, 200))
+    with torch.inference_mode():
+        o, lse = fa.flash_fwd(q, k, v, 0.2)
+        got = fa.flash_bwd(q, k, v, o, lse, do, 0.2)
+        want = fa.flash_backward_plain(q, k, v, o, lse, do, 0.2)
+    rels = [errors(a, b)[1] for a, b in zip(got, want)]
+    log(f"flash bwd fp32 (4, 200, 77, 40): rel_l2 dq/dk/dv {rels}")
+    if not max(rels) <= 1e-4:
+        fail("fp32 flash attention backward kernel disagrees")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -389,7 +475,8 @@ def counts():
     from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
     from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
 
-    return {"flash_attention_fwd": fa.launches, "lora_dense": lm.launches}
+    return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
+            "lora_dense": lm.launches}
 
 
 def reset_counts():
@@ -397,6 +484,7 @@ def reset_counts():
     from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
 
     fa.launches = 0
+    fa.bwd_launches = 0
     lm.launches = 0
 
 
@@ -439,7 +527,8 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
         base_ms = wall_ms(lambda: unet(xd, td, cd), 10)
         if profile_dir:
             profiles.append(profile_step(lambda: unet(xd, td, cd), "no_lora", profile_dir))
-    want_calls = {"flash_attention_fwd": FLASH_PER_STEP, "lora_dense": LORA_PER_STEP}
+    want_calls = {"flash_attention_fwd": FLASH_PER_STEP, "flash_attention_bwd": 0,
+                  "lora_dense": LORA_PER_STEP}
     log(f"unet step: launches {per_call} (want {want_calls}); "
         f"ms dynamic-LoRA {lora_ms:.3f}, no LoRA {base_ms:.3f}")
     if per_call != want_calls:
@@ -466,6 +555,7 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
 
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match wins
     ("flash_attention_fwd (ours)", ("flash_fwd",)),
+    ("flash_attention_bwd (ours)", ("flash_bwd",)),
     ("lora_dense (ours)", ("lora_dense",)),
     ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
     ("convolution", ("conv", "implicit_gemm", "winograd", "fprop")),
@@ -476,7 +566,7 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
 
 
 def profile_step(fn, label, out_dir):
-    """Trace one UNet step with torch.profiler: device time by kernel kind
+    """Trace one step with torch.profiler: device time by kernel kind
     and the card's idle share over the step's wall time.  The per-kernel
     table goes to ``out_dir``/unet_step_profile_<label>.txt."""
     import torch
@@ -491,7 +581,10 @@ def profile_step(fn, label, out_dir):
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name, by_kind = {}, {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # device kernels only: a user annotation (Optimizer.step#AdamW.step)
+        # is a span on the device timeline, not work
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = e.time_range.elapsed_us()
         n, tot = by_name.get(e.name, (0, 0.0))
@@ -596,7 +689,7 @@ def phase_serving(pipe, lora_dev):
 
     n_dynamic = sum(1 for *_, mat in requests if not mat)
     want = {"flash_attention_fwd": FLASH_PER_STEP * STEPS * len(requests),
-            "lora_dense": LORA_PER_STEP * STEPS * n_dynamic}
+            "flash_attention_bwd": 0, "lora_dense": LORA_PER_STEP * STEPS * n_dynamic}
     log(f"serving launches {launched} (want {want})")
     if launched != want:
         fail(f"the main path launched {launched}, want {want}")
@@ -617,36 +710,208 @@ def phase_serving(pipe, lora_dev):
     return launched, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5
+# ---------------------------------------------------------------------------
+
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 10
+TRAIN_WARMUP = 2
+
+
+def train_batch(tokenizer, seed=SEED + 40):
+    """One 512^2 uint8 example and its prompt ids (the trainers' wire format)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = tokenizer(["a photo of sks person"], padding="max_length", max_length=77,
+                    return_tensors="np")["input_ids"].astype(np.int32)
+    return {"pixel_values": rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8),
+            "input_ids": ids}
+
+
+def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="cuda"):
+    """One loss_step and its backward: bf16 on the card against fp32 on the
+    CPU, from the same cached latent moments (the card's VAE encode) and the
+    same draws.  Returns (loss difference, rel L2 of the LoRA gradient)."""
+    import numpy as np
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextModel
+    from diffusion_finetuning_tpu_torch.models.schedulers import DDPMScheduler
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel
+    from diffusion_finetuning_tpu_torch.models.vae import AutoencoderKL
+    from diffusion_finetuning_tpu_torch.models.weights import load_module
+    from diffusion_finetuning_tpu_torch.training.latent_cache import LatentMomentCache
+    from diffusion_finetuning_tpu_torch.training.loss import loss_step
+    from diffusion_finetuning_tpu_torch.training.optim import trainable_tensors
+    from diffusion_finetuning_tpu_torch.training.train_step import master_tree
+
+    cached = LatentMomentCache(pipe.vae, device=device).transform(batch)
+    rng = np.random.default_rng(SEED + 41)
+    side = IMAGE // pipe.vae_scale_factor
+    draws = {"sample": rng.standard_normal((1, side, side, 4)).astype(np.float32),
+             "noise": rng.standard_normal((1, side, side, 4)).astype(np.float32),
+             "timesteps": np.array([rng.integers(0, 1000)])}
+
+    def run(unet, text_encoder, vae, device):
+        master = master_tree(lora_cpu, device)
+        loss = loss_step(cached, unet=unet, text_encoder=text_encoder, vae=vae,
+                         scheduler=DDPMScheduler(), unet_lora=master, draws=draws)
+        loss.backward()
+        grad = torch.cat([t.grad.float().cpu().reshape(-1) for t in trainable_tensors(master)])
+        return float(loss.detach()), grad
+
+    loss_dev, grad_dev = run(pipe.unet, pipe.text_encoder, pipe.vae, device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cpu = [load_module(cls, cfg, sd, torch.float32, "cpu") for cls, cfg, sd in (
+        (UNet2DConditionModel, ucfg, sds[0]), (CLIPTextModel, tcfg, sds[2]),
+        (AutoencoderKL, vcfg, sds[1]))]
+    loss_cpu, grad_cpu = run(*cpu, "cpu")
+    del cpu
+    _, rel = errors(grad_dev, grad_cpu)
+    log(f"train loss_step + backward, card bf16 vs CPU fp32: loss {loss_dev:.6f} vs "
+        f"{loss_cpu:.6f} (diff {abs(loss_dev - loss_cpu):.3e}); LoRA gradient rel_l2 "
+        f"{rel:.3e} (limit {TRAIN_GRAD_REL_L2}), norm {float(grad_cpu.norm()):.3e}; "
+        f"CPU reference {time.time() - t0:.1f} s")
+    if not (np.isfinite(loss_dev) and rel <= TRAIN_GRAD_REL_L2):
+        fail("the training step's LoRA gradient on the card disagrees with the CPU fp32 one")
+    if not float(grad_cpu.norm()) > 0:
+        fail("the reference LoRA gradient is zero: the comparison would see nothing")
+    return {"loss_card": loss_dev, "loss_cpu": loss_cpu, "grad_rel_l2": rel}
+
+
+def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
+    """The training path: ``build_train_step`` on the card, 2 warm-up and 10
+    timed steps, then one step with gradient checkpointing.  The launch
+    counters are set to 0 just before the 10 steps and read just after."""
+    import dataclasses
+
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.models.schedulers import DDPMScheduler, SchedulerConfig
+    from diffusion_finetuning_tpu_torch.training.optim import (
+        ParamGroup, multi_group_optimizer, trainable_tensors)
+    from diffusion_finetuning_tpu_torch.training.train_step import (
+        TrainablePartition, build_train_step, init_train_state)
+
+    opt = multi_group_optimizer({"unet_lora": ParamGroup(lr=TRAIN_LR)}, max_grad_norm=1.0)
+    state = init_train_state(opt, unet_lora=lora_cpu, device=device)
+    step = build_train_step(unet=pipe.unet, text_encoder=pipe.text_encoder, vae=pipe.vae,
+                            scheduler=DDPMScheduler(SchedulerConfig()), optimizer=opt,
+                            partition=TrainablePartition(unet_lora=True))
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    first = [t.detach().clone() for t in trainable_tensors(state["params"])]
+    scales = [float(leaf["scale"]) for _, leaf in lora_lib.lora_leaves(state["params"]["unet_lora"])]
+    for _ in range(TRAIN_WARMUP):
+        step(state, batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, wall = [], []
+    reset_counts()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"])
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    med = sorted(wall)[len(wall) // 2]
+    want = {"flash_attention_fwd": FLASH_PER_STEP * TRAIN_STEPS,
+            "flash_attention_bwd": FLASH_PER_STEP * TRAIN_STEPS,
+            "lora_dense": LORA_PER_STEP * TRAIN_STEPS}
+    moved = max(float((a.detach() - b).abs().max()) for a, b in
+                zip(trainable_tensors(state["params"]), first))
+    scales_now = [float(leaf["scale"])
+                  for _, leaf in lora_lib.lora_leaves(state["params"]["unet_lora"])]
+    log(f"train steps (512^2, batch 1, uint8, rank {LORA_RANK}, AdamW lr {TRAIN_LR}, clip 1.0): "
+        f"wall ms median {med:.3f} (min {min(wall):.3f}, max {max(wall):.3f}), "
+        f"{1e3 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; losses "
+        f"{[round(x, 5) for x in losses]}; launches {launched} (want {want}); "
+        f"LoRA moved by max {moved:.3e}")
+    if launched != want:
+        fail(f"the training path launched {launched}, want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"a training loss is not finite: {losses}")
+    if not moved > 0:
+        fail("the LoRA leaves did not move")
+    if scales_now != scales:
+        fail("a LoRA scale leaf moved")
+    profiles = []
+    if profile_dir:
+        profiles.append(profile_step(lambda: step(state, batch, gen), "train_step", profile_dir))
+
+    unet = pipe.unet
+    unet.config = dataclasses.replace(ucfg, gradient_checkpointing=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ckpt_ms = (time.perf_counter() - t0) * 1e3
+        ckpt_launched = counts()
+        ckpt_peak = torch.cuda.max_memory_allocated()
+    finally:
+        unet.config = ucfg
+    ckpt_want = {"flash_attention_fwd": 2 * FLASH_PER_STEP,
+                 "flash_attention_bwd": FLASH_PER_STEP, "lora_dense": 2 * LORA_PER_STEP}
+    log(f"train step with gradient checkpointing: wall ms {ckpt_ms:.3f}, peak memory "
+        f"{ckpt_peak / 2**30:.3f} GiB, loss {float(m['loss']):.5f}; launches {ckpt_launched} "
+        f"(want {ckpt_want})")
+    if ckpt_launched != ckpt_want:
+        fail(f"the checkpointed step launched {ckpt_launched}, want {ckpt_want}")
+    if not math.isfinite(float(m["loss"])):
+        fail("the checkpointed step's loss is not finite")
+    return launched, {"step_ms": wall, "step_ms_median": med, "steps_per_s": 1e3 / med,
+                      "peak_bytes": peak, "losses": losses, "checkpointed_step_ms": ckpt_ms,
+                      "checkpointed_peak_bytes": ckpt_peak, "profiles": profiles}
+
+
+# kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
+KERNEL_META = {
+    "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
+                            "diffusion_finetuning_tpu/ops/flash_attention.py:87", "unet_step"),
+    "flash_attention_bwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "diffusion_finetuning_tpu/ops/flash_attention.py:285", "train_step"),
+    "lora_dense": ("cuda", "diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
+                   "diffusion_finetuning_tpu/ops/lora_matmul.py:38", "unet_step"),
+}
+
+
 def kernels_line(results, launches):
-    """The kernels JSON: per kernel, times summed over one UNet step's calls
-    (each shape's time x its calls per step), the worst error over shapes."""
-    meta = {
-        "flash_attention_fwd": dict(
-            route="cuda", source="diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
-            replaces="diffusion_finetuning_tpu/ops/flash_attention.py:87"),
-        "lora_dense": dict(
-            route="cuda", source="diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
-            replaces="diffusion_finetuning_tpu/ops/lora_matmul.py:38"),
-    }
+    """The kernels JSON: per kernel, times summed over one step's calls
+    (each shape's time x its calls per step: a serving UNet step for the
+    forward kernels, a train step for the backward), the worst error over
+    shapes, and the launches of every main-path run ({path: {kernel: n}})
+    summed, with the split by path beside them."""
     out = []
     for name, rows in results.items():
+        route, source, replaces, per = KERNEL_META[name]
         step = lambda key: sum(r[key] * r["per_step"] for r in rows)
         ops_bound = sum(r["bound_ms"] * r["per_step"] for r in rows
                         if r["bound_by"] == "operations")
+        by_path = {path: n.get(name, 0) for path, n in launches.items()}
         out.append(dict(
-            name=name, **meta[name], launches=launches.get(name, 0),
+            name=name, route=route, source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=step("ms"), plain_ms=step("plain_ms"), bound_ms=step("bound_ms"),
             bound_by="operations" if ops_bound > step("bound_ms") / 2 else "bytes",
-            library_ms=step("library_ms"), per="unet_step", shapes=rows))
+            library_ms=step("library_ms"), per=per, shapes=rows))
     return {"kernels": out}
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also trace one UNet step with torch.profiler and "
-                         "write its per-kernel tables into DIR")
+                    help="also trace one UNet step and one train step with "
+                         "torch.profiler and write their per-kernel tables into DIR")
     args = ap.parse_args()
 
     import torch
@@ -680,9 +945,15 @@ def main():
     phase_pipeline_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev)
     launches, serving = phase_serving(pipe, lora_dev)
     log(f"phase 4: {time.time() - t0:.1f} s")
-    log(json.dumps({"unet_step": step, "serving": serving}))
+    t0 = time.time()
+    batch = train_batch(pipe.tokenizer)
+    reference = phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch)
+    train_launches, train = phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=args.profile)
+    log(f"phase 5: {time.time() - t0:.1f} s")
+    log(json.dumps({"unet_step": step, "serving": serving,
+                    "train": dict(train, reference=reference)}))
 
-    log(json.dumps(kernels_line(results, launches)))
+    log(json.dumps(kernels_line(results, {"serving": launches, "train": train_launches})))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Noise schedulers (port of the JAX ``models/schedulers.py``): the config and
-DDIM, the pipeline's default sampler.  The other samplers come later.
+"""Noise schedulers (port of the JAX ``models/schedulers.py``): the config,
+DDPM (the training forward process and its ancestral step) and DDIM, the
+pipeline's default sampler.  The other samplers come later.
 
 Tables are fp32 tensors as in the JAX package, and the step's coefficients
 are computed in fp32, so a step here matches a step there.
@@ -8,6 +9,8 @@ are computed in fp32, so a step here matches a step there.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -35,6 +38,76 @@ class SchedulerConfig:
             f = lambda u: np.cos((u / n + 0.008) / 1.008 * np.pi / 2) ** 2
             return np.clip(1.0 - f(t + 1) / f(t), 0, 0.999)
         raise ValueError(f"unknown beta schedule {self.beta_schedule}")
+
+
+class DDPMScheduler:
+    """Forward process and ancestral sampling step (JAX :59-133)."""
+
+    def __init__(self, config: SchedulerConfig = SchedulerConfig()):
+        self.config = config
+        betas = config.betas()
+        alphas = 1.0 - betas
+        self.alphas_cumprod = torch.tensor(np.cumprod(alphas), dtype=torch.float32)
+        self.betas = torch.tensor(betas, dtype=torch.float32)
+        self.alphas = torch.tensor(alphas, dtype=torch.float32)
+        self.num_train_timesteps = config.num_train_timesteps
+
+    def _coeffs(self, sample: torch.Tensor, timesteps: torch.Tensor):
+        """sqrt(a_t) and sqrt(1 - a_t) per example, shaped to broadcast over
+        ``sample`` and cast to its dtype (computed in fp32)."""
+        a = self.alphas_cumprod.to(sample.device)[timesteps.to(sample.device).long()]
+        shape = (-1,) + (1,) * (sample.ndim - 1)
+        return (torch.sqrt(a).reshape(shape).to(sample.dtype),
+                torch.sqrt(1.0 - a).reshape(shape).to(sample.dtype))
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor,
+                  timesteps: torch.Tensor) -> torch.Tensor:
+        """x_t = sqrt(a_t) x_0 + sqrt(1 - a_t) eps (per-example timesteps)."""
+        sqrt_a, sqrt_1ma = self._coeffs(sample, timesteps)
+        return sqrt_a * sample + sqrt_1ma * noise
+
+    def get_velocity(self, sample: torch.Tensor, noise: torch.Tensor,
+                     timesteps: torch.Tensor) -> torch.Tensor:
+        """v-prediction target: v = sqrt(a) eps - sqrt(1 - a) x_0."""
+        sqrt_a, sqrt_1ma = self._coeffs(sample, timesteps)
+        return sqrt_a * noise - sqrt_1ma * sample
+
+    def training_target(self, sample: torch.Tensor, noise: torch.Tensor,
+                        timesteps: torch.Tensor) -> torch.Tensor:
+        """epsilon or v target per config."""
+        if self.config.prediction_type == "epsilon":
+            return noise
+        if self.config.prediction_type == "v_prediction":
+            return self.get_velocity(sample, noise, timesteps)
+        raise ValueError(f"Unknown prediction type {self.config.prediction_type}")
+
+    def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
+             generator: Optional[torch.Generator] = None,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One ancestral step from ``timestep``; the noise is ``noise`` if
+        given, else drawn from ``generator`` in the sample's dtype."""
+        t = int(timestep)
+        a_t = self.alphas_cumprod[t]
+        a_prev = self.alphas_cumprod[t - 1] if t > 0 else torch.tensor(1.0)
+        beta_t, alpha_t = self.betas[t], self.alphas[t]
+        if self.config.prediction_type == "epsilon":
+            x0 = (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)
+        elif self.config.prediction_type == "v_prediction":
+            x0 = torch.sqrt(a_t) * sample - torch.sqrt(1.0 - a_t) * model_output
+        else:
+            raise ValueError(self.config.prediction_type)
+        if self.config.clip_sample:
+            x0 = x0.clamp(-1.0, 1.0)
+        pred_orig_coeff = torch.sqrt(a_prev) * beta_t / (1.0 - a_t)
+        current_coeff = torch.sqrt(alpha_t) * (1.0 - a_prev) / (1.0 - a_t)
+        mean = pred_orig_coeff * x0 + current_coeff * sample
+        if t == 0:
+            return mean
+        var = torch.clamp(beta_t * (1.0 - a_prev) / (1.0 - a_t), min=1e-20)
+        if noise is None:
+            noise = torch.randn(sample.shape, generator=generator, device=sample.device,
+                                dtype=sample.dtype)
+        return mean + torch.sqrt(var) * noise
 
 
 class DDIMScheduler:

@@ -10,8 +10,14 @@ the flash-attention kernel on the card.
 
 Numerics as in the JAX model: GroupNorm eps 1e-5 in the resnets and 1e-6
 before the transformer, LayerNorm eps 1e-5, exact-erf GEGLU, nearest
-upsampling, to_q/to_k/to_v without bias and to_out with one.  Gradient
-checkpointing comes with the training slice.
+upsampling, to_q/to_k/to_v without bias and to_out with one.
+
+``UNetConfig.gradient_checkpointing`` recomputes every ``ResnetBlock2D`` and
+``Transformer2DModel`` in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), as the JAX model ``nn.remat``s
+them (:299-303): the kernels' forwards then run twice per training step.
+The recompute sees the LoRA tensors that were attached during the forward,
+so a backward after :func:`lora.attached` has exited is still right.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..lora import LoraTarget
 from ..ops.attention import attention as attention_op
@@ -48,6 +55,7 @@ class UNetConfig:
     use_linear_projection: bool = False
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    gradient_checkpointing: bool = False
 
     def heads_for_block(self, i: int) -> int:
         if isinstance(self.attention_head_dim, (tuple, list)):
@@ -233,6 +241,32 @@ class _Block(nn.Module):
         self.upsamplers = nn.ModuleList([upsample]) if upsample else None
 
 
+_LORA = ("lora_up", "lora_down", "lora_scale")
+
+
+def _remat(block: nn.Module, *args):
+    """``block(*args)`` under activation checkpointing.  The LoRA tensors
+    attached to the block's layers now are set again for the recompute in
+    the backward pass (and the layers' state restored after it), so the
+    recompute runs the same function as the forward did."""
+    layers = [m for m in block.modules() if hasattr(m, "lora_up")]
+    attached = [tuple(getattr(m, n) for n in _LORA) for m in layers]
+
+    def run(*a):
+        before = [tuple(getattr(m, n) for n in _LORA) for m in layers]
+        for m, vals in zip(layers, attached):
+            for n, val in zip(_LORA, vals):
+                setattr(m, n, val)
+        try:
+            return block(*a)
+        finally:
+            for m, vals in zip(layers, before):
+                for n, val in zip(_LORA, vals):
+                    setattr(m, n, val)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class UNet2DConditionModel(nn.Module):
     """``forward(sample (B, C, H, W), timesteps (B,) or scalar,
     encoder_hidden_states (B, S, cross_attention_dim))`` -> (B, C_out, H, W)
@@ -302,28 +336,32 @@ class UNet2DConditionModel(nn.Module):
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
         temb = self.time_embedding(t_emb)
         context = encoder_hidden_states.to(dtype)
+        if cfg.gradient_checkpointing and torch.is_grad_enabled():
+            call = _remat
+        else:
+            call = lambda block, *a: block(*a)
 
         h = self.conv_in(sample.to(dtype))
         states = [h]
         for blk in self.down_blocks:
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = call(res, h, temb)
                 if blk.attentions is not None:
-                    h = blk.attentions[j](h, context)
+                    h = call(blk.attentions[j], h, context)
                 states.append(h)
             if blk.downsamplers is not None:
                 h = blk.downsamplers[0](h)
                 states.append(h)
 
-        h = self.mid_block.resnets[0](h, temb)
-        h = self.mid_block.attentions[0](h, context)
-        h = self.mid_block.resnets[1](h, temb)
+        h = call(self.mid_block.resnets[0], h, temb)
+        h = call(self.mid_block.attentions[0], h, context)
+        h = call(self.mid_block.resnets[1], h, temb)
 
         for blk in self.up_blocks:
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, states.pop()], dim=1), temb)
+                h = call(res, torch.cat([h, states.pop()], dim=1), temb)
                 if blk.attentions is not None:
-                    h = blk.attentions[j](h, context)
+                    h = call(blk.attentions[j], h, context)
             if blk.upsamplers is not None:
                 h = blk.upsamplers[0](h)
 

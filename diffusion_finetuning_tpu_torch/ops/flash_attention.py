@@ -1,21 +1,26 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention: hand-written Hopper kernels for the forward and the
+backward, their plain versions, and the autograd function around them.
 
-Port of the JAX package's Pallas TPU kernel ``ops/flash_attention.py``
-``_fwd_kernel`` (:87, wrapper ``_fwd`` :141, public ``flash_attention``
-:459).  The CUDA kernel is ``csrc/flash_attention.cu`` (``sm_90a``); its
-design and its bound on the card are noted there.
+Port of the JAX package's Pallas TPU kernels ``ops/flash_attention.py``
+``_fwd_kernel`` (:87, wrapper ``_fwd`` :141) and ``_bwd_kernel`` (:285,
+wrapper ``_bwd`` :349), joined by the custom VJP ``_flash`` (:430-456) and
+reached through the public ``flash_attention`` (:459).  The CUDA kernels are
+``csrc/flash_attention.cu`` (K1, forward) and ``csrc/flash_attention_bwd.cu``
+(K3, backward), both ``sm_90a``; their designs and bounds are noted there.
 
 Contract of :func:`flash_fwd` (the kernel's own layout, as JAX ``_fwd``):
 q ``(BH, Sq, D)``, k/v ``(BH, Skv, D)`` -> O ``(BH, Sq, D)`` in q's dtype and
 an fp32 lse ``(BH, Sq)``.  The lse is in BASE 2 -- ``log2`` of the sum of
 ``2**(logits * scale * log2(e))``, i.e. the natural-log lse times
-``log2(e)`` -- the JAX package's default (``DFT_FLASH_EXP2=1``).  The
-backward kernel of the training slice reads it in that base.
+``log2(e)`` -- the JAX package's default (``DFT_FLASH_EXP2=1``).
+:func:`flash_bwd` reads it in that base: ``(q, k, v, O, lse, dO)`` ->
+``(dQ, dK, dV)`` in q's, k's and v's dtypes.
 
-On a CPU tensor every entry here runs :func:`flash_attention_plain`; on a
-CUDA tensor it launches the kernel or raises.  There is no backward yet:
-CUDA tensors that require grad are refused rather than silently given no
-gradient.
+On a CPU tensor every entry here runs the plain version
+(:func:`flash_attention_plain`, :func:`flash_backward_plain`); on a CUDA
+tensor it launches the kernel or raises.  :func:`flash_attention` is
+differentiable: with grad enabled and an input that requires grad it runs
+:class:`FlashAttentionFunction` (K1 forward, K3 backward).
 """
 
 from __future__ import annotations
@@ -30,8 +35,10 @@ from . import _build
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
-# kernel launches so far (chip_smoke.py resets and reads it)
+# kernel launches so far, forward (K1) and backward (K3); chip_smoke.py
+# resets and reads them
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 160  # largest padded head dim the bf16 kernel is built for
@@ -70,30 +77,58 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
 
 
-_lib = None
+def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, (BH, Sq) -- JAX ``_bwd`` :355, outside
+    the kernel there too."""
+    return (do.float() * o.float()).sum(dim=-1)
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("flash_attention")
-        fn = lib.dft_flash_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                         scale: float, block_q: int = 256
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's math (FA2, JAX ``_bwd_kernel``) in blockwise
+    torch over q blocks: P = exp2(S * scale * log2 e - lse) from the base-2
+    lse, dV = P^T dO with P rounded to v's dtype, dP = dO V^T,
+    dS = P (dP - delta) scale rounded to q's dtype, dK = dS^T Q, dQ = dS K;
+    products of the inputs' values with fp32 accumulation.  Returns dQ, dK,
+    dV in q's, k's and v's dtypes."""
+    bh, sq, d = q.shape
+    logit_scale = scale * LOG2E
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = _delta(o, do)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    dqs = []
+    for i in range(0, sq, block_q):
+        qb, dob = qf[:, i:i + block_q], dof[:, i:i + block_q]
+        s = torch.matmul(qb, kf.transpose(1, 2)) * logit_scale
+        p = torch.exp2(s - lse[:, i:i + block_q, None])
+        dv += torch.matmul(p.to(v.dtype).float().transpose(1, 2), dob)
+        dp = torch.matmul(dob, vf.transpose(1, 2))
+        ds = (p * (dp - delta[:, i:i + block_q, None]) * scale).to(q.dtype).float()
+        dk += torch.matmul(ds.transpose(1, 2), qb)
+        dqs.append(torch.matmul(ds, kf).to(q.dtype))
+    return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_FNS = {}
+
+
+def _kernel(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, built at first use."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.dft_flash_fwd
+        _FNS[symbol] = fn
+    return fn
 
 
-def _fwd_cuda(q, k, v, scale):
-    global launches
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel yet; call it under "
-            "torch.no_grad() / torch.inference_mode()")
+def _check_qkv(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes fp32 or bf16 q/k/v of one dtype, "
+        raise TypeError(f"flash kernels take fp32 or bf16 q/k/v of one dtype, "
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
@@ -104,10 +139,18 @@ def _fwd_cuda(q, k, v, scale):
     if q.dtype == torch.bfloat16 and d > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {_MAX_HEAD_DIM} is not built")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash kernel takes contiguous q, k, v")
+        raise ValueError("flash kernels take contiguous q, k, v")
+
+
+def _fwd_cuda(q, k, v, scale):
+    global launches
+    _check_qkv(q, k, v)
+    bh, sq, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    fn = _kernel("flash_attention", "dft_flash_fwd",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -116,6 +159,34 @@ def _fwd_cuda(q, k, v, scale):
     _build.check(rc, "flash_attention")
     launches += 1
     return o, lse
+
+
+def _bwd_cuda(q, k, v, lse, delta, do, scale):
+    global bwd_launches
+    _check_qkv(q, k, v)
+    bh, sq, d = q.shape
+    if any(t.device != q.device for t in (do, lse, delta)):
+        raise ValueError("dO, lse and delta must be on q's device")
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must be a contiguous "
+                         f"tensor like q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (bh, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous fp32 ({bh}, {sq}) tensor")
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _kernel("flash_attention_bwd", "dft_flash_bwd",
+                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), bh, sq, k.shape[1], d, float(scale),
+                _DTYPES[q.dtype], stream)
+    _build.check(rc, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq_acc.to(q.dtype), dk, dv
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -129,10 +200,43 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raise ValueError(f"no flash attention for device {q.device}")
 
 
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              lse: torch.Tensor, do: torch.Tensor, scale: float
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) from the forward's inputs, O and base-2 lse, and dO;
+    kernel on CUDA (delta computed as a torch op first), plain version on
+    CPU."""
+    if q.device.type == "cuda":
+        return _bwd_cuda(q, k, v, lse, _delta(o, do), do, scale)
+    if q.device.type == "cpu":
+        return flash_backward_plain(q, k, v, o, lse, do, scale)
+    raise ValueError(f"no flash attention backward for device {q.device}")
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable (BH, S, D) flash attention: :func:`flash_fwd` forward,
+    saving q, k, v, O and lse (JAX ``_flash_fwd`` :438), and :func:`flash_bwd`
+    backward (JAX ``_flash_bwd`` :445)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     heads: int, scale: Optional[float] = None) -> torch.Tensor:
-    """(B, Sq, H*D) x (B, Skv, H*D) -> (B, Sq, H*D), the JAX layout.  The
-    split to (B*H, S, D) and the merge back are torch copies, as the JAX
+    """(B, Sq, H*D) x (B, Skv, H*D) -> (B, Sq, H*D), the JAX layout,
+    differentiable.  The split to (B*H, S, D) and the merge back are torch
+    copies (autograd carries the gradient through them), as the JAX
     wrapper's reshapes are XLA ops."""
     B, sq, C = q.shape
     skv = k.shape[1]
@@ -143,5 +247,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     def split(t, s):
         return t.reshape(B, s, heads, d).transpose(1, 2).reshape(B * heads, s, d).contiguous()
 
-    o, _ = flash_fwd(split(q, sq), split(k, skv), split(v, skv), scale)
+    qh, kh, vh = split(q, sq), split(k, skv), split(v, skv)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o = FlashAttentionFunction.apply(qh, kh, vh, scale)
+    else:
+        o, _ = flash_fwd(qh, kh, vh, scale)
     return o.reshape(B, heads, sq, d).transpose(1, 2).reshape(B, sq, C)

@@ -12,9 +12,11 @@ shared by both packages, ``scale`` is a scalar tensor (read on the device,
 never baked into the kernel), ``bias`` is optional.
 
 On a CPU tensor :func:`lora_dense` runs :func:`lora_dense_plain`; on a CUDA
-tensor it launches the kernel or raises.  The backward (plain matmuls in the
-JAX package, :111-131) comes with the training slice; until then CUDA
-tensors that require grad are refused.
+tensor it launches the kernel or raises.  :func:`lora_dense` is
+differentiable: with grad enabled and an operand that requires grad it runs
+:class:`LoraDenseFunction`, whose forward is the kernel (or the plain
+version on the CPU) and whose backward is torch matmuls in fp32, as the JAX
+package's backward is plain XLA (``_lora_dense_bwd`` :111-131).
 """
 
 from __future__ import annotations
@@ -70,10 +72,6 @@ def _kernel():
 def _lora_dense_cuda(x, weight, bias, up, down, scale):
     global launches
     operands = [x, weight, up, down] + ([bias] if bias is not None else [])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        raise NotImplementedError(
-            "lora_dense has no backward yet; call it under torch.no_grad() / "
-            "torch.inference_mode()")
     if x.dtype not in _DTYPES:
         raise TypeError(f"LoRA kernel takes fp32 or bf16, got {x.dtype}")
     if any(t.device != x.device for t in operands):
@@ -106,16 +104,62 @@ def _lora_dense_cuda(x, weight, bias, up, down, scale):
     return y
 
 
+def _forward(x, weight, bias, up, down, scale):
+    if x.device.type == "cuda":
+        return _lora_dense_cuda(x, weight, bias, up, down, scale)
+    if x.device.type == "cpu":
+        return lora_dense_plain(x, weight, bias, up, down, scale)
+    raise ValueError(f"no LoRA dense for device {x.device}")
+
+
+class LoraDenseFunction(torch.autograd.Function):
+    """Differentiable LoRA dense on (M, K) inputs.  Forward: the kernel (the
+    plain version on the CPU).  Backward: JAX ``_lora_dense_bwd`` in torch,
+    products in fp32, computing only the gradients autograd asks for (the
+    frozen base weight gets no dW on the training path)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, up, down, scale):
+        ctx.save_for_backward(x, weight, up, down, _scale32(scale, x.device))
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.scale_shape = scale.shape if isinstance(scale, torch.Tensor) else ()
+        return _forward(x, weight, bias, up, down, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, up, down, s = ctx.saved_tensors
+        need_x, need_w, need_b, need_up, need_down, need_s = ctx.needs_input_grad
+        gf = g.float()
+        upf, downf = up.float(), down.float()
+        dx = dw = db = dup = ddown = dscale = None
+        if need_x:
+            dx = (gf @ weight.float() + s * ((gf @ upf) @ downf)).to(x.dtype)
+        if need_w:
+            dw = (gf.t() @ x.float()).to(weight.dtype)
+        if need_b and ctx.bias_dtype is not None:
+            db = gf.sum(dim=0).to(ctx.bias_dtype)
+        if need_up or need_down or need_s:
+            xf = x.float()
+            h = xf @ downf.t()  # (M, r)
+            if need_up:
+                dup = ((gf.t() @ h) * s).to(up.dtype)
+            if need_down:
+                ddown = (((upf.t() @ gf.t()) @ xf) * s).to(down.dtype)
+            if need_s:
+                dscale = (gf * (h @ upf.t())).sum().reshape(ctx.scale_shape)
+        return dx, dw, db, dup, ddown, dscale
+
+
 def lora_dense(x: torch.Tensor, weight: torch.Tensor,
                bias: Optional[torch.Tensor], up: torch.Tensor,
                down: torch.Tensor, scale) -> torch.Tensor:
     """Fused LoRA dense on (..., K) inputs; returns (..., N)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x.device.type == "cuda":
-        y = _lora_dense_cuda(x2, weight, bias, up, down, scale)
-    elif x.device.type == "cpu":
-        y = lora_dense_plain(x2, weight, bias, up, down, scale)
+    operands = [x, weight, up, down, scale] + ([bias] if bias is not None else [])
+    if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad
+                                       for t in operands):
+        y = LoraDenseFunction.apply(x2, weight, bias, up, down, scale)
     else:
-        raise ValueError(f"no LoRA dense for device {x.device}")
+        y = _forward(x2, weight, bias, up, down, scale)
     return y.reshape(*lead, weight.shape[0])

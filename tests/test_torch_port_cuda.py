@@ -10,7 +10,10 @@ Tolerances: bf16 outputs within 2e-2 (flash) / 5e-2 (LoRA, |y| up to ~4)
 absolute of the plain version on the same bf16 inputs -- the kernel and the
 plain version round p or h and the output to bf16 at the same places but sum
 in another order, so single values may land one bf16 ulp apart; fp32 within
-1e-4; the flash lse within 1e-3.
+1e-4; the flash lse within 1e-3.  The flash backward's dQ, dK and dV within
+2e-2 of the largest reference value and 1e-2 relative L2 in bf16 (dS is
+rounded to bf16 from sums taken in another order, and dQ is summed by fp32
+atomics in a varying order), 1e-4 relative in fp32.
 """
 
 import pytest
@@ -72,11 +75,60 @@ def test_attention_launches_the_flash_kernel(card):
     assert out.shape == q.shape and _max_err(out, ref) <= 2e-2
 
 
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _bwd_inputs(card, bh, sq, skv, d, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn((bh, s, d), generator=g, device=card, dtype=dtype)
+                   for s in (sq, skv, skv, sq))
+    with torch.inference_mode():
+        o, lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    return q, k, v, o, lse, do
+
+
 @pytest.mark.cuda
-def test_flash_kernel_refuses_grad(card):
-    q = torch.randn((1, 8, 16), device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        tfa.flash_fwd(q, q.detach(), q.detach(), 0.25)
+@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160)])
+def test_flash_bwd_kernel_matches_plain(card, sq, skv, d):
+    q, k, v, o, lse, do = _bwd_inputs(card, 8, sq, skv, d, torch.bfloat16, 0)
+    before = tfa.bwd_launches
+    with torch.inference_mode():
+        got = tfa.flash_bwd(q, k, v, o, lse, do, d ** -0.5)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5)
+    assert tfa.bwd_launches == before + 1
+    for a, b, t in zip(got, want, (q, k, v)):
+        assert a.dtype == t.dtype and a.shape == t.shape
+        assert bool(torch.isfinite(a).all())
+        assert _max_err(a, b) <= 2e-2 * float(b.float().abs().max())
+        assert _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_fp32_ragged(card):
+    q, k, v, o, lse, do = _bwd_inputs(card, 3, 70, 77, 24, torch.float32, 1)
+    with torch.inference_mode():
+        got = tfa.flash_bwd(q, k, v, o, lse, do, 0.3)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, 0.3)
+    for a, b in zip(got, want):
+        assert _rel_l2(a, b) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_attention_backward_launches_the_bwd_kernel(card):
+    """A backward through ops.attention runs K3 once per call, with the
+    gradients of plain_attention's autograd."""
+    g = torch.Generator(device=card).manual_seed(2)
+    q, k, v = (torch.randn((2, s, 8 * 40), generator=g, device=card, dtype=torch.bfloat16)
+               .requires_grad_(True) for s in (256, 77, 77))
+    dout = torch.randn((2, 256, 8 * 40), generator=g, device=card, dtype=torch.bfloat16)
+    before = (tfa.launches, tfa.bwd_launches)
+    got = torch.autograd.grad(tatt.attention(q, k, v, 8), (q, k, v), dout)
+    assert (tfa.launches, tfa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(tatt.plain_attention(q, k, v, 8), (q, k, v), dout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_l2(a, b) <= 2e-2
 
 
 @pytest.mark.cuda
@@ -124,3 +176,24 @@ def test_lora_linear_launches_the_lora_kernel(card):
     assert tlm.launches == before + 1
     assert y.shape == (2, 77, 640) and _max_err(y.reshape(-1, 640), ref) <= 5e-2
     assert _max_err(y, base) > 0.1  # the LoRA term is on the path
+
+
+@pytest.mark.cuda
+def test_lora_dense_gradients_match_plain(card):
+    """Gradients through the kernel's autograd function against autograd of
+    the plain version, bf16 on the card; no dW for a frozen weight."""
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((2048, 640), generator=g, device=card).bfloat16().requires_grad_(True)
+    w = (torch.randn((640, 640), generator=g, device=card) * 640 ** -0.5).bfloat16()
+    b = (torch.randn((640,), generator=g, device=card) * 0.1).bfloat16()
+    up = (torch.randn((640, 4), generator=g, device=card) * 0.1).requires_grad_(True)
+    down = (torch.randn((4, 640), generator=g, device=card) / 4).requires_grad_(True)
+    dy = torch.randn((2048, 640), generator=g, device=card).bfloat16()
+    before = tlm.launches
+    y = tlm.lora_dense(x, w, b, up.bfloat16(), down.bfloat16(), 0.8)
+    assert tlm.launches == before + 1
+    got = torch.autograd.grad(y, (x, up, down), dy)
+    want = torch.autograd.grad(
+        tlm.lora_dense_plain(x, w, b, up.bfloat16(), down.bfloat16(), 0.8), (x, up, down), dy)
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and _rel_l2(a, b_) <= 1e-2

@@ -121,14 +121,26 @@ def test_merged_cache_follows_tree_identity(pipes):
 
 
 def test_entry_points_default_to_cuda():
-    """Without CUDA and without device="cpu" the pipeline refuses to start."""
+    """Without CUDA and without device="cpu" the pipeline, the train-state
+    set-up and the latent cache refuse to start."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    from diffusion_finetuning_tpu_torch.training.latent_cache import LatentMomentCache
+    from diffusion_finetuning_tpu_torch.training.optim import ParamGroup, multi_group_optimizer
+    from diffusion_finetuning_tpu_torch.training.train_step import init_train_state
+
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _port_pipe(device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         StableDiffusionPipeline(UNetConfig.tiny(), {}, VAEConfig.tiny(), {},
                                 CLIPTextConfig.tiny(), {}, CLIPTokenizer.tiny())
+    opt = multi_group_optimizer({"unet_lora": ParamGroup(lr=1e-4)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(opt, unet_lora={"a": {"up": torch.zeros(2, 1),
+                                               "down": torch.zeros(1, 2),
+                                               "scale": torch.tensor(1.0)}})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LatentMomentCache(None)
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -147,28 +159,38 @@ def test_chip_smoke_fails_without_a_card():
 
 def test_chip_smoke_kernels_line_names_each_kernel_fully():
     """Each kernel of the kernels line carries every key, sums its times
-    over one UNet step's calls, and names its source and the Pallas kernel
-    it replaces by file and line."""
+    over one step's calls, counts its launches over the main-path runs, and
+    names its source and the Pallas kernel it replaces by file and line:
+    the flash forward (K1), the flash backward (K3) and the LoRA dense (K2)."""
     import chip_smoke
 
     row = dict(max_abs_err=0.01, ms=1.0, plain_ms=3.0, bound_ms=0.5, bound_by="bytes",
                library_ms=0.7)
     line = chip_smoke.kernels_line(
         {"flash_attention_fwd": [dict(row, shape=[1], per_step=2)],
+         "flash_attention_bwd": [dict(row, shape=[1], per_step=2, bound_by="operations")],
          "lora_dense": [dict(row, shape=[2], per_step=3),
                         dict(row, shape=[3], per_step=1, max_abs_err=0.03)]},
-        {"flash_attention_fwd": 64, "lora_dense": 144})
+        {"serving": {"flash_attention_fwd": 64, "flash_attention_bwd": 0, "lora_dense": 144},
+         "train": {"flash_attention_fwd": 320, "flash_attention_bwd": 320,
+                   "lora_dense": 1440}})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    flash, lora = line["kernels"]
-    for k in (flash, lora):
+    flash, bwd, lora = line["kernels"]
+    assert [k["name"] for k in line["kernels"]] == [
+        "flash_attention_fwd", "flash_attention_bwd", "lora_dense"]
+    for k in (flash, bwd, lora):
         assert keys <= set(k) and k["route"] == "cuda"
         assert os.path.exists(os.path.join(ROOT, k["source"]))
         path, lineno = k["replaces"].rsplit(":", 1)
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(lineno) - 1].startswith("def _")
-    assert (flash["launches"], flash["ms"], flash["plain_ms"]) == (64, 2.0, 6.0)
-    assert (lora["launches"], lora["ms"], lora["max_abs_err"]) == (144, 4.0, 0.03)
+    assert (flash["launches"], flash["ms"], flash["plain_ms"]) == (384, 2.0, 6.0)
+    assert (lora["launches"], lora["ms"], lora["max_abs_err"]) == (1584, 4.0, 0.03)
+    assert bwd["replaces"] == "diffusion_finetuning_tpu/ops/flash_attention.py:285"
+    assert bwd["source"] == "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd.cu"
+    assert (bwd["launches"], bwd["launches_by_path"], bwd["per"], bwd["bound_by"]) == (
+        320, {"serving": 0, "train": 320}, "train_step", "operations")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
