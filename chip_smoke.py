@@ -29,7 +29,22 @@ Phases, each fatal on failure:
      AdamW with max_grad_norm 1.0: 2 warm-up and 10 timed steps with the
      launch counters set to 0 just before the 10 and read just after (32
      flash forward, 32 flash backward and 144 LoRA launches a step), then
-     one step with gradient checkpointing (64 / 32 / 288).
+     one step with gradient checkpointing (64 / 32 / 288);
+  6. the opt-in kernel path, both switches on (``DFT_CONV_PALLAS``: the
+     UNet's resnet 3x3 convs through the fused conv K5; head packing G = 2:
+     every flash forward through K4): one UNet step against phase 3's CPU
+     fp32 run; img2img at 128^2 against the same call on the CPU in fp32
+     (same draws); then the main path of this phase, img2img requests
+     through ``StableDiffusionPipeline.img2img`` (512^2, 50 DDIM steps,
+     strength 0.75 so 38 UNet steps, CFG, dynamic LoRA) with exact launch
+     counts (37 K5, 32 K4, 144 K2 a UNet step, no K1); then training: one
+     ``loss_step`` + backward against phase 5's CPU fp32 gradient, 1 + 4
+     ``build_train_step`` steps (37 K5, 32 K4, 32 K3, 144 K2 a step) and
+     one checkpointed step (72 / 64 / 32 / 288: the first resnet block,
+     which needs no gradient, is not recomputed).  Phase 2 also holds K5
+     against its plain version at every routed SD1.5 conv shape (batch 2
+     and 1), and K4 (G = 2 and 4) equal to K1 bit for bit at every flash
+     shape.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -71,6 +86,37 @@ LORA_RANK = 4
 FLASH_PER_STEP = sum(s[3] for s in FLASH_SHAPES)   # 32
 LORA_PER_STEP = sum(s[3] for s in LORA_SHAPES)     # 144
 
+# flash forward heads per CTA on the phase-6 path, and the packings phase 2
+# holds against K1
+HEAD_PACK = 2
+K4_PACKS = (2, 4)
+
+
+def unet_conv3x3_calls(ucfg, batch, side, only=None):
+    """{(B, C, H, W, O): calls} of the resnet 3x3 convs that one UNet call at
+    ``side``^2 latents sends to the fused conv (the copied JAX predicate,
+    bf16), from the UNet's resnet channel map: the conv1 (C_in -> C_out) and
+    conv2 (C_out -> C_out) of every ResnetBlock2D (of the one named
+    ``only``, if given)."""
+    from diffusion_finetuning_tpu_torch.models.unet import _resnet_channel_map
+    from diffusion_finetuning_tpu_torch.ops.conv3x3 import supported
+
+    levels = len(ucfg.block_out_channels)
+    calls = {}
+    for prefix, cin, cout in _resnet_channel_map(ucfg):
+        if only is not None and prefix != only:
+            continue
+        part = prefix.split("_")
+        level = (int(part[2]) if part[0] == "down" else
+                 levels - 1 - int(part[2]) if part[0] == "up" else levels - 1)
+        hw = side >> level
+        for c in (cin, cout):
+            if supported((batch, hw, hw, c), (3, 3, c, cout), (1, 1), padding=1, itemsize=2):
+                key = (batch, c, hw, hw, cout)
+                calls[key] = calls.get(key, 0) + 1
+    return calls
+
+
 # H100 SXM published dense peaks
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -81,6 +127,9 @@ FLASH_TOL = {"max_abs": 2e-2, "rel_l2": 1e-2, "lse_abs": 1e-3}
 # dQ/dK/dV: max |err| relative to the largest reference value, and rel L2
 # (dS rounds to bf16 from sums in another order; dQ sums by fp32 atomics)
 FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
+# conv3x3: max |err| within one bf16 ulp of the largest reference value,
+# and rel L2 (the 9*C-term fp32 sums run in another order, then both round)
+CONV_TOL = {"max_rel": 2 ** -7, "rel_l2": 1e-2}
 LORA_TOL = {"max_abs": 5e-2, "rel_l2": 1e-2}
 UNET_REL_L2 = 5e-2  # bf16 card run vs fp32 CPU run of the whole UNet
 TRAIN_GRAD_REL_L2 = 1e-1  # bf16 card vs fp32 CPU: the whole LoRA gradient of one step
@@ -239,14 +288,14 @@ def phase_kernels():
                                dtype=torch.bfloat16) for s in (sq, skv, skv))
         scale = d ** -0.5
         with torch.inference_mode():
-            o, lse = fa.flash_fwd(q, k, v, scale)
+            o, lse = fa.flash_fwd(q, k, v, scale, head_pack=1)
             o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
             torch.cuda.synchronize()
             mx, rel = errors(o, o_ref)
             lse_err = float((lse - lse_ref).abs().max())
             ok = (mx <= FLASH_TOL["max_abs"] and rel <= FLASH_TOL["rel_l2"]
                   and lse_err <= FLASH_TOL["lse_abs"] and bool(torch.isfinite(o).all()))
-            ms = cuda_time(lambda: fa.flash_fwd(q, k, v, scale), iters, flush)
+            ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale), iters, flush)
             plain_ms = cuda_time(lambda: fa.flash_attention_plain(q, k, v, scale),
                                  3, flush, hide_host=False)
             q4, k4, v4 = (t.reshape(2, 8, -1, d) for t in (q, k, v))
@@ -269,14 +318,20 @@ def phase_kernels():
     # fp32 inputs take the FMA kernel: check it once
     q, k, v = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77))
     with torch.inference_mode():
-        o, lse = fa.flash_fwd(q, k, v, 0.2)
+        o, lse = fa._fwd_cuda(q, k, v, 0.2)
         o_ref, lse_ref = fa.flash_attention_plain(q, k, v, 0.2)
+        o4, lse4 = fa._fwd_cuda(q, k, v, 0.2, 2)
     mx, rel = errors(o, o_ref)
-    log(f"flash  fp32 (4, 200, 77, 40): max_abs={mx:.3e} rel_l2={rel:.3e}")
+    log(f"flash  fp32 (4, 200, 77, 40): max_abs={mx:.3e} rel_l2={rel:.3e}; "
+        f"packed G=2 equal: {torch.equal(o4, o) and torch.equal(lse4, lse)}")
     if not (mx <= 1e-4 and float((lse - lse_ref).abs().max()) <= 1e-4):
         fail("fp32 flash attention kernel disagrees")
+    if not (torch.equal(o4, o) and torch.equal(lse4, lse)):
+        fail("fp32 packed flash attention kernel differs from the unpacked one")
     results["flash_attention_fwd"] = rows
+    results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
+    results["conv3x3"] = conv3x3_rows(gen, flush, iters)
 
     rows = []
     for m, kdim, n, count in LORA_SHAPES:
@@ -326,6 +381,123 @@ def phase_kernels():
         fail("fp32 LoRA dense kernel disagrees")
     results["lora_dense"] = rows
     return results
+
+
+def bound(flops, nbytes):
+    """(bound ms, what bounds it) on the H100's published peaks."""
+    by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+    return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3, by
+
+
+def flash_packed_rows(gen, flush, iters):
+    """K4 at G = 2 and 4 at every serving flash shape (BH = 16): O and lse
+    equal to K1's bit for bit, error against the packed plain version, its
+    time, the plain version's, SDPA's, and the bound (K1's: the same work).
+    Rows of G = HEAD_PACK carry the calls a phase-6 UNet step makes; the
+    others count 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    log(f"limits, packed flash: O and lse equal to K1's; vs plain version {FLASH_TOL}")
+    rows = []
+    for pack in K4_PACKS:
+        for sq, skv, d, count in FLASH_SHAPES:
+            q, k, v = (torch.randn((FLASH_BH, s, d), generator=gen, device=dev,
+                                   dtype=torch.bfloat16) for s in (sq, skv, skv))
+            scale = d ** -0.5
+            with torch.inference_mode():
+                o1, lse1 = fa._fwd_cuda(q, k, v, scale)
+                o, lse = fa._fwd_cuda(q, k, v, scale, pack)
+                o_ref, lse_ref = fa.flash_attention_plain_packed(q, k, v, scale, pack)
+                torch.cuda.synchronize()
+                equal = torch.equal(o, o1) and torch.equal(lse, lse1)
+                mx, rel = errors(o, o_ref)
+                lse_err = float((lse - lse_ref).abs().max())
+                ok = (equal and mx <= FLASH_TOL["max_abs"] and rel <= FLASH_TOL["rel_l2"]
+                      and lse_err <= FLASH_TOL["lse_abs"])
+                ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale, pack), iters, flush)
+                plain_ms = cuda_time(
+                    lambda: fa.flash_attention_plain_packed(q, k, v, scale, pack),
+                    3, flush, hide_host=False)
+                q4, k4, v4 = (t.reshape(2, 8, -1, d) for t in (q, k, v))
+                lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                   iters, flush)
+            routed = fa.use_head_pack(pack, FLASH_BH, sq, skv, d, 2)
+            bound_ms, by = bound(4 * FLASH_BH * sq * skv * d,
+                                 2 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq)
+            row = dict(shape=[FLASH_BH, sq, skv, d], head_pack=pack, routed=routed,
+                       per_step=count if pack == HEAD_PACK and routed else 0,
+                       equal_to_k1=equal, max_abs_err=mx, rel_l2=rel, lse_abs_err=lse_err,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=by)
+            rows.append(row)
+            log(f"flash packed G={pack} BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+                f"equal to K1 {equal}, max_abs={mx:.3e} lse={lse_err:.2e} ms={ms:.4f} "
+                f"plain={plain_ms:.3f} sdpa={lib_ms:.4f} bound={bound_ms:.4f} ({by}) "
+                f"routed={routed} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"packed flash attention kernel disagrees at G={pack} {row['shape']}")
+    return rows
+
+
+def conv3x3_rows(gen, flush, iters):
+    """K5 at every distinct SD1.5 resnet conv shape the routing sends it at
+    512^2, batch 2 (a CFG UNet step) and batch 1 (a train step), without a
+    bias as the layers call it: error against the plain version on the same
+    bf16 inputs, its time, the plain version's, cuDNN's (``F.conv2d``), and
+    the bound (2*B*H*W*C*O*9 operations; x, weight and y bytes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
+
+    dev = torch.device("cuda")
+    side = IMAGE // 8
+    log(f"limits, conv3x3 bf16 kernel vs plain version: {CONV_TOL}")
+    rows = []
+    for batch in (2, 1):
+        for (b, c, h, w, o), calls in unet_conv3x3_calls(UNetConfig.sd15(), batch, side).items():
+            x = torch.randn((b, c, h, w), generator=gen, device=dev, dtype=torch.bfloat16)
+            wt = (torch.randn((o, c, 3, 3), generator=gen, device=dev)
+                  / (3 * c ** 0.5)).bfloat16()
+            with torch.inference_mode():
+                y = cv._conv3x3_cuda(x, wt, None)
+                y_ref = cv.conv3x3_plain(x, wt, None)
+                torch.cuda.synchronize()
+                mx, rel = errors(y, y_ref)
+                peak = float(y_ref.float().abs().max())
+                ok = (mx <= CONV_TOL["max_rel"] * peak and rel <= CONV_TOL["rel_l2"]
+                      and bool(torch.isfinite(y).all()))
+                ms = cuda_time(lambda: cv._conv3x3_cuda(x, wt, None), iters, flush)
+                plain_ms = cuda_time(lambda: cv.conv3x3_plain(x, wt, None), 3, flush,
+                                     hide_host=False)
+                lib_ms = cuda_time(lambda: F.conv2d(x, wt, None, padding=1), iters, flush)
+            bound_ms, by = bound(2 * b * h * w * c * o * 9,
+                                 2 * (b * c * h * w + o * c * 9 + b * o * h * w))
+            row = dict(shape=[b, c, h, w, o], per_step=calls if batch == 2 else 0,
+                       train_per_step=calls if batch == 1 else 0, max_abs_err=mx,
+                       max_rel_err=mx / peak, rel_l2=rel, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+            rows.append(row)
+            log(f"conv3x3 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d}: max_abs={mx:.3e} "
+                f"rel_l2={rel:.3e} ms={ms:.4f} plain={plain_ms:.3f} cudnn={lib_ms:.4f} "
+                f"bound={bound_ms:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"conv3x3 kernel disagrees at {row['shape']}")
+    # fp32 inputs take the FMA kernel: check it once, ragged
+    x = torch.randn((2, 24, 9, 11), generator=gen, device=dev)
+    wt = torch.randn((70, 24, 3, 3), generator=gen, device=dev) * 0.1
+    bias = torch.randn((70,), generator=gen, device=dev)
+    with torch.inference_mode():
+        _, rel = errors(cv._conv3x3_cuda(x, wt, bias), cv.conv3x3_plain(x, wt, bias))
+    log(f"conv3x3 fp32 (2, 24, 9x11, 70): rel_l2={rel:.3e}")
+    if not rel <= 1e-5:
+        fail("fp32 conv3x3 kernel disagrees")
+    return rows
 
 
 def flash_bwd_rows(gen, flush, iters):
@@ -471,21 +643,45 @@ def build_pipe(ucfg, vcfg, tcfg, sds, dtype, device):
         dtype=dtype, device=device)
 
 
-def counts():
-    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
-    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+# kernel -> (module, its launch counter)
+COUNTERS = {
+    "flash_attention_fwd": ("flash_attention", "launches"),
+    "flash_attention_fwd_packed": ("flash_attention", "packed_launches"),
+    "flash_attention_bwd": ("flash_attention", "bwd_launches"),
+    "lora_dense": ("lora_matmul", "launches"),
+    "conv3x3": ("conv3x3", "launches"),
+}
 
-    return {"flash_attention_fwd": fa.launches, "flash_attention_bwd": fa.bwd_launches,
-            "lora_dense": lm.launches}
+
+def _op(module):
+    import importlib
+
+    return importlib.import_module(f"diffusion_finetuning_tpu_torch.ops.{module}")
+
+
+def counts():
+    return {name: getattr(_op(mod), attr) for name, (mod, attr) in COUNTERS.items()}
 
 
 def reset_counts():
-    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
-    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+    for mod, attr in COUNTERS.values():
+        setattr(_op(mod), attr, 0)
 
-    fa.launches = 0
-    fa.bwd_launches = 0
-    lm.launches = 0
+
+def want_counts(**launches):
+    """Expected launches of every kernel: those named, 0 for the rest."""
+    assert set(launches) <= set(COUNTERS), launches
+    return {name: launches.get(name, 0) for name in COUNTERS}
+
+
+def set_switches(on):
+    """Phase 6's opt-in kernels: the fused 3x3 conv in the UNet's resnets
+    (``DFT_CONV_PALLAS``) and head-packed flash forwards (G = HEAD_PACK)."""
+    from diffusion_finetuning_tpu_torch.models import layers
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    layers.CONV_KERNEL = on
+    fa.DEFAULT_HEAD_PACK = HEAD_PACK if on else 1
 
 
 # ---------------------------------------------------------------------------
@@ -493,10 +689,24 @@ def reset_counts():
 # ---------------------------------------------------------------------------
 
 
+def unet_step_inputs(pipe):
+    """The UNet step's inputs on the CPU: CFG pair at 64x64 latents (bf16),
+    bf16 text context, t = 500."""
+    import torch
+
+    ucfg = pipe.unet_config
+    g = torch.Generator().manual_seed(SEED + 20)
+    side = IMAGE // pipe.vae_scale_factor
+    x = torch.randn((2, ucfg.in_channels, side, side), generator=g).bfloat16()
+    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g).bfloat16()
+    return x, torch.tensor([500, 500]), ctx
+
+
 def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
     """One UNet step as ``entry()`` runs it: CFG pair at 64x64 latents, bf16,
     dynamic rank-4 LoRA.  Held against the same UNet in fp32 on the CPU
-    (plain versions of both kernels), and timed with and without the LoRA."""
+    (plain versions of both kernels), and timed with and without the LoRA.
+    Returns its numbers and the CPU output (phase 6 reuses it)."""
     import torch
 
     from diffusion_finetuning_tpu_torch import lora as lora_lib
@@ -504,11 +714,7 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
     from diffusion_finetuning_tpu_torch.models.weights import load_module
 
     ucfg = pipe.unet_config
-    g = torch.Generator().manual_seed(SEED + 20)
-    side = IMAGE // pipe.vae_scale_factor
-    x = torch.randn((2, ucfg.in_channels, side, side), generator=g).bfloat16()
-    ctx = torch.randn((2, 77, ucfg.cross_attention_dim), generator=g).bfloat16()
-    t = torch.tensor([500, 500])
+    x, t, ctx = unet_step_inputs(pipe)
     dev = pipe.device
     xd, td, cd = x.to(dev), t.to(dev), ctx.to(dev)
     unet = pipe.unet
@@ -527,8 +733,7 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
         base_ms = wall_ms(lambda: unet(xd, td, cd), 10)
         if profile_dir:
             profiles.append(profile_step(lambda: unet(xd, td, cd), "no_lora", profile_dir))
-    want_calls = {"flash_attention_fwd": FLASH_PER_STEP, "flash_attention_bwd": 0,
-                  "lora_dense": LORA_PER_STEP}
+    want_calls = want_counts(flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP)
     log(f"unet step: launches {per_call} (want {want_calls}); "
         f"ms dynamic-LoRA {lora_ms:.3f}, no LoRA {base_ms:.3f}")
     if per_call != want_calls:
@@ -550,13 +755,15 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
     if not lora_effect > 4 * rel:
         fail("the LoRA barely moves the UNet output: the comparison would not see it")
     return {"unet_step_ms_dynamic_lora": lora_ms, "unet_step_ms_no_lora": base_ms,
-            "unet_rel_l2": rel, "lora_effect_rel_l2": lora_effect, "profiles": profiles}
+            "unet_rel_l2": rel, "lora_effect_rel_l2": lora_effect, "profiles": profiles}, ref
 
 
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match wins
+    ("flash_attention_fwd_packed (ours)", ("flash_fwd_bf16_packed",)),
     ("flash_attention_fwd (ours)", ("flash_fwd",)),
     ("flash_attention_bwd (ours)", ("flash_bwd",)),
     ("lora_dense (ours)", ("lora_dense",)),
+    ("conv3x3 (ours)", ("conv3x3",)),
     ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
     ("convolution", ("conv", "implicit_gemm", "winograd", "fprop")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "cublas")),
@@ -617,24 +824,21 @@ def profile_step(fn, label, out_dir):
 # ---------------------------------------------------------------------------
 
 
-def phase_pipeline_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev):
+def phase_pipeline_reference(pipe, ref_pipe, lora_cpu, lora_dev):
     """txt2img at a small input (128^2, 3 DDIM steps, CFG, dynamic LoRA, the
     same given latents) on the card in bf16 and on the CPU in fp32."""
     import numpy as np
-    import torch
 
     side = REF_IMAGE // pipe.vae_scale_factor
     lat = np.random.default_rng(SEED + 30).standard_normal((2, side, side, 4)).astype(np.float32)
     kw = dict(height=REF_IMAGE, width=REF_IMAGE, num_inference_steps=3, guidance_scale=GUIDANCE,
               latents=lat, output_type="np")
     prompts = ["a photo of sks", "photo of sks person"]
-    ref_pipe = build_pipe(ucfg, vcfg, tcfg, sds, torch.float32, "cpu")
     for p, tree in ((pipe, lora_dev), (ref_pipe, lora_cpu)):
         p.unet_lora, p.materialize_lora = tree, False
     got = pipe(prompts, **kw)
     t0 = time.time()
     want = ref_pipe(prompts, **kw)
-    del ref_pipe
     diff = np.abs(got - want)
     log(f"txt2img 128^2 x3 steps, card bf16 vs CPU fp32: mean |diff| {diff.mean():.3e} "
         f"(limit {PIPE_MEAN_ABS}), max {diff.max():.3e}, image std {got.std():.3e}; "
@@ -688,8 +892,8 @@ def phase_serving(pipe, lora_dev):
     hook.remove()
 
     n_dynamic = sum(1 for *_, mat in requests if not mat)
-    want = {"flash_attention_fwd": FLASH_PER_STEP * STEPS * len(requests),
-            "flash_attention_bwd": 0, "lora_dense": LORA_PER_STEP * STEPS * n_dynamic}
+    want = want_counts(flash_attention_fwd=FLASH_PER_STEP * STEPS * len(requests),
+                       lora_dense=LORA_PER_STEP * STEPS * n_dynamic)
     log(f"serving launches {launched} (want {want})")
     if launched != want:
         fail(f"the main path launched {launched}, want {want}")
@@ -730,10 +934,12 @@ def train_batch(tokenizer, seed=SEED + 40):
             "input_ids": ids}
 
 
-def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="cuda"):
+def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="cuda",
+                          cpu_ref=None):
     """One loss_step and its backward: bf16 on the card against fp32 on the
     CPU, from the same cached latent moments (the card's VAE encode) and the
-    same draws.  Returns (loss difference, rel L2 of the LoRA gradient)."""
+    same draws.  ``cpu_ref`` (loss, gradient) of an earlier call stands in
+    for the CPU run.  Returns the numbers and (CPU loss, CPU gradient)."""
     import numpy as np
     import torch
 
@@ -765,11 +971,13 @@ def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="
     loss_dev, grad_dev = run(pipe.unet, pipe.text_encoder, pipe.vae, device)
     torch.cuda.synchronize()
     t0 = time.time()
-    cpu = [load_module(cls, cfg, sd, torch.float32, "cpu") for cls, cfg, sd in (
-        (UNet2DConditionModel, ucfg, sds[0]), (CLIPTextModel, tcfg, sds[2]),
-        (AutoencoderKL, vcfg, sds[1]))]
-    loss_cpu, grad_cpu = run(*cpu, "cpu")
-    del cpu
+    if cpu_ref is None:
+        cpu = [load_module(cls, cfg, sd, torch.float32, "cpu") for cls, cfg, sd in (
+            (UNet2DConditionModel, ucfg, sds[0]), (CLIPTextModel, tcfg, sds[2]),
+            (AutoencoderKL, vcfg, sds[1]))]
+        cpu_ref = run(*cpu, "cpu")
+        del cpu
+    loss_cpu, grad_cpu = cpu_ref
     _, rel = errors(grad_dev, grad_cpu)
     log(f"train loss_step + backward, card bf16 vs CPU fp32: loss {loss_dev:.6f} vs "
         f"{loss_cpu:.6f} (diff {abs(loss_dev - loss_cpu):.3e}); LoRA gradient rel_l2 "
@@ -779,13 +987,16 @@ def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="
         fail("the training step's LoRA gradient on the card disagrees with the CPU fp32 one")
     if not float(grad_cpu.norm()) > 0:
         fail("the reference LoRA gradient is zero: the comparison would see nothing")
-    return {"loss_card": loss_dev, "loss_cpu": loss_cpu, "grad_rel_l2": rel}
+    return {"loss_card": loss_dev, "loss_cpu": loss_cpu, "grad_rel_l2": rel}, cpu_ref
 
 
-def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
-    """The training path: ``build_train_step`` on the card, 2 warm-up and 10
-    timed steps, then one step with gradient checkpointing.  The launch
-    counters are set to 0 just before the 10 steps and read just after."""
+def phase_train(pipe, ucfg, lora_cpu, batch, per_step, profile_dir=None, device="cuda",
+                steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, label="train_step", ckpt_want=None):
+    """The training path: ``build_train_step`` on the card, ``warmup`` and
+    ``steps`` timed steps, then one step with gradient checkpointing.  The
+    launch counters are set to 0 just before the timed steps and read just
+    after; ``per_step`` are the launches a step must make, ``ckpt_want`` the
+    checkpointed step's (default: twice the forward kernels')."""
     import dataclasses
 
     import torch
@@ -805,13 +1016,13 @@ def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(SEED + 50)
     first = [t.detach().clone() for t in trainable_tensors(state["params"])]
     scales = [float(leaf["scale"]) for _, leaf in lora_lib.lora_leaves(state["params"]["unet_lora"])]
-    for _ in range(TRAIN_WARMUP):
+    for _ in range(warmup):
         step(state, batch, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, wall = [], []
     reset_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, m = step(state, batch, gen)
         torch.cuda.synchronize()
@@ -821,14 +1032,13 @@ def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     med = sorted(wall)[len(wall) // 2]
-    want = {"flash_attention_fwd": FLASH_PER_STEP * TRAIN_STEPS,
-            "flash_attention_bwd": FLASH_PER_STEP * TRAIN_STEPS,
-            "lora_dense": LORA_PER_STEP * TRAIN_STEPS}
+    want = {name: n * steps for name, n in per_step.items()}
     moved = max(float((a.detach() - b).abs().max()) for a, b in
                 zip(trainable_tensors(state["params"]), first))
     scales_now = [float(leaf["scale"])
                   for _, leaf in lora_lib.lora_leaves(state["params"]["unet_lora"])]
-    log(f"train steps (512^2, batch 1, uint8, rank {LORA_RANK}, AdamW lr {TRAIN_LR}, clip 1.0): "
+    log(f"{label} x{steps} (512^2, batch 1, uint8, rank {LORA_RANK}, AdamW lr {TRAIN_LR}, "
+        f"clip 1.0): "
         f"wall ms median {med:.3f} (min {min(wall):.3f}, max {max(wall):.3f}), "
         f"{1e3 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; losses "
         f"{[round(x, 5) for x in losses]}; launches {launched} (want {want}); "
@@ -843,7 +1053,7 @@ def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
         fail("a LoRA scale leaf moved")
     profiles = []
     if profile_dir:
-        profiles.append(profile_step(lambda: step(state, batch, gen), "train_step", profile_dir))
+        profiles.append(profile_step(lambda: step(state, batch, gen), label, profile_dir))
 
     unet = pipe.unet
     unet.config = dataclasses.replace(ucfg, gradient_checkpointing=True)
@@ -859,8 +1069,9 @@ def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
         ckpt_peak = torch.cuda.max_memory_allocated()
     finally:
         unet.config = ucfg
-    ckpt_want = {"flash_attention_fwd": 2 * FLASH_PER_STEP,
-                 "flash_attention_bwd": FLASH_PER_STEP, "lora_dense": 2 * LORA_PER_STEP}
+    if ckpt_want is None:
+        ckpt_want = {name: n * (1 if name == "flash_attention_bwd" else 2)
+                     for name, n in per_step.items()}
     log(f"train step with gradient checkpointing: wall ms {ckpt_ms:.3f}, peak memory "
         f"{ckpt_peak / 2**30:.3f} GiB, loss {float(m['loss']):.5f}; launches {ckpt_launched} "
         f"(want {ckpt_want})")
@@ -873,14 +1084,184 @@ def phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=None, device="cuda"):
                       "checkpointed_peak_bytes": ckpt_peak, "profiles": profiles}
 
 
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+STRENGTH = 0.75
+IMG2IMG_REF_STEPS = 4  # strength 0.75: t_start 1, 3 UNet steps
+
+
+def init_image(side):
+    """A smooth uint8 (side, side, 3) test image: two ramps and a pattern."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    img = np.stack([xx, yy, 0.5 + 0.5 * np.sin(8 * xx) * np.cos(6 * yy)], axis=-1)
+    return np.round(img * 255).astype(np.uint8)
+
+
+def phase_switched_unet_step(pipe, lora_dev, ref, per_step, profile_dir=None):
+    """Phase 3's UNet step with both switches on: the same inputs through
+    K5, K4 and K2, held against phase 3's CPU fp32 output."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+
+    x, t, ctx = (a.to(pipe.device) for a in unet_step_inputs(pipe))
+    unet = pipe.unet
+    profiles = []
+    with torch.inference_mode(), lora_lib.attached(unet, lora_dev):
+        before = counts()
+        out = unet(x, t, ctx)
+        torch.cuda.synchronize()
+        per_call = {k: v - before[k] for k, v in counts().items()}
+        ms = wall_ms(lambda: unet(x, t, ctx), 10)
+        if profile_dir:
+            profiles.append(profile_step(lambda: unet(x, t, ctx), "switched_dynamic_lora",
+                                         profile_dir))
+    _, rel = errors(out.cpu(), ref)
+    log(f"switched unet step: launches {per_call} (want {per_step}); ms dynamic-LoRA "
+        f"{ms:.3f}; vs CPU fp32 rel_l2={rel:.3e} (limit {UNET_REL_L2})")
+    if per_call != per_step:
+        fail(f"the switched UNet step launched {per_call}, want {per_step}")
+    if not (bool(torch.isfinite(out).all()) and rel <= UNET_REL_L2):
+        fail(f"the switched UNet step disagrees with the CPU fp32 reference: {rel:.3e}")
+    return {"unet_step_ms_dynamic_lora": ms, "unet_rel_l2": rel, "profiles": profiles}
+
+
+def phase_img2img_reference(pipe, ref_pipe, lora_cpu, lora_dev):
+    """img2img at 128^2 (4 DDIM steps, strength 0.75, CFG, dynamic LoRA) on
+    the card in bf16 and on the CPU in fp32, the same draws handed to both."""
+    import numpy as np
+
+    side = REF_IMAGE // pipe.vae_scale_factor
+    rng = np.random.default_rng(SEED + 60)
+    prompts = ["a photo of sks", "photo of sks person"]
+    draws = {"sample": rng.standard_normal((1, side, side, 4)).astype(np.float32),
+             "noise": rng.standard_normal((2, side, side, 4)).astype(np.float32)}
+    kw = dict(strength=STRENGTH, num_inference_steps=IMG2IMG_REF_STEPS, guidance_scale=GUIDANCE,
+              draws=draws, output_type="np")
+    for p, tree in ((pipe, lora_dev), (ref_pipe, lora_cpu)):
+        p.unet_lora, p.materialize_lora = tree, False
+    got = pipe.img2img(prompts, init_image(REF_IMAGE), **kw)
+    t0 = time.time()
+    want = ref_pipe.img2img(prompts, init_image(REF_IMAGE), **kw)
+    diff = np.abs(got - want)
+    log(f"img2img 128^2 x{IMG2IMG_REF_STEPS} steps, strength {STRENGTH}, card bf16 vs CPU fp32: "
+        f"mean |diff| {diff.mean():.3e} (limit {PIPE_MEAN_ABS}), max {diff.max():.3e}, "
+        f"image std {got.std():.3e}; CPU reference {time.time() - t0:.1f} s")
+    if got.shape != (2, REF_IMAGE, REF_IMAGE, 3) or not diff.mean() <= PIPE_MEAN_ABS:
+        fail("img2img on the card disagrees with the CPU fp32 reference")
+    if not got.std() > 1e-3:
+        fail("img2img images are constant")
+    return {"mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max())}
+
+
+def phase_img2img(pipe, lora_dev, per_step):
+    """Phase 6's main path: img2img requests through
+    ``StableDiffusionPipeline.img2img`` at 512^2, 50 DDIM steps, strength
+    0.75, CFG, dynamic LoRA.  The launch counters are set to 0 just before
+    and read just after: every UNet step must have made ``per_step``."""
+    import numpy as np
+    import torch
+
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import img2img_start
+
+    finite = []
+    hook = pipe.vae.decoder.register_forward_hook(
+        lambda mod, inp, out: finite.append(bool(torch.isfinite(out).all())))
+    pipe.unet_lora, pipe.materialize_lora = lora_dev, False
+    image = init_image(IMAGE)
+    pipe.img2img("photo", image, strength=0.5, num_inference_steps=2, seed=0,
+                 output_type="uint8")  # warm-up, not counted
+    finite.clear()
+    requests = [("a photo of sks", 1), (["photo of sks", "a photo of sks person"], 2)]
+    unet_steps = STEPS - img2img_start(STEPS, STRENGTH)
+    rows, images = [], []
+    reset_counts()
+    for prompt, seed in requests:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        imgs = pipe.img2img(prompt, image, strength=STRENGTH, num_inference_steps=STEPS,
+                            guidance_scale=GUIDANCE, seed=seed, output_type="uint8")
+        sec = time.time() - t0
+        b = 1 if isinstance(prompt, str) else len(prompt)
+        rows.append(dict(batch=b, lora="dynamic", unet_steps=unet_steps, seconds=sec,
+                         s_per_image=sec / b))
+        images.append((b, imgs))
+        log(f"img2img request batch={b} ({unet_steps} UNet steps): {sec:.3f} s, "
+            f"{sec / b:.3f} s/image, image std {imgs.std():.2f}")
+    launched = counts()
+    hook.remove()
+    want = {name: n * unet_steps * len(requests) for name, n in per_step.items()}
+    log(f"img2img launches {launched} (want {want})")
+    if launched != want:
+        fail(f"the img2img path launched {launched}, want {want}")
+    for b, imgs in images:
+        if imgs.shape != (b, IMAGE, IMAGE, 3) or imgs.dtype != np.uint8:
+            fail(f"img2img image batch {imgs.shape} {imgs.dtype}")
+        if not all(im.std() > 0 for im in imgs):
+            fail("an img2img image is constant")
+    if len(finite) != len(requests) or not all(finite):
+        fail(f"decoded img2img images not finite: {finite}")
+    return launched, rows
+
+
+def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe,
+                   batch, train_ref, profile_dir=None, device="cuda"):
+    """Phase 6: both switches on for the UNet step check, img2img (the
+    reference and the requests) and training; off again after."""
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    side = IMAGE // pipe.vae_scale_factor
+    k5 = sum(unet_conv3x3_calls(ucfg, 2, side).values())
+    k4 = {bh: sum(n for sq, skv, d, n in FLASH_SHAPES
+                  if fa.use_head_pack(HEAD_PACK, bh, sq, skv, d, 2))
+          for bh in (FLASH_BH, FLASH_BWD_BH)}
+    unet_step = want_counts(flash_attention_fwd_packed=k4[FLASH_BH], conv3x3=k5,
+                            lora_dense=LORA_PER_STEP)
+    train_step = want_counts(flash_attention_fwd_packed=k4[FLASH_BWD_BH], conv3x3=k5,
+                             flash_attention_bwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP)
+    # checkpointing recomputes a block in the backward only where autograd
+    # needs its activations: not in the first resnet, whose input (conv_in
+    # of the latents) and frozen weights need no gradient -- the LoRA'd
+    # layers start after it.  Its routed convs run once.
+    first = sum(unet_conv3x3_calls(ucfg, 1, side, only="down_blocks_0_resnets_0").values())
+    train_ckpt = {name: n * (1 if name == "flash_attention_bwd" else 2)
+                  for name, n in train_step.items()}
+    train_ckpt["conv3x3"] -= first
+    log(f"phase 6 launches a step: UNet {unet_step}; train {train_step}; "
+        f"checkpointed train {train_ckpt}")
+    set_switches(True)
+    try:
+        out = {"unet_step": phase_switched_unet_step(pipe, lora_dev, unet_ref, unet_step,
+                                                     profile_dir)}
+        out["img2img_reference"] = phase_img2img_reference(pipe, ref_pipe, lora_cpu, lora_dev)
+        img_launches, out["img2img"] = phase_img2img(pipe, lora_dev, unet_step)
+        out["train_reference"], _ = phase_train_reference(
+            pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device=device, cpu_ref=train_ref)
+        train_launches, out["train"] = phase_train(
+            pipe, ucfg, lora_cpu, batch, train_step, profile_dir=profile_dir, device=device,
+            steps=4, warmup=1, label="train_step_switched", ckpt_want=train_ckpt)
+    finally:
+        set_switches(False)
+    return {"img2img": img_launches, "train_switched": train_launches}, out
+
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
                             "diffusion_finetuning_tpu/ops/flash_attention.py:87", "unet_step"),
+    "flash_attention_fwd_packed": (
+        "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
+        "diffusion_finetuning_tpu/ops/flash_attention.py:178", "unet_step"),
     "flash_attention_bwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd.cu",
                             "diffusion_finetuning_tpu/ops/flash_attention.py:285", "train_step"),
     "lora_dense": ("cuda", "diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
                    "diffusion_finetuning_tpu/ops/lora_matmul.py:38", "unet_step"),
+    "conv3x3": ("cuda", "diffusion_finetuning_tpu_torch/csrc/conv3x3.cu",
+                "diffusion_finetuning_tpu/ops/conv_pallas.py:72", "unet_step"),
 }
 
 
@@ -910,8 +1291,8 @@ def kernels_line(results, launches):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also trace one UNet step and one train step with "
-                         "torch.profiler and write their per-kernel tables into DIR")
+                    help="also trace UNet steps and train steps (switches off and on) "
+                         "with torch.profiler and write their per-kernel tables into DIR")
     args = ap.parse_args()
 
     import torch
@@ -939,21 +1320,32 @@ def main():
     pipe = build_pipe(ucfg, vcfg, tcfg, sds, torch.bfloat16, "cuda")
     log(f"models: {time.time() - t0:.1f} s")
     t0 = time.time()
-    step = phase_unet_step(pipe, sds[0], lora_cpu, lora_dev, profile_dir=args.profile)
+    step, unet_ref = phase_unet_step(pipe, sds[0], lora_cpu, lora_dev, profile_dir=args.profile)
     log(f"phase 3: {time.time() - t0:.1f} s")
     t0 = time.time()
-    phase_pipeline_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev)
+    ref_pipe = build_pipe(ucfg, vcfg, tcfg, sds, torch.float32, "cpu")
+    phase_pipeline_reference(pipe, ref_pipe, lora_cpu, lora_dev)
     launches, serving = phase_serving(pipe, lora_dev)
     log(f"phase 4: {time.time() - t0:.1f} s")
     t0 = time.time()
     batch = train_batch(pipe.tokenizer)
-    reference = phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch)
-    train_launches, train = phase_train(pipe, ucfg, lora_cpu, batch, profile_dir=args.profile)
+    reference, train_ref = phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch)
+    train_launches, train = phase_train(
+        pipe, ucfg, lora_cpu, batch, want_counts(
+            flash_attention_fwd=FLASH_PER_STEP, flash_attention_bwd=FLASH_PER_STEP,
+            lora_dense=LORA_PER_STEP), profile_dir=args.profile)
     log(f"phase 5: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    switched_launches, switched = phase_switched(
+        pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe, batch, train_ref,
+        profile_dir=args.profile)
+    del ref_pipe
+    log(f"phase 6: {time.time() - t0:.1f} s")
     log(json.dumps({"unet_step": step, "serving": serving,
-                    "train": dict(train, reference=reference)}))
+                    "train": dict(train, reference=reference), "switched": switched}))
 
-    log(json.dumps(kernels_line(results, {"serving": launches, "train": train_launches})))
+    log(json.dumps(kernels_line(results, dict(
+        {"serving": launches, "train": train_launches}, **switched_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,16 @@
 // kept per thread and reduced across the quad once at the end.  No TMA,
 // wgmma or copy/compute overlap yet.  fp32 inputs take a plain FMA kernel
 // (flash_fwd_f32_kernel) with the same math.
+//
+// K4, the head-packed forward (dft_flash_fwd with G > 1), replaces the Pallas
+// kernel _fwd_kernel_packed (:178, via _fwd_packed :239, pallas_call :254):
+// G heads per program, outputs bit-equal to K1's.  On the TPU packing
+// shrinks the grid by G and hands Mosaic G independent chains to
+// interleave.  Here a CTA of the grid (ceil(Sq/64), BH/G) runs the per-head
+// body below for its G heads in turn: the same instructions in the same
+// order per head, so bit-equality holds by construction.  It moves the same
+// bytes and operations as K1 (same bound); it trades CTAs for a longer life
+// per CTA, which helps only where K1's grid is larger than the card.
 #include "common.cuh"
 
 namespace {
@@ -62,27 +72,28 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// One (head, 64-row q tile) of the forward: qb/kb/vb/ob point at the head's
+// (sq, d) / (skv, d) matrices and lseb at its sq lse values.  Every kernel
+// below runs this body, so the packed kernel (K4) computes each head with the
+// same instructions in the same order as K1 and its outputs are bit-equal.
 template <int DP>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int sq, int skv, int d, float logit_scale) {
+__device__ __forceinline__ void flash_fwd_bf16_head(const __nv_bfloat16* __restrict__ qb,
+                                                    const __nv_bfloat16* __restrict__ kb,
+                                                    const __nv_bfloat16* __restrict__ vb,
+                                                    __nv_bfloat16* __restrict__ ob,
+                                                    float* __restrict__ lseb, int q0, int sq,
+                                                    int skv, int d, float logit_scale,
+                                                    __nv_bfloat16* Ks) {
   constexpr int LD = DP + kPad;
   constexpr int KC = DP / 16;       // k-chunks of the QK^T product
   constexpr int DT = DP / 8;        // n-tiles of the PV product
   constexpr int NT = kBlockN / 8;   // n-tiles of S
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // Q is staged here first
-  __nv_bfloat16* Vs = Ks + kBlockN * LD;
+  __nv_bfloat16* Vs = Ks + kBlockN * LD;  // Q is staged in Ks first
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBlockM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* qb = q + (size_t)bh * sq * d;
-  const __nv_bfloat16* kb = k + (size_t)bh * skv * d;
-  const __nv_bfloat16* vb = v + (size_t)bh * skv * d;
 
+  __syncthreads();  // a previous head's last tile is no longer read
   load_tile<DP>(Ks, qb, q0, sq, d);
   __syncthreads();
   uint32_t qa[KC][4];
@@ -183,7 +194,6 @@ __global__ void __launch_bounds__(128)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  __nv_bfloat16* ob = o + (size_t)bh * sq * d;
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
 #pragma unroll
@@ -196,8 +206,40 @@ __global__ void __launch_bounds__(128)
     }
   }
   if (t == 0) {
-    if (r0 < sq) lse[(size_t)bh * sq + r0] = m0 + log2f(l0);
-    if (r1 < sq) lse[(size_t)bh * sq + r1] = m1 + log2f(l1);
+    if (r0 < sq) lseb[r0] = m0 + log2f(l0);
+    if (r1 < sq) lseb[r1] = m1 + log2f(l1);
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128)
+    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int sq, int skv, int d, float logit_scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const size_t bh = blockIdx.y;
+  flash_fwd_bf16_head<DP>(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d, o + bh * sq * d,
+                          lse + bh * sq, blockIdx.x * kBlockM, sq, skv, d, logit_scale,
+                          reinterpret_cast<__nv_bfloat16*>(smem_raw));
+}
+
+// K4: G heads per CTA, one after the other (JAX _fwd_kernel_packed carries G
+// independent softmax chains through one program; here the heads run in
+// turn through the same shared tiles, so each head's arithmetic is K1's).
+template <int DP>
+__global__ void __launch_bounds__(128)
+    flash_fwd_bf16_packed_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
+                                 int skv, int d, float logit_scale, int G) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  for (int i = 0; i < G; ++i) {
+    const size_t bh = (size_t)blockIdx.y * G + i;
+    flash_fwd_bf16_head<DP>(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d,
+                            o + bh * sq * d, lse + bh * sq, blockIdx.x * kBlockM, sq, skv, d,
+                            logit_scale, reinterpret_cast<__nv_bfloat16*>(smem_raw));
   }
 }
 
@@ -209,11 +251,12 @@ size_t f32_smem_bytes(int d) {
                                   kF32M * (kF32N + 1) + 3 * kF32M);
 }
 
-__global__ void __launch_bounds__(kF32Threads)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int sq, int skv, int d, float logit_scale) {
-  extern __shared__ float sm[];
+__device__ __forceinline__ void flash_fwd_f32_head(const float* __restrict__ qb,
+                                                   const float* __restrict__ kb,
+                                                   const float* __restrict__ vb,
+                                                   float* __restrict__ ob,
+                                                   float* __restrict__ lseb, int q0, int sq,
+                                                   int skv, int d, float logit_scale, float* sm) {
   float* Qs = sm;                          // kF32M x d
   float* Os = Qs + kF32M * d;              // kF32M x d
   float* Ks = Os + kF32M * d;              // kF32N x (d + 1)
@@ -223,10 +266,8 @@ __global__ void __launch_bounds__(kF32Threads)
   float* Lr = Mr + kF32M;
   float* Ar = Lr + kF32M;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kF32M, tid = threadIdx.x;
-  const float* qb = q + (size_t)bh * sq * d;
-  const float* kb = k + (size_t)bh * skv * d;
-  const float* vb = v + (size_t)bh * skv * d;
+  const int tid = threadIdx.x;
+  __syncthreads();  // a previous head's outputs are written
   for (int i = tid; i < kF32M * d; i += kF32Threads) {
     const int r = i / d, c = i % d;
     Qs[i] = (q0 + r < sq) ? qb[(size_t)(q0 + r) * d + c] : 0.f;
@@ -278,48 +319,71 @@ __global__ void __launch_bounds__(kF32Threads)
     }
   }
   __syncthreads();
-  float* ob = o + (size_t)bh * sq * d;
   for (int i = tid; i < kF32M * d; i += kF32Threads) {
     const int r = i / d;
     if (q0 + r < sq) ob[(size_t)(q0 + r) * d + i % d] = Os[i] / Lr[r];
   }
-  if (tid < kF32M && q0 + tid < sq) lse[(size_t)bh * sq + q0 + tid] = Mr[tid] + log2f(Lr[tid]);
+  if (tid < kF32M && q0 + tid < sq) lseb[q0 + tid] = Mr[tid] + log2f(Lr[tid]);
 }
 
+// G = 1: K1's fp32 variant; G > 1: K4's (heads blockIdx.y * G .. + G - 1 in turn).
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int sq, int skv, int d, float logit_scale,
+                         int G) {
+  extern __shared__ float sm[];
+  for (int i = 0; i < G; ++i) {
+    const size_t bh = (size_t)blockIdx.y * G + i;
+    flash_fwd_f32_head(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d, o + bh * sq * d,
+                       lse + bh * sq, blockIdx.x * kF32M, sq, skv, d, logit_scale, sm);
+  }
+}
+
+// G heads per CTA; G = 1 is K1, G > 1 the packed K4.
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                        int sq, int skv, int d, float logit_scale, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh);
+                        int sq, int skv, int d, float logit_scale, int G, cudaStream_t stream) {
+  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh / G);
   const size_t smem = 2 * kBlockN * (DP + kPad) * sizeof(__nv_bfloat16);
-  flash_fwd_bf16_kernel<DP><<<grid, 128, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, skv, d,
-      logit_scale);
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  if (G == 1)
+    flash_fwd_bf16_kernel<DP><<<grid, 128, smem, stream>>>(qp, kp, vp, op, lse, sq, skv, d,
+                                                           logit_scale);
+  else
+    flash_fwd_bf16_packed_kernel<DP><<<grid, 128, smem, stream>>>(qp, kp, vp, op, lse, sq, skv,
+                                                                  d, logit_scale, G);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, skv, d), o like q, lse (bh, sq) fp32; all contiguous.
-// dtype: 0 = fp32, 1 = bf16.  Returns the launch's cudaError_t (0 = launched).
+// dtype: 0 = fp32, 1 = bf16.  G heads per CTA: 1 runs K1, G > 1 (dividing bh)
+// runs K4, whose O and lse are bit-equal to K1's.  Returns the launch's
+// cudaError_t (0 = launched).
 extern "C" int dft_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int bh, int sq, int skv, int d, float scale, int dtype,
+                             int bh, int sq, int skv, int d, float scale, int dtype, int G,
                              void* stream) {
   const float logit_scale = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (G < 1 || bh % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
     switch ((d + 15) / 16 * 16) {
-      case 16: return launch_bf16<16>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 32: return launch_bf16<32>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 48: return launch_bf16<48>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 64: return launch_bf16<64>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 80: return launch_bf16<80>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 96: return launch_bf16<96>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 112: return launch_bf16<112>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 128: return launch_bf16<128>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 144: return launch_bf16<144>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
-      case 160: return launch_bf16<160>(q, k, v, o, l, bh, sq, skv, d, logit_scale, st);
+      case 16: return launch_bf16<16>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 32: return launch_bf16<32>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 48: return launch_bf16<48>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 64: return launch_bf16<64>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 80: return launch_bf16<80>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 96: return launch_bf16<96>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 112: return launch_bf16<112>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 128: return launch_bf16<128>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 144: return launch_bf16<144>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      case 160: return launch_bf16<160>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -328,10 +392,10 @@ extern "C" int dft_flash_fwd(const void* q, const void* k, const void* v, void* 
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sq + kF32M - 1) / kF32M, bh);
+    const dim3 grid((sq + kF32M - 1) / kF32M, bh / G);
     flash_fwd_f32_kernel<<<grid, kF32Threads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), l, sq, skv, d, logit_scale);
+        static_cast<float*>(o), l, sq, skv, d, logit_scale, G);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -9,19 +9,30 @@ tensor, its plain version on a CPU tensor.  Without one it is
 (layers.py:105, a v5e measurement); on the card it is the default.
 
 :class:`LoRAConv2d` is ``nn.Conv2d`` with an optional rank-r pair of convs
-(a kh x kw down to r channels, a 1x1 up); it stays plain torch, as the JAX
-package leaves these convs to XLA.
+(a kh x kw down to r channels, a 1x1 up).  Its convs are torch convs unless
+:data:`CONV_KERNEL` is on (read once from ``DFT_CONV_PALLAS``, default off,
+as the JAX ``CONV_PALLAS`` switch, layers.py:56): then every conv of the
+layer that ``ops.conv3x3.supported`` accepts runs the fused 3x3 conv (K5 on
+the card, its plain version on the CPU), as JAX ``LoRAConv.conv`` routes
+(:208-217).  The LoRA down and up convs ask too and never pass (O = r; the
+up conv is 1x1).
 
 The LoRA buffers are not persistent: state dicts hold the base weights only.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import conv3x3 as conv3x3_op
 from ..ops.lora_matmul import lora_dense
+
+# route LoRAConv2d's 3x3 convs to ops.conv3x3 (tests and chip_smoke.py set it)
+CONV_KERNEL = bool(int(os.environ.get("DFT_CONV_PALLAS", "0")))
 
 
 class _LoRAMixin:
@@ -58,12 +69,22 @@ class LoRAConv2d(_LoRAMixin, nn.Conv2d):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding)
         self._init_lora()
 
+    def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias, stride, padding):
+        """One conv of the layer.  Routed: the fused 3x3 conv without a bias
+        (JAX passes zeros, the same sum), then ``bias`` added in the
+        activations' dtype, as JAX ``LoRAConv`` (:208-217, :234-238).
+        Otherwise torch's conv."""
+        if CONV_KERNEL and conv3x3_op.routes(x, weight, stride, padding):
+            y = conv3x3_op.conv3x3(x, weight)
+            return y if bias is None else y + bias.to(y.dtype)[:, None, None]
+        return F.conv2d(x, weight, bias, stride, padding)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x)
+        y = self._conv(x, self.weight, self.bias, self.stride, self.padding)
         if self.lora_up is None:
             return y
-        h = F.conv2d(x, self.lora_down, None, self.stride, self.padding)
-        return y + self.lora_scale.to(y.dtype) * F.conv2d(h, self.lora_up)
+        h = self._conv(x, self.lora_down, None, self.stride, self.padding)
+        return y + self.lora_scale.to(y.dtype) * self._conv(h, self.lora_up, None, 1, 0)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

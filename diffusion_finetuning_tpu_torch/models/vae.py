@@ -178,10 +178,14 @@ class DiagonalGaussian:
         self.logvar = logvar.clamp(-30.0, 20.0)
         self.std = torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                            dtype=self.mean.dtype)
-        return self.mean + self.std * noise
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise; the noise is ``noise`` if given (cast to the
+        mean's dtype), else drawn from ``generator``."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                device=self.mean.device, dtype=self.mean.dtype)
+        return self.mean + self.std * noise.to(self.mean.device, self.mean.dtype)
 
     def mode(self) -> torch.Tensor:
         return self.mean

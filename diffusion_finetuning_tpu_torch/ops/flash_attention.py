@@ -2,11 +2,19 @@
 backward, their plain versions, and the autograd function around them.
 
 Port of the JAX package's Pallas TPU kernels ``ops/flash_attention.py``
-``_fwd_kernel`` (:87, wrapper ``_fwd`` :141) and ``_bwd_kernel`` (:285,
-wrapper ``_bwd`` :349), joined by the custom VJP ``_flash`` (:430-456) and
-reached through the public ``flash_attention`` (:459).  The CUDA kernels are
-``csrc/flash_attention.cu`` (K1, forward) and ``csrc/flash_attention_bwd.cu``
-(K3, backward), both ``sm_90a``; their designs and bounds are noted there.
+``_fwd_kernel`` (:87, wrapper ``_fwd`` :141), ``_fwd_kernel_packed`` (:178,
+wrapper ``_fwd_packed`` :239) and ``_bwd_kernel`` (:285, wrapper ``_bwd``
+:349), joined by the custom VJP ``_flash`` (:430-456) and reached through the
+public ``flash_attention`` (:459).  The CUDA kernels are
+``csrc/flash_attention.cu`` (K1, forward, and K4, the same forward with G
+heads per CTA) and ``csrc/flash_attention_bwd.cu`` (K3, backward), all
+``sm_90a``; their designs and bounds are noted there.
+
+Head packing is opt-in, as in JAX: ``head_pack`` (default
+:data:`DEFAULT_HEAD_PACK`, read once from ``DFT_FLASH_HEAD_PACK``, 1 = off)
+sends a forward to K4 when JAX ``_fwd_dispatch`` (:419) would send it to
+``_fwd_packed``; K4's O and lse are bit-equal to K1's.  The backward always
+runs K3 per head (JAX ``_flash_bwd`` :445-453).
 
 Contract of :func:`flash_fwd` (the kernel's own layout, as JAX ``_fwd``):
 q ``(BH, Sq, D)``, k/v ``(BH, Skv, D)`` -> O ``(BH, Sq, D)`` in q's dtype and
@@ -26,6 +34,7 @@ differentiable: with grad enabled and an input that requires grad it runs
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -35,10 +44,17 @@ from . import _build
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
-# kernel launches so far, forward (K1) and backward (K3); chip_smoke.py
-# resets and reads them
+# kernel launches so far, forward (K1), packed forward (K4) and backward
+# (K3); chip_smoke.py resets and reads them
 launches = 0
+packed_launches = 0
 bwd_launches = 0
+
+# heads per CTA of the forward (JAX DEFAULT_HEAD_PACK, :69); 1 = K1 only
+DEFAULT_HEAD_PACK = int(os.environ.get("DFT_FLASH_HEAD_PACK", 1))
+# the JAX wrapper's defaults (:42-43, :61), fed to the routing rule only: the
+# port pads nothing in memory
+_JAX_BLOCK_Q, _JAX_BLOCK_KV, _JAX_HEAD_PAD = 512, 1024, 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 160  # largest padded head dim the bf16 kernel is built for
@@ -75,6 +91,60 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append((acc / l).to(q.dtype))
         lses.append((m + torch.log2(l)).squeeze(-1))
     return torch.cat(outs, dim=1), torch.cat(lses, dim=1)
+
+
+def flash_attention_plain_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: float, head_pack: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain version: :func:`flash_attention_plain` over each group of
+    ``head_pack`` heads (BH divisible by it), outputs concatenated."""
+    outs = [flash_attention_plain(q[i:i + head_pack], k[i:i + head_pack],
+                                  v[i:i + head_pack], scale)
+            for i in range(0, q.shape[0], head_pack)]
+    return torch.cat([o for o, _ in outs]), torch.cat([lse for _, lse in outs])
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(x: int, m: int) -> int:
+    return _cdiv(x, m) * m
+
+
+def head_pack_fits_vmem(G: int, skv: int, dp: int, block_q: int = 512,
+                        itemsize: int = 2) -> bool:
+    """Whether the packed forward's VMEM residency fits the 16MB scope.
+
+    A verbatim copy of the JAX package's ``head_pack_fits_vmem``
+    (``ops/flash_attention.py:398-416``), kept so that both packages send the
+    same calls to the packed kernel.  The budget is the TPU kernel's
+    (G full KV streams double-buffered in VMEM, lanes padded to 128), not a
+    limit of the Hopper kernel, which streams K/V through shared memory in
+    64-row tiles whatever G is.
+    """
+    if G <= 1:
+        return True
+    lanes = max(128, dp)
+    skv_p = _cdiv(skv, 512) * 512 if skv > 512 else skv  # kv pad granularity
+    kv_bytes = 2 * 2 * G * skv_p * lanes * itemsize      # dbl-buffered k+v
+    qo_bytes = 2 * 2 * G * block_q * lanes * itemsize    # q + out blocks
+    acc_bytes = G * block_q * lanes * 4 * 3              # fp32 carries
+    return kv_bytes + qo_bytes + acc_bytes <= 12 * 1024 * 1024
+
+
+def use_head_pack(head_pack: int, bh: int, sq: int, skv: int, d: int,
+                  itemsize: int) -> bool:
+    """JAX ``_fwd_dispatch``'s rule (:419-427) for a (BH, Sq, d) x (BH, Skv,
+    d) call, fed the sizes the JAX wrapper feeds it: the head dim padded to
+    8, block_q = min(512, round_up(Sq, 128)) and Skv padded to a multiple of
+    min(1024, round_up(Skv, 128))."""
+    if head_pack <= 1 or bh % head_pack:
+        return False
+    dp = _round_up(d, _JAX_HEAD_PAD)
+    block_q = min(_JAX_BLOCK_Q, _round_up(sq, 128))
+    skv_p = _round_up(skv, min(_JAX_BLOCK_KV, _round_up(skv, 128)))
+    return head_pack_fits_vmem(head_pack, skv_p, dp, block_q, itemsize)
 
 
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -142,22 +212,29 @@ def _check_qkv(q, k, v):
         raise ValueError("flash kernels take contiguous q, k, v")
 
 
-def _fwd_cuda(q, k, v, scale):
-    global launches
+def _fwd_cuda(q, k, v, scale, head_pack=1):
+    """K1 (``head_pack`` 1) or K4 (``head_pack`` heads per CTA, dividing BH)
+    on (BH, S, D) tensors."""
+    global launches, packed_launches
     _check_qkv(q, k, v)
     bh, sq, d = q.shape
+    if head_pack < 1 or bh % head_pack:
+        raise ValueError(f"head_pack {head_pack} must divide BH = {bh}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     fn = _kernel("flash_attention", "dft_flash_fwd",
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-                _DTYPES[q.dtype], stream)
+                _DTYPES[q.dtype], head_pack, stream)
     _build.check(rc, "flash_attention")
-    launches += 1
+    if head_pack == 1:
+        launches += 1
+    else:
+        packed_launches += 1
     return o, lse
 
 
@@ -189,13 +266,21 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale):
     return dq_acc.to(q.dtype), dk, dv
 
 
-def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(BH, Sq, D) x (BH, Skv, D) -> (O, lse base 2); kernel on CUDA, plain
-    version on CPU."""
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+              head_pack: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(BH, Sq, D) x (BH, Skv, D) -> (O, lse base 2); K4 where
+    :func:`use_head_pack` accepts ``head_pack`` (default
+    :data:`DEFAULT_HEAD_PACK`), else K1, on CUDA; their plain versions on
+    CPU."""
+    if head_pack is None:
+        head_pack = DEFAULT_HEAD_PACK
+    bh, sq, d = q.shape
+    packed = use_head_pack(head_pack, bh, sq, k.shape[1], d, q.element_size())
     if q.device.type == "cuda":
-        return _fwd_cuda(q, k, v, scale)
+        return _fwd_cuda(q, k, v, scale, head_pack if packed else 1)
     if q.device.type == "cpu":
+        if packed:
+            return flash_attention_plain_packed(q, k, v, scale, head_pack)
         return flash_attention_plain(q, k, v, scale)
     raise ValueError(f"no flash attention for device {q.device}")
 
@@ -214,13 +299,14 @@ def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Differentiable (BH, S, D) flash attention: :func:`flash_fwd` forward,
-    saving q, k, v, O and lse (JAX ``_flash_fwd`` :438), and :func:`flash_bwd`
-    backward (JAX ``_flash_bwd`` :445)."""
+    """Differentiable (BH, S, D) flash attention: :func:`flash_fwd` forward
+    (K1 or K4), saving q, k, v, O and lse (JAX ``_flash_fwd`` :438), and
+    :func:`flash_bwd` backward, per head whatever the forward's packing (JAX
+    ``_flash_bwd`` :445)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_fwd(q, k, v, scale)
+    def forward(ctx, q, k, v, scale, head_pack=None):
+        o, lse = flash_fwd(q, k, v, scale, head_pack)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = scale
         return o
@@ -229,15 +315,16 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    heads: int, scale: Optional[float] = None) -> torch.Tensor:
+                    heads: int, scale: Optional[float] = None,
+                    head_pack: Optional[int] = None) -> torch.Tensor:
     """(B, Sq, H*D) x (B, Skv, H*D) -> (B, Sq, H*D), the JAX layout,
     differentiable.  The split to (B*H, S, D) and the merge back are torch
     copies (autograd carries the gradient through them), as the JAX
-    wrapper's reshapes are XLA ops."""
+    wrapper's reshapes are XLA ops.  ``head_pack``: see :func:`flash_fwd`."""
     B, sq, C = q.shape
     skv = k.shape[1]
     d = C // heads
@@ -249,7 +336,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     qh, kh, vh = split(q, sq), split(k, skv), split(v, skv)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        o = FlashAttentionFunction.apply(qh, kh, vh, scale)
+        o = FlashAttentionFunction.apply(qh, kh, vh, scale, head_pack)
     else:
-        o, _ = flash_fwd(qh, kh, vh, scale)
+        o, _ = flash_fwd(qh, kh, vh, scale, head_pack)
     return o.reshape(B, heads, sq, d).transpose(1, 2).reshape(B, sq, C)

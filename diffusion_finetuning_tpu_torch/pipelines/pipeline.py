@@ -1,12 +1,17 @@
-"""Stable Diffusion txt2img pipeline (port of the JAX ``pipelines/pipeline.py``).
+"""Stable Diffusion txt2img and img2img pipeline (port of the JAX
+``pipelines/pipeline.py``).
 
 ``__call__`` is the serving path: CLIP encode of the CFG pair
 ``[uncond; cond]``, a DDIM loop whose every step runs the UNet once on the
 doubled batch and mixes ``eps = eps_u + g * (eps_c - eps_u)``, VAE decode of
 ``latents / 0.18215``, then ``clip(x / 2 + 0.5)``, ``round(x * 255)`` and
-uint8.  PyTorch runs it eagerly; on the card the UNet's attention calls go
-through the flash-attention kernel and, with a dynamic LoRA, its LoRA
-projections through the fused LoRA kernel.
+uint8.  :meth:`~StableDiffusionPipeline.img2img` (JAX :945, ``_build_img2img_fn`` :808)
+starts the same loop part-way: VAE encode of the init image, a posterior
+sample times 0.18215 for every prompt, forward noising to the first used
+timestep, then the DDIM steps from there.  PyTorch runs it eagerly; on the
+card the UNet's attention calls go through the flash-attention kernels,
+with a dynamic LoRA its LoRA projections through the fused LoRA kernel, and
+with ``DFT_CONV_PALLAS`` its resnet 3x3 convs through the fused conv.
 
 LoRA serving follows the JAX pipeline's policy (:154-165): with
 ``materialize_lora`` (the default) the installed tree is folded into the
@@ -17,9 +22,9 @@ swapped, never edited in place (``tune_lora_scale`` returns a new tree);
 call :meth:`invalidate_merged_cache` after an in-place edit.
 
 Public layouts are the JAX package's: ``latents`` (B, h, w, 4), images
-(B, H, W, 3).  The model modules run NCHW.  ``from_pretrained``, img2img,
-multi-device sharding, ``patch_pipe`` and the other schedulers come in
-later slices.
+(B, H, W, 3), img2img's init image (H, W, 3).  The model modules run NCHW.
+``from_pretrained``, multi-device sharding, ``patch_pipe`` and the other
+schedulers (txt2img and img2img) come in later slices.
 """
 
 from __future__ import annotations
@@ -35,10 +40,16 @@ from .. import lora as lora_lib
 from .. import resolve_device
 from ..data.tokenizer import CLIPTokenizer
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel, text_encoder_lora_targets
-from ..models.schedulers import DDIMScheduler, SchedulerConfig
+from ..models.schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
 from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
 from ..models.weights import load_module
+
+
+def img2img_start(num_steps: int, strength: float) -> int:
+    """The first grid step img2img runs (JAX :999): strength 1 starts from
+    the top, strength 0 still runs the last step."""
+    return int(min(num_steps - 1, round((1 - strength) * num_steps)))
 
 
 class StableDiffusionPipeline:
@@ -174,21 +185,98 @@ class StableDiffusionPipeline:
         context = self._encode(self._tokenize(negs + prompts), text_over, text_lora)
         x = self._initial_latents(b, height, width, latents, seed)
         sch = DDIMScheduler(self.scheduler_config)
-        g = torch.tensor(guidance_scale, dtype=torch.float32)
+        x = self._denoise(x, sch, sch.timesteps(num_inference_steps).tolist(),
+                          num_inference_steps, context, unet_over, unet_lora, guidance_scale)
+        return self._postprocess(self._decode(x), output_type)
 
+    def _denoise(self, x, sch, timesteps, num_steps, context, unet_over, unet_lora,
+                 guidance_scale):
+        """The CFG loop over ``timesteps``: the UNet on [x; x] against
+        ``context`` ([uncond; cond]), eps_u + g (eps_c - eps_u) in fp32, a
+        ``sch.step`` each."""
+        b = x.shape[0]
+        g = torch.tensor(guidance_scale, dtype=torch.float32)
         with lora_lib.attached(self.unet, unet_lora):
-            for t in sch.timesteps(num_inference_steps).tolist():
+            for t in timesteps:
                 x2 = torch.cat([x, x])
                 t2 = torch.full((2 * b,), t, dtype=torch.long, device=self.device)
                 eps = functional_call(self.unet, unet_over, (x2, t2, context))
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u.float() + g * (eps_c - eps_u).float()
-                x = sch.step(eps, t, x, num_inference_steps)
+                x = sch.step(eps, t, x, num_steps)
+        return x
 
+    def _decode(self, x) -> torch.Tensor:
+        """Latents -> uint8 (B, H, W, 3) on the device."""
         images = self.vae.decode(x / SCALING_FACTOR).float()
         images = torch.clamp(images / 2 + 0.5, 0.0, 1.0)
-        images = torch.round(images * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
-        return self._postprocess(images, output_type)
+        return torch.round(images * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
+
+    def img2img_draws(self, seed: int, batch: int, latent_hw: Tuple[int, int]) -> Dict:
+        """img2img's two draws from one seeded generator on the device, in
+        the latents' (B, h, w, C) layout: ``sample``, the posterior sample's
+        noise for the one init image (1, h, w, C), and ``noise``, the forward
+        noising's, one per prompt (batch, h, w, C).  The JAX pipeline draws
+        both from ``jax.random.split(PRNGKey(seed))``, which torch cannot
+        reproduce; the parity tests hand JAX's draws to :meth:`img2img`."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        c = self.unet_config.in_channels
+        return {"sample": torch.randn((1, *latent_hw, c), generator=gen, device=self.device),
+                "noise": torch.randn((batch, *latent_hw, c), generator=gen, device=self.device)}
+
+    @torch.inference_mode()
+    def img2img(self, prompt: Union[str, Sequence[str]], init_image,
+                strength: float = 0.75, negative_prompt: Union[str, Sequence[str]] = "",
+                num_inference_steps: int = 50, guidance_scale: float = 7.5, seed: int = 0,
+                scheduler: str = "ddim", output_type: str = "pil", draws=None):
+        """SDEdit-style img2img (JAX :945-1031, the reference
+        ``scripts/run_img2img.ipynb`` flow) with the DDIM scheduler.
+
+        ``init_image`` (H, W, 3), uint8 or floats in [0, 1], is mapped to
+        [-1, 1] and encoded; one posterior sample times 0.18215 serves every
+        prompt, each with its own forward noise to ``ts[t_start]``, where
+        ``t_start = min(len(ts) - 1, round((1 - strength) * len(ts)))``
+        (Python's half-to-even ``round``: strength 0.75 at 50 steps starts
+        at step 12 and runs 38); the CFG loop then runs ``ts[t_start:]``.
+        ``draws`` (see :meth:`img2img_draws`) replaces the seeded draws."""
+        if scheduler != "ddim":
+            raise ValueError(
+                f"img2img scheduler {scheduler!r} is not ported yet (only 'ddim'); the "
+                "others are queued in ROADMAP.md Queue A")
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
+                else list(negative_prompt))
+        b = len(prompts)
+        if len(negs) != b:
+            raise ValueError(f"{len(negs)} negative prompts for {b} prompts")
+        img = np.asarray(init_image)
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        x = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        x = (x * 2.0 - 1.0).permute(2, 0, 1)[None]  # (1, 3, H, W) in [-1, 1]
+
+        sch = DDIMScheduler(self.scheduler_config)
+        ts = sch.timesteps(num_inference_steps).tolist()
+        t_start = img2img_start(len(ts), strength)
+        ts_used = ts[t_start:]
+
+        unet_over, unet_lora, text_over, text_lora = self._generation_params()
+        context = self._encode(self._tokenize(negs + prompts), text_over, text_lora)
+        post = self.vae.encode(x)
+        if draws is None:
+            draws = self.img2img_draws(seed, b, tuple(post.mean.shape[2:]))
+
+        def draw(key):
+            d = draws[key]
+            d = d if isinstance(d, torch.Tensor) else torch.from_numpy(np.array(d, np.float32))
+            return d.to(self.device, torch.float32).permute(0, 3, 1, 2)
+
+        latents0 = (post.sample(noise=draw("sample")) * SCALING_FACTOR).repeat(b, 1, 1, 1)
+        t0 = torch.tensor(ts_used[:1], device=self.device)
+        x = DDPMScheduler(self.scheduler_config).add_noise(latents0.float(), draw("noise"), t0)
+        x = self._denoise(x, sch, ts_used, num_inference_steps, context, unet_over,
+                          unet_lora, guidance_scale)
+        return self._postprocess(self._decode(x), output_type)
 
     @staticmethod
     def _postprocess(images: torch.Tensor, output_type: str):

@@ -7,10 +7,12 @@ card's machine, which has no JAX, it runs without the repo's conftest:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
 Tolerances: bf16 outputs within 2e-2 (flash) / 5e-2 (LoRA, |y| up to ~4)
+absolute, or one bf16 ulp of the largest value (conv3x3)
 absolute of the plain version on the same bf16 inputs -- the kernel and the
 plain version round p or h and the output to bf16 at the same places but sum
 in another order, so single values may land one bf16 ulp apart; fp32 within
-1e-4; the flash lse within 1e-3.  The flash backward's dQ, dK and dV within
+1e-4; the flash lse within 1e-3.  The head-packed flash forward (K4) equals
+K1 exactly.  The flash backward's dQ, dK and dV within
 2e-2 of the largest reference value and 1e-2 relative L2 in bf16 (dS is
 rounded to bf16 from sums taken in another order, and dQ is summed by fp32
 atomics in a varying order), 1e-4 relative in fp32.
@@ -19,8 +21,12 @@ atomics in a varying order), 1e-4 relative in fp32.
 import pytest
 import torch
 
-from diffusion_finetuning_tpu_torch.models.layers import LoRALinear
+import torch.nn.functional as F
+
+from diffusion_finetuning_tpu_torch.models import layers as tlayers
+from diffusion_finetuning_tpu_torch.models.layers import LoRAConv2d, LoRALinear
 from diffusion_finetuning_tpu_torch.ops import attention as tatt
+from diffusion_finetuning_tpu_torch.ops import conv3x3 as tconv
 from diffusion_finetuning_tpu_torch.ops import flash_attention as tfa
 from diffusion_finetuning_tpu_torch.ops import lora_matmul as tlm
 
@@ -195,5 +201,79 @@ def test_lora_dense_gradients_match_plain(card):
     got = torch.autograd.grad(y, (x, up, down), dy)
     want = torch.autograd.grad(
         tlm.lora_dense_plain(x, w, b, up.bfloat16(), down.bfloat16(), 0.8), (x, up, down), dy)
+    for a, b_ in zip(got, want):
+        assert a.dtype == b_.dtype and _rel_l2(a, b_) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("dtype,sq,skv,d", [(torch.bfloat16, 1024, 77, 80),
+                                            (torch.bfloat16, 256, 256, 160),
+                                            (torch.float32, 70, 77, 24)])
+def test_packed_flash_kernel_equals_k1(card, pack, dtype, sq, skv, d):
+    g = torch.Generator(device=card).manual_seed(6)
+    q, k, v = (torch.randn((8, s, d), generator=g, device=card, dtype=dtype)
+               for s in (sq, skv, skv))
+    before = (tfa.launches, tfa.packed_launches)
+    with torch.inference_mode():
+        o1, lse1 = tfa._fwd_cuda(q, k, v, d ** -0.5)
+        o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack)
+    assert (tfa.launches, tfa.packed_launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(o4, o1) and torch.equal(lse4, lse1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,o", [(2, 320, 64, 320), (1, 960, 32, 640),
+                                     (2, 1280, 8, 1280), (1, 64, 16, 72)])
+def test_conv3x3_kernel_matches_plain(card, b, c, h, o):
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn((b, c, h, h), generator=g, device=card).bfloat16()
+    w = (torch.randn((o, c, 3, 3), generator=g, device=card) / (3 * c ** 0.5)).bfloat16()
+    bias = (torch.randn((o,), generator=g, device=card) * 0.1).bfloat16()
+    before = tconv.launches
+    with torch.inference_mode():
+        y = tconv.conv3x3(x, w, bias)
+        y_ref = tconv.conv3x3_plain(x, w, bias)
+    assert tconv.launches == before + 1
+    assert y.shape == (b, o, h, h) and y.dtype == torch.bfloat16
+    assert _max_err(y, y_ref) <= 2 ** -7 * float(y_ref.float().abs().max())
+    assert _rel_l2(y, y_ref) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_fp32_ragged(card):
+    g = torch.Generator(device=card).manual_seed(8)
+    x = torch.randn((2, 24, 9, 11), generator=g, device=card)
+    w = torch.randn((70, 24, 3, 3), generator=g, device=card) * 0.1
+    with torch.inference_mode():
+        y = tconv.conv3x3(x, w, None)
+        y_ref = tconv.conv3x3_plain(x, w, None)
+    assert _rel_l2(y, y_ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_conv3x3_gradients_match_conv2d(card, monkeypatch):
+    """A routed LoRAConv2d (switch on) runs K5 once in the forward; its
+    gradients are F.conv2d autograd's; the frozen weight gets none."""
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", True)
+    torch.manual_seed(9)
+    layer = LoRAConv2d(320, 640, 3, padding=1).to(card, torch.bfloat16)
+    layer.weight.requires_grad_(False)
+    layer.set_lora(torch.randn((640, 4, 1, 1)) * 0.1, torch.randn((4, 320, 3, 3)) * 0.05, 0.5)
+    x = torch.randn((2, 320, 32, 32), device=card, dtype=torch.bfloat16).requires_grad_(True)
+    dy = torch.randn((2, 640, 32, 32), device=card, dtype=torch.bfloat16)
+    before = tconv.launches
+    y = layer(x)
+    assert tconv.launches == before + 1  # the LoRA down/up convs are not routed
+    (gx,) = torch.autograd.grad(y, (x,), dy)
+    assert layer.weight.grad is None
+    ref = (F.conv2d(x, layer.weight, layer.bias, padding=1)
+           + 0.5 * F.conv2d(F.conv2d(x, layer.lora_down, padding=1), layer.lora_up))
+    (gx_ref,) = torch.autograd.grad(ref, (x,), dy)
+    assert _rel_l2(y, ref) <= 1e-2 and _rel_l2(gx, gx_ref) <= 1e-2
+    w = layer.weight.detach().clone().requires_grad_(True)
+    b = layer.bias.detach().clone().requires_grad_(True)
+    got = torch.autograd.grad(tconv.conv3x3(x, w, b), (x, w, b), dy)
+    want = torch.autograd.grad(F.conv2d(x, w, b, padding=1), (x, w, b), dy)
     for a, b_ in zip(got, want):
         assert a.dtype == b_.dtype and _rel_l2(a, b_) <= 1e-2
