@@ -11,7 +11,11 @@ Phases, each fatal on failure:
      shape the SD1.5 512^2 main paths give them (the flash backward at the
      training shapes, BH = 8): error, kernel time, plain-version time, one
      PyTorch library call's time (SDPA's backward alone for the flash
-     backward), and the bound;
+     backward), and the bound; the flash forward's q tile and the flash
+     backward's q splits (whose dK/dV must repeat bit for bit), each timed
+     beside the choices its rule did not make (the other tile; half and
+     twice the splits) and beside the time of the first design of each
+     (constants below);
   3. the UNet step of ``entry()``: full SD1.5 width in bf16 with a rank-4
      dynamic LoRA (non-zero up), CFG batch 2 at 64x64 latents, through both
      kernels, held against the same UNet run on the CPU in fp32 through the
@@ -75,6 +79,20 @@ FLASH_SHAPES = [
 ]
 FLASH_BH = 16
 FLASH_BWD_BH = 8  # training: batch 1 without CFG
+# per-call ms of the first designs at FLASH_SHAPES, measured by this script
+# on an NVIDIA H100 80GB HBM3 at 700 W: K1 (mma.sync, 64-row tiles,
+# synchronous K/V copies) at commit e5aeca8, BH = 16; K3 (one CTA per 64 KV
+# rows, unsplit q loop) at commit a9e0f8c, BH = 8; printed in the log
+# beside this run's times, and kept out of the kernels line, whose numbers
+# are all this run's
+K1_PREV = ("first K1, e5aeca8", {
+    (4096, 4096, 40): 0.5247, (1024, 1024, 80): 0.0989, (256, 256, 160): 0.0568,
+    (64, 64, 160): 0.0218, (4096, 77, 40): 0.0280, (1024, 77, 80): 0.0200,
+    (256, 77, 160): 0.0286, (64, 77, 160): 0.0281})
+K3_PREV = ("first K3, a9e0f8c", {
+    (4096, 4096, 40): 0.6295, (1024, 1024, 80): 0.2025, (256, 256, 160): 0.1111,
+    (64, 64, 160): 0.0441, (4096, 77, 40): 0.5096, (1024, 77, 80): 0.1924,
+    (256, 77, 160): 0.1042, (64, 77, 160): 0.0404})
 # (M tokens, K, N, calls per UNet step) of the LoRA'd projections: per block
 # attn1 q/k/v/out + attn2 q/out (C->C), attn2 k/v (77x2 text tokens, 768->C),
 # GEGLU proj (C->8C)
@@ -296,6 +314,10 @@ def phase_kernels():
             ok = (mx <= FLASH_TOL["max_abs"] and rel <= FLASH_TOL["rel_l2"]
                   and lse_err <= FLASH_TOL["lse_abs"] and bool(torch.isfinite(o).all()))
             ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale), iters, flush)
+            tile = fa.fwd_q_tile(FLASH_BH, sq)
+            other = 64 if tile == 128 else 128  # the tile the rule did not pick
+            other_ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale, q_tile=other), iters,
+                                 flush)
             plain_ms = cuda_time(lambda: fa.flash_attention_plain(q, k, v, scale),
                                  3, flush, hide_host=False)
             q4, k4, v4 = (t.reshape(2, 8, -1, d) for t in (q, k, v))
@@ -305,13 +327,16 @@ def phase_kernels():
         nbytes = 2 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        prev = K1_PREV[1][(sq, skv, d)]
         row = dict(shape=[FLASH_BH, sq, skv, d], per_step=count, max_abs_err=mx,
                    rel_l2=rel, lse_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                   library_ms=lib_ms, bound_ms=bound, bound_by=by, q_tile=tile,
+                   ctas=-(-sq // tile) * FLASH_BH, other_tile_ms=other_ms)
         rows.append(row)
-        log(f"flash  BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+        log(f"flash  BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d} tile={tile:3d}: "
             f"max_abs={mx:.3e} rel_l2={rel:.3e} lse={lse_err:.2e} "
-            f"ms={ms:.4f} plain={plain_ms:.3f} sdpa={lib_ms:.4f} "
+            f"ms={ms:.4f} (tile {other}: {other_ms:.4f}; {K1_PREV[0]}: {prev:.4f}) "
+            f"plain={plain_ms:.3f} sdpa={lib_ms:.4f} "
             f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash attention kernel disagrees at {row['shape']}")
@@ -429,6 +454,7 @@ def flash_packed_rows(gen, flush, iters):
             bound_ms, by = bound(4 * FLASH_BH * sq * skv * d,
                                  2 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq)
             row = dict(shape=[FLASH_BH, sq, skv, d], head_pack=pack, routed=routed,
+                       q_tile=fa.fwd_q_tile(FLASH_BH, sq),
                        per_step=count if pack == HEAD_PACK and routed else 0,
                        equal_to_k1=equal, max_abs_err=mx, rel_l2=rel, lse_abs_err=lse_err,
                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
@@ -520,17 +546,25 @@ def flash_bwd_rows(gen, flush, iters):
         with torch.inference_mode():
             o, lse = fa.flash_fwd(q, k, v, scale)
             delta = fa._delta(o, do)
+            splits = fa.bwd_q_splits(bh, sq, skv, d)
             got = fa.flash_bwd(q, k, v, o, lse, do, scale)
-            want = fa.flash_backward_plain(q, k, v, o, lse, do, scale)
+            again = fa.flash_bwd(q, k, v, o, lse, do, scale)
+            want = fa.flash_backward_plain(q, k, v, o, lse, do, scale, q_splits=splits)
             torch.cuda.synchronize()
+            same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
             errs = {}
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 mx, rel = errors(a, b)
                 errs[name] = (mx, mx / float(b.float().abs().max()), rel,
                               bool(torch.isfinite(a).all()))
-            ok = all(r <= FLASH_BWD_TOL["max_rel"] and l2 <= FLASH_BWD_TOL["rel_l2"] and fin
-                     for _, r, l2, fin in errs.values())
+            ok = same and all(r <= FLASH_BWD_TOL["max_rel"] and l2 <= FLASH_BWD_TOL["rel_l2"]
+                              and fin for _, r, l2, fin in errs.values())
             ms = cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale), iters, flush)
+            # the split rule's choice beside half and twice as many splits
+            n_q = -(-sq // fa.bwd_q_rows(d))
+            other_ms = {n: cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale,
+                                                          q_splits=n), iters, flush)
+                        for n in sorted({max(1, splits // 2), min(n_q, 2 * splits)} - {splits})}
             plain_ms = cuda_time(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale),
                                  3, flush, hide_host=False)
         q4, k4, v4 = (t.reshape(1, bh, -1, d).detach().requires_grad_(True) for t in (q, k, v))
@@ -542,16 +576,23 @@ def flash_bwd_rows(gen, flush, iters):
         nbytes = 2 * bh * (3 * sq + 4 * skv) * d + 8 * bh * sq
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        prev = K3_PREV[1][(sq, skv, d)]
         row = dict(shape=[bh, sq, skv, d], per_step=count,
                    max_abs_err=max(e[0] for e in errs.values()),
                    rel_l2=max(e[2] for e in errs.values()),
                    errors={n: dict(max_abs=e[0], max_rel=e[1], rel_l2=e[2])
                            for n, e in errs.items()},
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                   q_splits=splits, ctas=-(-skv // 64) * bh * splits,
+                   other_splits_ms=other_ms, dkdv_deterministic=same)
         rows.append(row)
-        log(f"flash bwd BH={bh} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+        log(f"flash bwd BH={bh} Sq={sq:5d} Skv={skv:5d} d={d:3d} q_splits={splits:2d} "
+            f"({row['ctas']} CTAs): "
             + " ".join(f"{n} max_abs={e[0]:.2e} rel_l2={e[2]:.2e}" for n, e in errs.items())
-            + f" ms={ms:.4f} plain={plain_ms:.3f} sdpa_bwd={lib_ms:.4f} "
+            + f" dK/dV repeat equal {same} ms={ms:.4f} ("
+            + "".join(f"q_splits {n}: {t:.4f}; " for n, t in other_ms.items())
+            + f"{K3_PREV[0]}: {prev:.4f}) "
+            f"plain={plain_ms:.3f} sdpa_bwd={lib_ms:.4f} "
             f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash attention backward kernel disagrees at {row['shape']}")

@@ -21,6 +21,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 2^x by the special-function unit alone (ex2.approx.ftz: relative error
+// about 2^-22, subnormal results flushed to 0), where exp2f adds range
+// handling around the same instruction
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }

@@ -9,7 +9,7 @@
 // folds in log2(e) and the softmax uses exp2.  Outputs: O = acc / l in the
 // input dtype and lse = m + log2(l) in fp32, i.e. the log-sum-exp of the
 // scaled logits in BASE 2 (lse_natural = lse * ln 2) -- the convention the
-// backward kernel of the training slice reads.
+// backward kernel reads.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): the SD1.5
 // 512^2 CFG self-attention at S=4096, d=40, BH=16 is 4*16*4096^2*40 = 43
@@ -17,191 +17,291 @@
 // cross-attention calls (KV=77) are memory-bound: q and o at S=4096 are
 // about 10 MB, about 3 us.
 //
-// Design (a first, simple kernel): one CTA of 4 warps per (batch*head,
-// 64-row q tile); each warp owns 16 q rows.  K/V tiles of 64 rows are copied
-// into shared memory, the head dim zero-padded there (not in device memory)
-// to a multiple of 16 (40 -> 48), rows padded by 8 elements so that the
-// fragment loads are free of bank conflicts.  Q stays in registers as mma A
-// fragments; S = Q K^T and O += P V run on mma.sync m16n8k16 bf16 with fp32
-// accumulation; P is rounded to bf16 in registers (the Pallas kernel casts p
-// to v's dtype) and V fragments come from ldmatrix.trans.  The row sum l is
-// kept per thread and reduced across the quad once at the end.  No TMA,
-// wgmma or copy/compute overlap yet.  fp32 inputs take a plain FMA kernel
-// (flash_fwd_f32_kernel) with the same math.
+// Design.  A CTA holds NWG consumer warpgroups (1 or 2), each owning 64 q
+// rows; the host picks NWG (ops/flash_attention.py:fwd_q_tile): 128-row
+// tiles, which read K/V once for twice the rows, where their grid still
+// covers half the SMs.
+//   * Q, and K/V through a ring of 4 shared-memory stages (3 for two
+//     warpgroups at d_pad > 128, where 4 do not fit), arrive by TMA (one
+//     cp.async.bulk.tensor a 64-column slab, started by one thread,
+//     completing on the stage's mbarrier), two 64-row tiles ahead (one with
+//     3 stages): while tile j is multiplied, tile j-1 is still read (its V)
+//     and the next ones are in flight.  Tiles use wgmma.cuh's 128-byte
+//     swizzled layout, which the TMA box writes as it is; TMA zero-fills
+//     columns past d and rows past Skv, so the head dim is padded (40 -> 48)
+//     in shared memory only.  Copies by cp.async, or by TMA into an
+//     unswizzled layout (16-byte rows, one request each), had taken a
+//     quarter of the time at S=4096.  A d that is not a multiple of 8 has
+//     rows that are not 16-byte aligned, which TMA refuses: such a d takes
+//     plain element loads (no overlap), routed by shape, never after a
+//     failure.
+//   * Q is copied once and held as wgmma A fragments in registers.
+//     S = Q K^T is wgmma m64n64k16 (B = the K tile, K-major); O += P V is
+//     wgmma m64n{DP}k16 with P's bf16 A fragments built in registers from the
+//     S accumulator (the Pallas kernel casts p to v's dtype) and B = the V
+//     tile read MN-major (the transpose bit), fp32 accumulation.
+//   * The online softmax runs on the accumulator in registers: each thread
+//     holds rows g and g+8 of its warp, the row max is reduced across the
+//     quad, the row sum l is kept per thread and reduced once at the end;
+//     exp2 is the bare ex2.approx instruction (dft::ex2).  Within a
+//     warpgroup it overlaps the tensor cores: S_j and P_{j-1} V_{j-1} are
+//     started together, the softmax of S_j runs while the PV product is
+//     in flight, and O is rescaled to the new row maxima after it lands.
+//   * Two CTAs of two warpgroups share an SM where registers allow
+//     (d_pad <= 64), so one CTA's softmax also overlaps the other's products.
+// fp32 inputs take a plain FMA kernel (flash_fwd_f32_kernel) with the same
+// math.
 //
 // K4, the head-packed forward (dft_flash_fwd with G > 1), replaces the Pallas
 // kernel _fwd_kernel_packed (:178, via _fwd_packed :239, pallas_call :254):
 // G heads per program, outputs bit-equal to K1's.  On the TPU packing
 // shrinks the grid by G and hands Mosaic G independent chains to
-// interleave.  Here a CTA of the grid (ceil(Sq/64), BH/G) runs the per-head
-// body below for its G heads in turn: the same instructions in the same
-// order per head, so bit-equality holds by construction.  It moves the same
-// bytes and operations as K1 (same bound); it trades CTAs for a longer life
-// per CTA, which helps only where K1's grid is larger than the card.
-#include "common.cuh"
+// interleave.  Here a CTA of the grid (ceil(Sq/(64*NWG)), BH/G) runs the
+// per-head body below for its G heads in turn, with the q tile the host
+// chose for K1's own grid: the same instructions in the same order per
+// head, so bit-equality holds by construction.  It moves the same bytes and
+// operations as K1 (same bound); it trades CTAs for a longer life per CTA,
+// which helps only where K1's grid is larger than the card.
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kBlockM = 64;  // q rows per CTA
-constexpr int kBlockN = 64;  // kv rows per shared-memory tile
-constexpr int kPad = 8;      // shared-memory row padding (elements)
-
-// Copy rows [row0, row0 + 64) of a (rows, d) bf16 matrix into a (64, DP + 8)
-// shared tile, zero-filling rows past `rows` and columns past d.
-template <int DP>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int rows, int d) {
-  constexpr int LD = DP + kPad;
-  if ((d & 7) == 0) {
-    constexpr int CH = DP / 8;
-    for (int c = threadIdx.x; c < kBlockN * CH; c += blockDim.x) {
-      const int r = c / CH, col = (c % CH) * 8, gr = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < rows && col < d)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + col);
-      *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-    }
-  } else {
-    for (int c = threadIdx.x; c < kBlockN * DP; c += blockDim.x) {
-      const int r = c / DP, col = c % DP, gr = row0 + r;
-      dst[r * LD + col] =
-          (gr < rows && col < d) ? src[(size_t)gr * d + col] : __float2bfloat16(0.f);
-    }
-  }
+constexpr int kBlockN = 64;  // kv rows per shared-memory stage
+constexpr int kSwizzle = 128;  // bytes: 64-column TMA boxes, the fewest requests
+// K/V ring depth: tiles j-1 (its V read), j, and the tiles in flight; 3
+// (one ahead) where 4 would not fit in shared memory
+__host__ __device__ constexpr int kv_stages(int DP, int NWG) {
+  return NWG == 2 && DP > 128 ? 3 : 4;
 }
 
-// One (head, 64-row q tile) of the forward: qb/kb/vb/ob point at the head's
-// (sq, d) / (skv, d) matrices and lseb at its sq lse values.  Every kernel
-// below runs this body, so the packed kernel (K4) computes each head with the
-// same instructions in the same order as K1 and its outputs are bit-equal.
-template <int DP>
-__device__ __forceinline__ void flash_fwd_bf16_head(const __nv_bfloat16* __restrict__ qb,
-                                                    const __nv_bfloat16* __restrict__ kb,
-                                                    const __nv_bfloat16* __restrict__ vb,
-                                                    __nv_bfloat16* __restrict__ ob,
-                                                    float* __restrict__ lseb, int q0, int sq,
-                                                    int skv, int d, float logit_scale,
-                                                    __nv_bfloat16* Ks) {
-  constexpr int LD = DP + kPad;
-  constexpr int KC = DP / 16;       // k-chunks of the QK^T product
-  constexpr int DT = DP / 8;        // n-tiles of the PV product
-  constexpr int NT = kBlockN / 8;   // n-tiles of S
-  __nv_bfloat16* Vs = Ks + kBlockN * LD;  // Q is staged in Ks first
+template <int DP, int NWG>
+__host__ __device__ constexpr size_t bf16_tiles_bytes() {
+  return sizeof(__nv_bfloat16) *
+         (size_t)(dft::tile_elems(NWG * 64, DP, kSwizzle) +
+                  2 * kv_stages(DP, NWG) * dft::tile_elems(64, DP, kSwizzle));
+}
+// the tiles (from a 1024-byte aligned base), then the mbarriers: Q's, then
+// one a K/V stage
+template <int DP, int NWG>
+constexpr size_t bf16_smem_bytes() {
+  return 1024 + bf16_tiles_bytes<DP, NWG>() + sizeof(uint64_t) * (1 + kv_stages(DP, NWG));
+}
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+// One (head, NWG*64-row q tile) of the forward.  qb/kb/vb/ob point at head
+// bh's (sq, d) / (skv, d) matrices and lseb at its sq lse values; with d a
+// multiple of 8 the tiles come by TMA through qmap/kmap/vmap (boxes of
+// NWG*64 and 64 rows) instead.  `seq0` K/V tiles and `head_no` Q tiles went
+// through the barriers before (K4 runs several heads), which fixes the
+// phases to wait for.  Every bf16 kernel below runs this body, so the
+// packed kernel (K4) computes each head with the same instructions in the
+// same order as K1 and its outputs are bit-equal.
+template <int DP, int NWG>
+__device__ __forceinline__ void flash_fwd_bf16_head(
+    const CUtensorMap* qmap, const CUtensorMap* kmap, const CUtensorMap* vmap, int bh,
+    const __nv_bfloat16* __restrict__ qb, const __nv_bfloat16* __restrict__ kb,
+    const __nv_bfloat16* __restrict__ vb, __nv_bfloat16* __restrict__ ob,
+    float* __restrict__ lseb, int q0, int sq, int skv, int d, float logit_scale,
+    __nv_bfloat16* smem, uint64_t* bars, int seq0, int head_no) {
+  constexpr int KC = DP / 16;        // k-chunks of the QK^T product
+  constexpr int TILE = dft::tile_elems(kBlockN, DP, kSwizzle);  // elements of one K or V stage
+  constexpr int NTHR = NWG * 128;
+  constexpr int QR = NWG * 64;       // q rows of the CTA
+  constexpr int kStages = kv_stages(DP, NWG);
+  constexpr int PD = kStages - 2;    // tiles in flight ahead of the one multiplied
+  __nv_bfloat16* Qs = smem;                                 // QR x DP
+  __nv_bfloat16* Ks = Qs + dft::tile_elems(QR, DP, kSwizzle);        // kStages x (64 x DP)
+  __nv_bfloat16* Vs = Ks + kStages * TILE;
+
+  const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-
-  __syncthreads();  // a previous head's last tile is no longer read
-  load_tile<DP>(Ks, qb, q0, sq, d);
-  __syncthreads();
-  uint32_t qa[KC][4];
-  {
-    const __nv_bfloat16* qs = Ks + warp * 16 * LD;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      qa[kc][0] = dft::ld_u32(qs + g * LD + kc * 16 + 2 * t);
-      qa[kc][1] = dft::ld_u32(qs + (g + 8) * LD + kc * 16 + 2 * t);
-      qa[kc][2] = dft::ld_u32(qs + g * LD + kc * 16 + 2 * t + 8);
-      qa[kc][3] = dft::ld_u32(qs + (g + 8) * LD + kc * 16 + 2 * t + 8);
+  const int row0 = (tid >> 7) * 64 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const int n_kv = (skv + kBlockN - 1) / kBlockN;
+  const bool tma = (d & 7) == 0;  // 16-byte rows: TMA; else plain loads
+  auto load_kv = [&](int j) {     // start copying K/V tile j into its stage
+    const int st = (seq0 + j) % kStages;
+    __nv_bfloat16* kd = Ks + st * TILE;
+    __nv_bfloat16* vd = Vs + st * TILE;
+    if (tma) {
+      if (tid == 0) {
+        dft::fence_proxy_async();
+        dft::mbar_expect_tx(&bars[1 + st], 2 * TILE * 2);
+        dft::tma_load_tile<kBlockN, DP, kSwizzle>(kd, kmap, j * kBlockN, bh, &bars[1 + st]);
+        dft::tma_load_tile<kBlockN, DP, kSwizzle>(vd, vmap, j * kBlockN, bh, &bars[1 + st]);
+      }
+    } else {
+      dft::load_tile_elems<kBlockN, DP, kSwizzle>(kd, kb, j * kBlockN, skv, d, tid, NTHR);
+      dft::load_tile_elems<kBlockN, DP, kSwizzle>(vd, vb, j * kBlockN, skv, d, tid, NTHR);
     }
+  };
+  auto wait_kv = [&](int j) {
+    if (tma) dft::mbar_wait(&bars[1 + (seq0 + j) % kStages], ((seq0 + j) / kStages) & 1);
+  };
+
+  __syncthreads();  // a previous head's tiles are no longer read
+  if (tma) {
+    if (tid == 0) {
+      dft::fence_proxy_async();
+      dft::mbar_expect_tx(&bars[0], dft::tile_elems(QR, DP, kSwizzle) * 2);
+      dft::tma_load_tile<QR, DP, kSwizzle>(Qs, qmap, q0, bh, &bars[0]);
+    }
+  } else {
+    dft::load_tile_elems<QR, DP, kSwizzle>(Qs, qb, q0, sq, d, tid, NTHR);
   }
+  for (int j = 0; j <= PD && j < n_kv; ++j) load_kv(j);  // tiles 0..PD in flight
+  if (tma) {
+    dft::mbar_wait(&bars[0], head_no & 1);
+    wait_kv(0);
+  }
+  dft::fence_proxy_async();
+  __syncthreads();
 
-  float acc[DT][4];
+  uint32_t qa[KC][4];
 #pragma unroll
-  for (int i = 0; i < DT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows g and g + 8
+  for (int kc = 0; kc < KC; ++kc) {
+    qa[kc][0] = dft::ld_u32(Qs + dft::tile_off<QR, kSwizzle>(row0, 16 * kc + 2 * t));
+    qa[kc][1] = dft::ld_u32(Qs + dft::tile_off<QR, kSwizzle>(row0 + 8, 16 * kc + 2 * t));
+    qa[kc][2] = dft::ld_u32(Qs + dft::tile_off<QR, kSwizzle>(row0, 16 * kc + 8 + 2 * t));
+    qa[kc][3] = dft::ld_u32(Qs + dft::tile_off<QR, kSwizzle>(row0 + 8, 16 * kc + 8 + 2 * t));
+  }
+  float s[kBlockN / 2];  // S of one tile (64 x 64 per warpgroup), then its P
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  uint32_t pa[kBlockN / 16][4];  // P (bf16) as A fragments: k-chunk kc = kv 16kc..16kc+15
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows row0 and row0 + 8
 
-  for (int kv0 = 0; kv0 < skv; kv0 += kBlockN) {
-    __syncthreads();  // the previous tile (or the staged Q) is no longer read
-    load_tile<DP>(Ks, kb, kv0, skv, d);
-    load_tile<DP>(Vs, vb, kv0, skv, d);
-    __syncthreads();
-
-    float s[NT][4];
+  // S = Q K^T of the tile in stage `st`, started (not waited for)
+  auto start_s = [&](int st) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = Ks + (nt * 8 + g) * LD + 2 * t;
+    for (int kc = 0; kc < KC; ++kc)
+      dft::wgmma_rs<0>(s, qa[kc], dft::desc_kmajor<kBlockN, kSwizzle>(Ks + st * TILE, kc), kc > 0);
+    dft::wgmma_commit();
+  };
+  // O += P V of the tile in stage `st`, started (not waited for)
+  auto start_pv = [&](int st) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        dft::mma_bf16(s[nt], qa[kc], dft::ld_u32(kr + kc * 16), dft::ld_u32(kr + kc * 16 + 8));
+    for (int kc = 0; kc < kBlockN / 16; ++kc)
+      dft::wgmma_rs<1>(o, pa[kc], dft::desc_mnmajor<kBlockN, kSwizzle>(Vs + st * TILE, kc), 1);
+    dft::wgmma_commit();
+  };
+  // online softmax of S (the tile at kv0) into P, in place; returns the
+  // factors that take O from the old row maxima to the new ones.  The row
+  // max is taken on the raw products (logit_scale > 0) and the scale folded
+  // into the exponent's FMA; only the ragged last tile is masked.
+  auto softmax = [&](int kv0, float& al0, float& al1) {
+    if (kv0 + kBlockN > skv) {
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          if (kv0 + nt * 8 + 2 * t + jj >= skv) s[4 * nt + jj] = s[4 * nt + 2 + jj] = kNegInf;
+        }
+      }
     }
-
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bool valid = kv0 + nt * 8 + 2 * t + j < skv;
-        s[nt][j] = valid ? s[nt][j] * logit_scale : kNegInf;
-        s[nt][2 + j] = valid ? s[nt][2 + j] * logit_scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][j]);
-        mx1 = fmaxf(mx1, s[nt][2 + j]);
+      for (int jj = 0; jj < 2; ++jj) {
+        mx0 = fmaxf(mx0, s[4 * nt + jj]);
+        mx1 = fmaxf(mx1, s[4 * nt + 2 + jj]);
       }
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    const float mn0 = fmaxf(m0, mx0 * logit_scale), mn1 = fmaxf(m1, mx1 * logit_scale);
+    al0 = dft::ex2(m0 - mn0);
+    al1 = dft::ex2(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
-
     float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        s[nt][j] = exp2f(s[nt][j] - mn0);
-        s[nt][2 + j] = exp2f(s[nt][2 + j] - mn1);
-        rs0 += s[nt][j];
-        rs1 += s[nt][2 + j];
+      for (int jj = 0; jj < 2; ++jj) {
+        s[4 * nt + jj] = dft::ex2(fmaf(s[4 * nt + jj], logit_scale, -mn0));
+        s[4 * nt + 2 + jj] = dft::ex2(fmaf(s[4 * nt + 2 + jj], logit_scale, -mn1));
+        rs0 += s[4 * nt + jj];
+        rs1 += s[4 * nt + 2 + jj];
       }
     }
     l0 = l0 * al0 + rs0;
     l1 = l1 * al1 + rs1;
+  };
+  // O *= alpha, then P (fp32 in s) to bf16 A fragments
+  auto rescale_and_pack = [&](float al0, float al1) {
 #pragma unroll
-    for (int i = 0; i < DT; ++i) {
-      acc[i][0] *= al0;
-      acc[i][1] *= al0;
-      acc[i][2] *= al1;
-      acc[i][3] *= al1;
+    for (int i = 0; i < DP / 8; ++i) {
+      o[4 * i] *= al0;
+      o[4 * i + 1] *= al0;
+      o[4 * i + 2] *= al1;
+      o[4 * i + 3] *= al1;
     }
-
 #pragma unroll
     for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = dft::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = dft::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = dft::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = dft::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      const __nv_bfloat16* vr = Vs + (kc * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        dft::ldmatrix_x2_trans(b0, b1, vr + dt * 8);
-        dft::mma_bf16(acc[dt], pa, b0, b1);
-      }
+      pa[kc][0] = dft::pack_bf16(s[8 * kc], s[8 * kc + 1]);
+      pa[kc][1] = dft::pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+      pa[kc][2] = dft::pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+      pa[kc][3] = dft::pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
     }
+  };
+
+  float al0, al1;
+  dft::fence_operands(s);
+  dft::wgmma_fence();
+  start_s(seq0 % kStages);
+  dft::wgmma_wait<0>();
+  dft::fence_operands(s);
+  softmax(0, al0, al1);
+  rescale_and_pack(al0, al1);
+
+  // Iteration j: S_j = Q K_j^T and O += P_{j-1} V_{j-1} are both started; the
+  // softmax of S_j runs while the PV product is still on the tensor cores,
+  // and O is rescaled once that product is done (O then holds the tiles
+  // before j at row maxima m_j).  Tile j+PD is copied meanwhile into the
+  // stage tile j-2 (or j-1) used, free since the barrier.
+  for (int j = 1; j < n_kv; ++j) {
+    wait_kv(j);
+    dft::fence_proxy_async();
+    __syncthreads();  // tile j is in for every thread; no warpgroup still reads its stage
+    if (j + PD < n_kv) load_kv(j + PD);
+    dft::fence_operands(s);
+    dft::fence_operands(o);
+    dft::wgmma_fence();
+    start_s((seq0 + j) % kStages);
+    start_pv((seq0 + j - 1) % kStages);
+    dft::wgmma_wait<1>();  // S_j
+    dft::fence_operands(s);
+    softmax(j * kBlockN, al0, al1);
+    dft::wgmma_wait<0>();  // P_{j-1} V_{j-1}
+    dft::fence_operands(o);
+    rescale_and_pack(al0, al1);
   }
+  dft::fence_operands(o);
+  dft::wgmma_fence();
+  start_pv((seq0 + n_kv - 1) % kStages);
+  dft::wgmma_wait<0>();
+  dft::fence_operands(o);
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + row0, r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
+  for (int dt = 0; dt < DP / 8; ++dt) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = dt * 8 + 2 * t + j;
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c = dt * 8 + 2 * t + jj;
       if (c < d) {
-        if (r0 < sq) ob[(size_t)r0 * d + c] = __float2bfloat16(acc[dt][j] * inv0);
-        if (r1 < sq) ob[(size_t)r1 * d + c] = __float2bfloat16(acc[dt][2 + j] * inv1);
+        if (r0 < sq) ob[(size_t)r0 * d + c] = __float2bfloat16(o[4 * dt + jj] * inv0);
+        if (r1 < sq) ob[(size_t)r1 * d + c] = __float2bfloat16(o[4 * dt + 2 + jj] * inv1);
       }
     }
   }
@@ -211,35 +311,68 @@ __device__ __forceinline__ void flash_fwd_bf16_head(const __nv_bfloat16* __restr
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+// Two CTAs of two warpgroups an SM where registers allow (d_pad <= 64):
+// one CTA's softmax then overlaps the other's products.
+constexpr int min_blocks(int DP, int NWG) { return NWG == 2 && DP <= 64 ? 2 : 1; }
+
+// The tiles' 1024-byte aligned base (the swizzle's period) and the
+// barriers, set up once a CTA.
+template <int DP, int NWG>
+__device__ __forceinline__ __nv_bfloat16* fwd_setup(unsigned char* raw, int d, uint64_t*& bars) {
+  auto* smem = reinterpret_cast<__nv_bfloat16*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                                ~static_cast<uintptr_t>(1023));
+  bars = reinterpret_cast<uint64_t*>(smem + bf16_tiles_bytes<DP, NWG>() / 2);
+  if ((d & 7) == 0 && threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kv_stages(DP, NWG); ++i) dft::mbar_init(&bars[i], 1);
+    dft::mbar_init_fence();
+  }
+  __syncthreads();
+  return smem;
+}
+
+// G heads per CTA: G = 1 is K1; G > 1 is K4 (JAX _fwd_kernel_packed carries
+// G independent softmax chains through one program; here the heads run in
+// turn through the same shared tiles, so each head's arithmetic is K1's).
+template <int DP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, min_blocks(DP, NWG))
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                           float* __restrict__ lse, int sq, int skv, int d, float logit_scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const size_t bh = blockIdx.y;
-  flash_fwd_bf16_head<DP>(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d, o + bh * sq * d,
-                          lse + bh * sq, blockIdx.x * kBlockM, sq, skv, d, logit_scale,
-                          reinterpret_cast<__nv_bfloat16*>(smem_raw));
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bars;
+  __nv_bfloat16* smem = fwd_setup<DP, NWG>(smem_raw, d, bars);
+  const int bh = blockIdx.y;
+  flash_fwd_bf16_head<DP, NWG>(&qmap, &kmap, &vmap, bh, q + (size_t)bh * sq * d,
+                               k + (size_t)bh * skv * d, v + (size_t)bh * skv * d,
+                               o + (size_t)bh * sq * d, lse + (size_t)bh * sq,
+                               blockIdx.x * NWG * 64, sq, skv, d, logit_scale, smem, bars, 0, 0);
 }
 
-// K4: G heads per CTA, one after the other (JAX _fwd_kernel_packed carries G
-// independent softmax chains through one program; here the heads run in
-// turn through the same shared tiles, so each head's arithmetic is K1's).
-template <int DP>
-__global__ void __launch_bounds__(128)
-    flash_fwd_bf16_packed_kernel(const __nv_bfloat16* __restrict__ q,
+template <int DP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, min_blocks(DP, NWG))
+    flash_fwd_bf16_packed_kernel(const __grid_constant__ CUtensorMap qmap,
+                                 const __grid_constant__ CUtensorMap kmap,
+                                 const __grid_constant__ CUtensorMap vmap,
+                                 const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
                                  const __nv_bfloat16* __restrict__ v,
                                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int sq,
                                  int skv, int d, float logit_scale, int G) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint64_t* bars;
+  __nv_bfloat16* smem = fwd_setup<DP, NWG>(smem_raw, d, bars);
+  const int n_kv = (skv + kBlockN - 1) / kBlockN;
   for (int i = 0; i < G; ++i) {
-    const size_t bh = (size_t)blockIdx.y * G + i;
-    flash_fwd_bf16_head<DP>(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d,
-                            o + bh * sq * d, lse + bh * sq, blockIdx.x * kBlockM, sq, skv, d,
-                            logit_scale, reinterpret_cast<__nv_bfloat16*>(smem_raw));
+    const int bh = blockIdx.y * G + i;
+    flash_fwd_bf16_head<DP, NWG>(&qmap, &kmap, &vmap, bh, q + (size_t)bh * sq * d,
+                                 k + (size_t)bh * skv * d, v + (size_t)bh * skv * d,
+                                 o + (size_t)bh * sq * d, lse + (size_t)bh * sq,
+                                 blockIdx.x * NWG * 64, sq, skv, d, logit_scale, smem, bars,
+                                 i * n_kv, i);
   }
 }
 
@@ -340,52 +473,85 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-// G heads per CTA; G = 1 is K1, G > 1 the packed K4.
-template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                        int sq, int skv, int d, float logit_scale, int G, cudaStream_t stream) {
-  const dim3 grid((sq + kBlockM - 1) / kBlockM, bh / G);
-  const size_t smem = 2 * kBlockN * (DP + kPad) * sizeof(__nv_bfloat16);
+// G heads per CTA (G = 1 is K1, G > 1 the packed K4), NWG*64 q rows per CTA.
+template <int DP, int NWG>
+cudaError_t launch_bf16_tile(const void* q, const void* k, const void* v, void* o, float* lse,
+                             int bh, int sq, int skv, int d, float logit_scale, int G,
+                             cudaStream_t stream) {
+  constexpr size_t smem = bf16_smem_bytes<DP, NWG>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<DP, NWG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_fwd_bf16_packed_kernel<DP, NWG>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap qm{}, km{}, vm{};  // unused (zero) when d is not a multiple of 8
+  if ((d & 7) == 0 && !(dft::make_tile_map(&qm, q, bh, sq, d, NWG * 64, kSwizzle) &&
+                        dft::make_tile_map(&km, k, bh, skv, d, kBlockN, kSwizzle) &&
+                        dft::make_tile_map(&vm, v, bh, skv, d, kBlockN, kSwizzle)))
+    return cudaErrorNotSupported;
+  const dim3 grid((sq + NWG * 64 - 1) / (NWG * 64), bh / G);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
   if (G == 1)
-    flash_fwd_bf16_kernel<DP><<<grid, 128, smem, stream>>>(qp, kp, vp, op, lse, sq, skv, d,
-                                                           logit_scale);
+    flash_fwd_bf16_kernel<DP, NWG><<<grid, NWG * 128, smem, stream>>>(
+        qm, km, vm, qp, kp, vp, op, lse, sq, skv, d, logit_scale);
   else
-    flash_fwd_bf16_packed_kernel<DP><<<grid, 128, smem, stream>>>(qp, kp, vp, op, lse, sq, skv,
-                                                                  d, logit_scale, G);
+    flash_fwd_bf16_packed_kernel<DP, NWG><<<grid, NWG * 128, smem, stream>>>(
+        qm, km, vm, qp, kp, vp, op, lse, sq, skv, d, logit_scale, G);
   return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                        int sq, int skv, int d, float logit_scale, int G, int q_tile,
+                        cudaStream_t stream) {
+  if (q_tile == 64)
+    return launch_bf16_tile<DP, 1>(q, k, v, o, lse, bh, sq, skv, d, logit_scale, G, stream);
+  if (q_tile == 128)
+    return launch_bf16_tile<DP, 2>(q, k, v, o, lse, bh, sq, skv, d, logit_scale, G, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, skv, d), o like q, lse (bh, sq) fp32; all contiguous.
 // dtype: 0 = fp32, 1 = bf16.  G heads per CTA: 1 runs K1, G > 1 (dividing bh)
-// runs K4, whose O and lse are bit-equal to K1's.  Returns the launch's
+// runs K4, whose O and lse are bit-equal to K1's at the same q_tile.
+// q_tile: q rows per CTA of the bf16 kernels, 64 or 128 (one or two
+// warpgroups; the fp32 kernel ignores it).  Returns the launch's
 // cudaError_t (0 = launched).
 extern "C" int dft_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int bh, int sq, int skv, int d, float scale, int dtype, int G,
-                             void* stream) {
+                             int q_tile, void* stream) {
   const float logit_scale = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (G < 1 || bh % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
+#define DFT_FWD_CASE(DP) \
+  case DP:               \
+    return launch_bf16<DP>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, q_tile, st)
     switch ((d + 15) / 16 * 16) {
-      case 16: return launch_bf16<16>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 32: return launch_bf16<32>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 48: return launch_bf16<48>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 64: return launch_bf16<64>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 80: return launch_bf16<80>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 96: return launch_bf16<96>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 112: return launch_bf16<112>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 128: return launch_bf16<128>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 144: return launch_bf16<144>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
-      case 160: return launch_bf16<160>(q, k, v, o, l, bh, sq, skv, d, logit_scale, G, st);
+      DFT_FWD_CASE(16);
+      DFT_FWD_CASE(32);
+      DFT_FWD_CASE(48);
+      DFT_FWD_CASE(64);
+      DFT_FWD_CASE(80);
+      DFT_FWD_CASE(96);
+      DFT_FWD_CASE(112);
+      DFT_FWD_CASE(128);
+      DFT_FWD_CASE(144);
+      DFT_FWD_CASE(160);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+#undef DFT_FWD_CASE
   }
   if (dtype == 0) {
     const size_t smem = f32_smem_bytes(d);

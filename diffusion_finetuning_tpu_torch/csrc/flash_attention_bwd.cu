@@ -19,153 +19,240 @@
 // S=4096, d=40 is 54 GFLOP, about 54 us; the cross-attention calls (Skv=77)
 // are bound by bytes (q, dO, dq: 3 x 2.6 MB at S=4096, d=40; about 3 us).
 //
-// Design (a first, simple kernel).  The TPU kernel walks the q blocks in a
-// sequential grid and keeps dK/dV resident across it; on Hopper the CTAs
-// run in parallel, so the loop over q moves inside the CTA:
-//   * one CTA of 4 warps per (batch*head, 64-row KV tile); each warp owns 16
-//     KV rows and keeps their dK and dV in fp32 registers for the whole call;
-//   * K and V of the tile are copied to shared memory once; per iteration a
-//     tile of BR q rows (Q, dO, lse, delta) is copied in, the head dim
-//     zero-padded to a multiple of 16 in shared memory (40 -> 48), never in
-//     device memory, rows padded by 8 elements against bank conflicts;
-//   * S^T = K Q^T and dP^T = V dO^T run on mma.sync m16n8k16 (bf16 in, fp32
-//     accumulate); P^T and dS^T become A fragments in registers for
-//     dV += P^T dO and dK += dS^T Q, whose B fragments come from ldmatrix.trans;
-//   * dQ needs a sum over all KV tiles of a head, which live in different
-//     CTAs: each CTA writes dS (bf16) to shared memory, the 4 warps compute
-//     the (BR x d) tile dS K and add it with fp32 atomicAdd into a zeroed
-//     fp32 buffer that the wrapper allocates and casts to q's dtype.  The
-//     order of those additions varies from run to run (a few fp32 ulps).
+// Design.  The TPU kernel walks the q blocks in a sequential grid and keeps
+// dK/dV resident across it; on Hopper the CTAs run in parallel, so the loop
+// over q moves inside the CTA, and a third grid dimension splits it:
+//   * grid (ceil(Skv/64), BH, q_splits); a CTA is one warpgroup owning 64 KV
+//     rows (warp w: rows 16w..16w+15) and walks q tiles [split*n/q_splits,
+//     (split+1)*n/q_splits) of the n = ceil(Sq/BR) tiles.  The host
+//     (ops/flash_attention.py:bwd_q_splits) picks the fewest q_splits giving
+//     two waves (>= 264 CTAs) with at least 4 q tiles a split, and one wave
+//     wherever Sq allows, so the Skv=77 calls, 2 KV tiles a head, no longer
+//     run 16 CTAs (4096 x 77 at BH=8: 256);
+//   * K and V of the tile arrive once; Q, dO, lse and delta of the next q
+//     tiles are in flight in a ring (2 stages at 64-row q tiles, else 3)
+//     while the current tile computes.  All come by TMA (one thread starts them,
+//     the stage's mbarrier completes) into wgmma.cuh's swizzled layout, 128
+//     bytes up to d_pad 64 and else the widest swizzle d_pad fills (32 bytes
+//     at d_pad 80), so that the pad costs no CTAs an SM; TMA zero-fills rows
+//     past Sq and Skv and columns past d (40 -> 48), so the pads cost no
+//     device memory.  lse and delta come from the flat (BH*Sq) vectors, so a
+//     ragged last tile reads rows of the next head, which the q mask drops.
+//     Synchronous copies, and cp.async in their place, had taken a third of
+//     the time at S=4096.  A d that is not a multiple of 8 takes plain
+//     element loads, routed by shape;
+//   * the four products whose M side is the 64-row KV tile run on wgmma
+//     (bf16 in, fp32 accumulate): S^T = K Q^T and dP^T = V dO^T with both
+//     operands from shared memory (N = BR q columns), dV += P^T dO and
+//     dK += dS^T Q with P^T and dS^T as register A fragments built from the
+//     accumulators and dO / Q read MN-major (N = d_pad);
+//   * dQ = dS K: dS goes to shared memory as bf16 (JAX's
+//     ds.astype(q.dtype)).  Where the q tile has 64 rows (d_pad <= 64) dQ is
+//     a wgmma too (A = dS, B = the K tile read MN-major).  Above that, dK and
+//     dV of 64 KV rows leave registers for a q tile of only 32 or 16 rows,
+//     under wgmma's M of 64, so dQ stays on mma.sync there: the 4 warps split
+//     the (BR x d) tile while the dV/dK wgmmas run.  The dQ tile is staged in
+//     shared memory as fp32 and added to a zeroed buffer (which the wrapper
+//     casts to q's dtype) by one bulk reduce-add (cp.reduce.async.bulk, done
+//     in L2) where d % 4 == 0, else by fp32 atomicAdd.  The order of those
+//     additions across KV tiles varies from run to run: a few fp32 ulps;
+//   * with q_splits > 1 each CTA writes its dK/dV as an fp32 partial to
+//     scratch (q_splits, BH, ceil(Skv/64), 64 x d_pad x 2, in register order
+//     so that a warp's float4 accesses are contiguous); the last CTA of a
+//     (head, KV tile) to arrive (__threadfence + an arrival counter, which it
+//     resets to 0) sums the partials in split order and writes bf16, so dK
+//     and dV are deterministic and no second launch is needed.
 // Registers: dK and dV take d_pad/2 floats a thread each (160 at d=160), so
-// the q tile shrinks with the head dim (BR = 32 up to d_pad 96, else 16).
-// Known slowness: the cross-attention calls give only ceil(77/64) = 2 KV
-// tiles per head (16 CTAs on 132 SMs at BH=8); splitting the q loop over
-// several CTAs with an fp32 reduction of dK/dV is the fix, still to come.
-// No TMA, wgmma or copy/compute overlap yet.  fp32 inputs take a plain FMA
-// kernel (flash_bwd_f32_kernel) with the same math.
-#include "common.cuh"
+// the q tile is as narrow as they force (q_rows: BR = 64 up to d_pad 64, 32
+// up to 96, else 16).
+// fp32 inputs take a plain FMA kernel (flash_bwd_f32_kernel) with the same
+// math, one launch, no split.
+#include "wgmma.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockN = 64;  // kv rows per CTA (16 per warp)
-constexpr int kPad = 8;      // shared-memory row padding (elements)
+constexpr int kPad = 8;      // row padding of the dS tile (elements)
 constexpr int kThreads = 128;
+// Q/dO/lse/delta ring depth: tile it computes while the next one or two are
+// in flight (two stages at 64-row tiles, to keep three CTAs an SM)
+__host__ __device__ constexpr int q_stages(int BR) { return BR == 64 ? 2 : 3; }
+// floats between a ring stage's lse and delta runs (128-byte aligned TMA destinations)
+__host__ __device__ constexpr int l_stride(int BR) { return BR < 32 ? 32 : BR; }
 
-// Copy rows [row0, row0 + R) of a (rows, d) bf16 matrix into an (R, DP + 8)
-// shared tile, zero-filling rows past `rows` and columns past d.
-template <int R, int DP>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int row0, int rows, int d) {
-  constexpr int LD = DP + kPad;
-  if ((d & 7) == 0) {
-    constexpr int CH = DP / 8;
-    for (int c = threadIdx.x; c < R * CH; c += blockDim.x) {
-      const int r = c / CH, col = (c % CH) * 8, gr = row0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < rows && col < d)
-        val = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + col);
-      *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-    }
-  } else {
-    for (int c = threadIdx.x; c < R * DP; c += blockDim.x) {
-      const int r = c / DP, col = c % DP, gr = row0 + r;
-      dst[r * LD + col] =
-          (gr < rows && col < d) ? src[(size_t)gr * d + col] : __float2bfloat16(0.f);
-    }
-  }
+// swizzle bytes of the TMA tiles: 128 (the fewest, widest requests) up to
+// d_pad 64; above, the widest whose slabs d_pad fills, since shared memory
+// spent on padding there costs CTAs an SM (d_pad 80: 32 bytes)
+__host__ __device__ constexpr int swizzle(int DP) {
+  return DP <= 64 || DP % 64 == 0 ? 128 : DP % 32 == 0 ? 64 : 32;
 }
 
+// q rows per tile: 64 (dQ = dS K on wgmma) where the registers allow,
+// narrower as dK and dV grow with the head dim
+constexpr int q_rows(int DP) { return DP <= 64 ? 64 : DP <= 96 ? 32 : 16; }
+
+// bf16 elements of the dS tile: core-matrix layout for the wgmma dQ, else
+// rows padded by kPad for mma.sync fragments
+__host__ __device__ constexpr int ds_elems(int BR) {
+  return BR == 64 ? BR * kBlockN : BR * (kBlockN + kPad);
+}
+
+// from a 1024-byte aligned base: K, V, the ring's Q and dO tiles, dS, the
+// fp32 dQ tile, the ring's lse and delta, the barriers and a flag
 template <int DP, int BR>
 constexpr size_t bf16_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((size_t)(2 * kBlockN + 2 * BR) * (DP + kPad) +
-                                  (size_t)BR * (kBlockN + kPad)) +
-         sizeof(float) * 2 * BR;
+  constexpr int SW = swizzle(DP);
+  return 1024 +
+         sizeof(__nv_bfloat16) * ((size_t)(2 * dft::tile_elems(kBlockN, DP, SW) +
+                                           2 * q_stages(BR) * dft::tile_elems(BR, DP, SW)) +
+                                  ds_elems(BR)) +
+         sizeof(float) * ((size_t)BR * DP + 2 * q_stages(BR) * l_stride(BR)) +
+         sizeof(uint64_t) * (1 + q_stages(BR)) + 16;
 }
 
 template <int DP, int BR>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+    flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap lmap,
+                          const __grid_constant__ CUtensorMap dmap,
+                          const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int sq, int skv, int d, float scale,
-                          float logit_scale) {
-  constexpr int LD = DP + kPad;
+                          __nv_bfloat16* __restrict__ dv, float* __restrict__ dkv_part,
+                          int* __restrict__ counters, int sq, int skv, int d, float scale,
+                          float logit_scale, int q_splits) {
   constexpr int LDS = kBlockN + kPad;  // row stride of the dS tile (BR x 64)
   constexpr int KC = DP / 16;          // k-chunks over the head dim
   constexpr int DT = DP / 8;           // n-tiles over the head dim
   constexpr int NQ = BR / 8;           // n-tiles of S^T over the q rows
   constexpr int QC = BR / 16;          // k-chunks over the q rows
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 64 x LD
-  __nv_bfloat16* Vs = Ks + kBlockN * LD;                            // 64 x LD
-  __nv_bfloat16* Qs = Vs + kBlockN * LD;                            // BR x LD
-  __nv_bfloat16* dOs = Qs + BR * LD;                                // BR x LD
-  __nv_bfloat16* dSs = dOs + BR * LD;                               // BR x LDS, dS[q][kv]
-  float* lse_s = reinterpret_cast<float*>(dSs + BR * LDS);          // BR
-  float* dlt_s = lse_s + BR;                                        // BR
+  constexpr int SW = swizzle(DP);
+  constexpr int TQ = dft::tile_elems(BR, DP, SW);       // elements of one Q or dO tile
+  constexpr int TKV = dft::tile_elems(kBlockN, DP, SW);  // elements of the K or V tile
+  constexpr int kQStages = q_stages(BR);
+  constexpr bool kWgmmaDq = BR == 64;  // dQ on wgmma (M = 64 q rows), else mma.sync
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(  // 64 x DP; 1024-byte aligned
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __nv_bfloat16* Vs = Ks + TKV;                                     // 64 x DP
+  __nv_bfloat16* Qring = Vs + TKV;  // stage s: Q at 2*s*TQ, dO at 2*s*TQ + TQ
+  __nv_bfloat16* dSs = Qring + 2 * kQStages * TQ;  // dS[q][kv], ds_elems(BR)
+  float* dQs = reinterpret_cast<float*>(dSs + ds_elems(BR));  // BR x d fp32, dense rows
+  constexpr int LST = l_stride(BR);
+  float* Lring = dQs + BR * DP;  // stage s: lse at 2*s*LST, delta at 2*s*LST + LST
+  // barriers: K/V's, then one a ring stage
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Lring + 2 * kQStages * LST);
+  int* is_last = reinterpret_cast<int*>(bars + 1 + kQStages);
 
-  const int bh = blockIdx.y, kv0 = blockIdx.x * kBlockN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, kv0 = blockIdx.x * kBlockN, split = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int n_qt = (sq + BR - 1) / BR;
+  const int it0 = (int)((long long)split * n_qt / q_splits);
+  const int it1 = (int)((long long)(split + 1) * n_qt / q_splits);
   q += (size_t)bh * sq * d;
   dout += (size_t)bh * sq * d;
   dq_acc += (size_t)bh * sq * d;
   lse += (size_t)bh * sq;
   delta += (size_t)bh * sq;
   const size_t kv_off = (size_t)bh * skv * d;
+  // dQ tiles go to global memory by one bulk reduce-add each where every
+  // row is 16-byte aligned (d % 4 == 0), else by fp32 atomics
+  const bool bulk_dq = (d & 3) == 0;
 
-  load_rows<kBlockN, DP>(Ks, k + kv_off, kv0, skv, d);
-  load_rows<kBlockN, DP>(Vs, v + kv_off, kv0, skv, d);
-
-  float dk_acc[DT][4], dv_acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  const bool tma = (d & 7) == 0;  // 16-byte rows: TMA; else plain loads
+  if (tma && tid == 0) {
+    for (int i = 0; i < 1 + kQStages; ++i) dft::mbar_init(&bars[i], 1);
+    dft::mbar_init_fence();
   }
-  const __nv_bfloat16* kw = Ks + warp * 16 * LD;  // this warp's 16 kv rows
-  const __nv_bfloat16* vw = Vs + warp * 16 * LD;
-  const bool kv_ok0 = kv0 + warp * 16 + g < skv, kv_ok1 = kv0 + warp * 16 + g + 8 < skv;
+  __syncthreads();
 
-  for (int q0 = 0; q0 < sq; q0 += BR) {
-    __syncthreads();  // the previous tile's Q, dO and dS are no longer read
-    load_rows<BR, DP>(Qs, q, q0, sq, d);
-    load_rows<BR, DP>(dOs, dout, q0, sq, d);
-    for (int i = threadIdx.x; i < BR; i += blockDim.x) {
-      const bool ok = q0 + i < sq;
-      lse_s[i] = ok ? lse[q0 + i] : 0.f;
-      dlt_s[i] = ok ? delta[q0 + i] : 0.f;
-    }
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 kv rows x BR q columns
-    float s[NQ][4], dp[NQ][4];
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = kc * 16 + 2 * t;
-      const uint32_t ka[4] = {dft::ld_u32(kw + g * LD + c), dft::ld_u32(kw + (g + 8) * LD + c),
-                              dft::ld_u32(kw + g * LD + c + 8),
-                              dft::ld_u32(kw + (g + 8) * LD + c + 8)};
-      const uint32_t va[4] = {dft::ld_u32(vw + g * LD + c), dft::ld_u32(vw + (g + 8) * LD + c),
-                              dft::ld_u32(vw + g * LD + c + 8),
-                              dft::ld_u32(vw + (g + 8) * LD + c + 8)};
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const __nv_bfloat16* qr = Qs + (nt * 8 + g) * LD + c;
-        const __nv_bfloat16* dr = dOs + (nt * 8 + g) * LD + c;
-        dft::mma_bf16(s[nt], ka, dft::ld_u32(qr), dft::ld_u32(qr + 8));
-        dft::mma_bf16(dp[nt], va, dft::ld_u32(dr), dft::ld_u32(dr + 8));
+  // start copying q tile `it` (Q, dO, lse, delta) into ring stage s
+  auto fetch = [&](int it, int s) {
+    const int q0 = it * BR;
+    __nv_bfloat16* qs = Qring + 2 * s * TQ;
+    float* ls = Lring + 2 * s * LST;
+    if (tma) {
+      if (tid == 0) {  // lse/delta: the flat (BH*Sq) vectors; a ragged tile reads masked rows
+        dft::fence_proxy_async();
+        dft::mbar_expect_tx(&bars[1 + s], 2 * TQ * 2 + 2 * BR * 4);
+        dft::tma_load_tile<BR, DP, SW>(qs, &qmap, q0, bh, &bars[1 + s]);
+        dft::tma_load_tile<BR, DP, SW>(qs + TQ, &omap, q0, bh, &bars[1 + s]);
+        dft::tma_load_vec(ls, &lmap, bh * sq + q0, &bars[1 + s]);
+        dft::tma_load_vec(ls + LST, &dmap, bh * sq + q0, &bars[1 + s]);
+      }
+    } else {
+      dft::load_tile_elems<BR, DP, SW>(qs, q, q0, sq, d, tid, kThreads);
+      dft::load_tile_elems<BR, DP, SW>(qs + TQ, dout, q0, sq, d, tid, kThreads);
+      for (int i = tid; i < BR; i += kThreads) {
+        const bool ok = q0 + i < sq;
+        ls[i] = ok ? lse[q0 + i] : 0.f;
+        ls[LST + i] = ok ? delta[q0 + i] : 0.f;
       }
     }
+  };
+
+  if (tma) {
+    if (tid == 0) {
+      dft::mbar_expect_tx(&bars[0], 2 * TKV * 2);
+      dft::tma_load_tile<kBlockN, DP, SW>(Ks, &kmap, kv0, bh, &bars[0]);
+      dft::tma_load_tile<kBlockN, DP, SW>(Vs, &vmap, kv0, bh, &bars[0]);
+    }
+  } else {
+    dft::load_tile_elems<kBlockN, DP, SW>(Ks, k + kv_off, kv0, skv, d, tid, kThreads);
+    dft::load_tile_elems<kBlockN, DP, SW>(Vs, v + kv_off, kv0, skv, d, tid, kThreads);
+  }
+  for (int i = 0; i < kQStages - 1 && it0 + i < it1; ++i) fetch(it0 + i, i);
+  if (tma) dft::mbar_wait(&bars[0], 0);
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const int kvr = warp * 16 + g;  // this thread's kv rows of the tile: kvr, kvr + 8
+  // dS[q][kv] of (q = 2t, kv = kvr) in the 64 x 64 tile; q 8nt + j more
+  // is 64nt + 8j on, kv 8 more 512 on
+  const int ds_base = dft::core_off<kBlockN>(2 * t, 2 * warp) + g;
+  const bool kv_ok0 = kv0 + kvr < skv, kv_ok1 = kv0 + kvr + 8 < skv;
+
+  for (int it = it0; it < it1; ++it) {
+    const int s = (it - it0) % kQStages;
+    if (it + kQStages - 1 < it1)  // into the stage tile it-1 used; in flight meanwhile
+      fetch(it + kQStages - 1, (it - it0 + kQStages - 1) % kQStages);
+    if (tma) dft::mbar_wait(&bars[1 + s], ((it - it0) / kQStages) & 1);
+    dft::fence_proxy_async();
+    __syncthreads();
+    const int q0 = it * BR;
+    const __nv_bfloat16* Qs = Qring + 2 * s * TQ;
+    const __nv_bfloat16* dOs = Qs + TQ;
+    const float* lse_s = Lring + 2 * s * LST;
+    const float* dlt_s = lse_s + LST;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 kv rows x BR q columns
+    float sT[BR / 2], dpT[BR / 2];
+#pragma unroll
+    for (int i = 0; i < BR / 2; ++i) sT[i] = dpT[i] = 0.f;
+    dft::fence_operands(sT);
+    dft::fence_operands(dpT);
+    dft::wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      dft::wgmma_ss<0, 0>(sT, dft::desc_kmajor<kBlockN, SW>(Ks, kc),
+                          dft::desc_kmajor<BR, SW>(Qs, kc), 1);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      dft::wgmma_ss<0, 0>(dpT, dft::desc_kmajor<kBlockN, SW>(Vs, kc),
+                          dft::desc_kmajor<BR, SW>(dOs, kc), 1);
+    dft::wgmma_commit();
+    dft::wgmma_wait<0>();
+    dft::fence_operands(sT);
+    dft::fence_operands(dpT);
 
     // P^T = exp2(S^T * scale * log2 e - lse), dS^T = P^T (dP^T - delta) scale
 #pragma unroll
@@ -175,36 +262,12 @@ __global__ void __launch_bounds__(kThreads)
         const int qc = nt * 8 + 2 * t + j;
         const bool q_ok = q0 + qc < sq;
         const float l = lse_s[qc], dl = dlt_s[qc];
-        const float p0 = (q_ok && kv_ok0) ? exp2f(s[nt][j] * logit_scale - l) : 0.f;
-        const float p1 = (q_ok && kv_ok1) ? exp2f(s[nt][2 + j] * logit_scale - l) : 0.f;
-        s[nt][j] = p0;
-        s[nt][2 + j] = p1;
-        dp[nt][j] = p0 * (dp[nt][j] - dl) * scale;
-        dp[nt][2 + j] = p1 * (dp[nt][2 + j] - dl) * scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q (k runs over the q rows of the tile)
-#pragma unroll
-    for (int qc = 0; qc < QC; ++qc) {
-      uint32_t pa[4], da[4];
-      pa[0] = dft::pack_bf16(s[2 * qc][0], s[2 * qc][1]);
-      pa[1] = dft::pack_bf16(s[2 * qc][2], s[2 * qc][3]);
-      pa[2] = dft::pack_bf16(s[2 * qc + 1][0], s[2 * qc + 1][1]);
-      pa[3] = dft::pack_bf16(s[2 * qc + 1][2], s[2 * qc + 1][3]);
-      da[0] = dft::pack_bf16(dp[2 * qc][0], dp[2 * qc][1]);
-      da[1] = dft::pack_bf16(dp[2 * qc][2], dp[2 * qc][3]);
-      da[2] = dft::pack_bf16(dp[2 * qc + 1][0], dp[2 * qc + 1][1]);
-      da[3] = dft::pack_bf16(dp[2 * qc + 1][2], dp[2 * qc + 1][3]);
-      const __nv_bfloat16* dor = dOs + (qc * 16 + (lane & 15)) * LD;
-      const __nv_bfloat16* qrr = Qs + (qc * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t b0, b1;
-        dft::ldmatrix_x2_trans(b0, b1, dor + dt * 8);
-        dft::mma_bf16(dv_acc[dt], pa, b0, b1);
-        dft::ldmatrix_x2_trans(b0, b1, qrr + dt * 8);
-        dft::mma_bf16(dk_acc[dt], da, b0, b1);
+        const float p0 = (q_ok && kv_ok0) ? exp2f(sT[4 * nt + j] * logit_scale - l) : 0.f;
+        const float p1 = (q_ok && kv_ok1) ? exp2f(sT[4 * nt + 2 + j] * logit_scale - l) : 0.f;
+        sT[4 * nt + j] = p0;
+        sT[4 * nt + 2 + j] = p1;
+        dpT[4 * nt + j] = p0 * (dpT[4 * nt + j] - dl) * scale;
+        dpT[4 * nt + 2 + j] = p1 * (dpT[4 * nt + 2 + j] - dl) * scale;
       }
     }
 
@@ -213,15 +276,82 @@ __global__ void __launch_bounds__(kThreads)
     for (int nt = 0; nt < NQ; ++nt) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int qc = nt * 8 + 2 * t + j;
-        dSs[qc * LDS + warp * 16 + g] = __float2bfloat16(dp[nt][j]);
-        dSs[qc * LDS + warp * 16 + g + 8] = __float2bfloat16(dp[nt][2 + j]);
+        if constexpr (kWgmmaDq) {
+          dSs[ds_base + nt * 64 + j * 8] = __float2bfloat16(dpT[4 * nt + j]);
+          dSs[ds_base + nt * 64 + j * 8 + 512] = __float2bfloat16(dpT[4 * nt + 2 + j]);
+        } else {
+          const int qc = nt * 8 + 2 * t + j;
+          dSs[qc * LDS + kvr] = __float2bfloat16(dpT[4 * nt + j]);
+          dSs[qc * LDS + kvr + 8] = __float2bfloat16(dpT[4 * nt + 2 + j]);
+        }
       }
     }
-    __syncthreads();
 
-    // dQ tile (BR x DP) += dS (BR x 64) K (64 x DP): 16x8 output tiles over the warps
-    for (int tile = warp; tile < QC * DT; tile += kThreads / 32) {
+    // dV += P^T dO and dK += dS^T Q (k runs over the q rows of the tile);
+    // left running on the tensor cores while the warps compute dQ
+    uint32_t pa[QC][4], da[QC][4];
+#pragma unroll
+    for (int qc = 0; qc < QC; ++qc) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[qc][r] = dft::pack_bf16(sT[8 * qc + 2 * r], sT[8 * qc + 2 * r + 1]);
+        da[qc][r] = dft::pack_bf16(dpT[8 * qc + 2 * r], dpT[8 * qc + 2 * r + 1]);
+      }
+    }
+    dft::fence_operands(dv_acc);
+    dft::fence_operands(dk_acc);
+    dft::wgmma_fence();
+#pragma unroll
+    for (int qc = 0; qc < QC; ++qc)
+      dft::wgmma_rs<1>(dv_acc, pa[qc], dft::desc_mnmajor<BR, SW>(dOs, qc), 1);
+#pragma unroll
+    for (int qc = 0; qc < QC; ++qc)
+      dft::wgmma_rs<1>(dk_acc, da[qc], dft::desc_mnmajor<BR, SW>(Qs, qc), 1);
+    dft::wgmma_commit();
+    if constexpr (kWgmmaDq) dft::fence_proxy_async();  // dS is read by wgmma
+    if (bulk_dq && tid == 0) dft::bulk_wait_read();  // the last dQ tile has left dQs
+    __syncthreads();  // dS is written; dQs is free
+
+    if constexpr (kWgmmaDq) {
+      // dQ (64 q rows x DP) = dS (64 x 64, K-major) K (64 kv x DP, read MN-major)
+      float dq[DP / 2];
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+      dft::fence_operands(dq);
+      dft::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 16; ++kc)
+        dft::wgmma_ss<0, 1>(dq, dft::desc_kmajor_interleave<kBlockN>(dSs, kc),
+                            dft::desc_mnmajor<kBlockN, SW>(Ks, kc), 1);
+      dft::wgmma_commit();
+      dft::wgmma_wait<0>();
+      dft::fence_operands(dq);
+      const int r0 = kvr, r1 = kvr + 8;  // this thread's q rows of the tile
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const int col = dt * 8 + 2 * t;
+        if (bulk_dq) {
+          if (col < d) {
+            *reinterpret_cast<float2*>(dQs + r0 * d + col) =
+                make_float2(dq[4 * dt], dq[4 * dt + 1]);
+            *reinterpret_cast<float2*>(dQs + r1 * d + col) =
+                make_float2(dq[4 * dt + 2], dq[4 * dt + 3]);
+          }
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (col + j < d) {
+            if (q0 + r0 < sq) atomicAdd(dq_acc + (size_t)(q0 + r0) * d + col + j, dq[4 * dt + j]);
+            if (q0 + r1 < sq)
+              atomicAdd(dq_acc + (size_t)(q0 + r1) * d + col + j, dq[4 * dt + 2 + j]);
+          }
+        }
+      }
+    }
+
+    // mma.sync dQ tile (BR x DP) += dS (BR x 64) K (64 x DP): 16x8 output tiles over the warps
+    for (int tile = warp; !kWgmmaDq && tile < QC * DT; tile += kThreads / 32) {
       const int mt = tile / DT, dt = tile % DT;
       float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
@@ -231,24 +361,84 @@ __global__ void __launch_bounds__(kThreads)
                                dft::ld_u32(ar + g * LDS + 8),
                                dft::ld_u32(ar + (g + 8) * LDS + 8)};
         uint32_t b0, b1;
-        dft::ldmatrix_x2_trans(b0, b1, Ks + (kc * 16 + (lane & 15)) * LD + dt * 8);
+        dft::ldmatrix_x2_trans(b0, b1,
+                               Ks + dft::tile_off<kBlockN, SW>(kc * 16 + (lane & 15), 8 * dt));
         dft::mma_bf16(acc, a, b0, b1);
       }
-      const int r0 = q0 + mt * 16 + g, r1 = r0 + 8;
+      const int r0 = mt * 16 + g, r1 = r0 + 8, col = dt * 8 + 2 * t;
+      if (bulk_dq) {  // d even: col < d covers col + 1
+        if (col < d) {
+          *reinterpret_cast<float2*>(dQs + r0 * d + col) = make_float2(acc[0], acc[1]);
+          *reinterpret_cast<float2*>(dQs + r1 * d + col) = make_float2(acc[2], acc[3]);
+        }
+        continue;
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        const int col = dt * 8 + 2 * t + j;
-        if (col < d) {
-          if (r0 < sq) atomicAdd(dq_acc + (size_t)r0 * d + col, acc[j]);
-          if (r1 < sq) atomicAdd(dq_acc + (size_t)r1 * d + col, acc[2 + j]);
+        if (col + j < d) {
+          if (q0 + r0 < sq) atomicAdd(dq_acc + (size_t)(q0 + r0) * d + col + j, acc[j]);
+          if (q0 + r1 < sq) atomicAdd(dq_acc + (size_t)(q0 + r1) * d + col + j, acc[2 + j]);
         }
+      }
+    }
+    if (bulk_dq) dft::fence_proxy_async();  // dQs is read by the bulk engine
+    dft::wgmma_wait<0>();
+    dft::fence_operands(dv_acc);
+    dft::fence_operands(dk_acc);
+    __syncthreads();  // stage s and the dS tile are reused; dQs is complete
+    if (bulk_dq && tid == 0)
+      dft::bulk_reduce_add_f32(dq_acc + (size_t)q0 * d, dQs, min(BR, sq - q0) * d * 4);
+  }
+  if (bulk_dq && tid == 0) dft::bulk_wait();
+
+  if (q_splits > 1) {
+    // this split's fp32 partial, in register order: float4 i of thread tid
+    // (dk_acc then dv_acc) at (i * 128 + tid) * 4, so that each access of a
+    // warp is 512 contiguous bytes; then the last split to arrive at this
+    // (head, KV tile) sums all of them, in split order, into its registers
+    constexpr int NV = DP / 4;  // float4s a thread
+    const size_t block = (size_t)kThreads * DP;
+    float* mine = dkv_part + (((size_t)split * gridDim.y + bh) * gridDim.x + blockIdx.x) * block;
+#pragma unroll
+    for (int i = 0; i < NV / 2; ++i) {
+      *reinterpret_cast<float4*>(mine + (i * kThreads + tid) * 4) =
+          make_float4(dk_acc[4 * i], dk_acc[4 * i + 1], dk_acc[4 * i + 2], dk_acc[4 * i + 3]);
+      *reinterpret_cast<float4*>(mine + ((NV / 2 + i) * kThreads + tid) * 4) =
+          make_float4(dv_acc[4 * i], dv_acc[4 * i + 1], dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+    }
+    __threadfence();
+    __syncthreads();
+    int* counter = counters + (size_t)bh * gridDim.x + blockIdx.x;
+    if (tid == 0) *is_last = atomicAdd(counter, 1) == q_splits - 1;
+    __syncthreads();
+    if (!*is_last) return;
+    __threadfence();
+    if (tid == 0) *counter = 0;  // ready for the next launch
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const size_t split_stride = (size_t)gridDim.y * gridDim.x * block;
+    const float* part = dkv_part + ((size_t)bh * gridDim.x + blockIdx.x) * block;
+    for (int sp = 0; sp < q_splits; ++sp, part += split_stride) {
+#pragma unroll
+      for (int i = 0; i < NV / 2; ++i) {
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(part + (i * kThreads + tid) * 4));
+        const float4 b = __ldcg(
+            reinterpret_cast<const float4*>(part + ((NV / 2 + i) * kThreads + tid) * 4));
+        dk_acc[4 * i] += a.x;
+        dk_acc[4 * i + 1] += a.y;
+        dk_acc[4 * i + 2] += a.z;
+        dk_acc[4 * i + 3] += a.w;
+        dv_acc[4 * i] += b.x;
+        dv_acc[4 * i + 1] += b.y;
+        dv_acc[4 * i + 2] += b.z;
+        dv_acc[4 * i + 3] += b.w;
       }
     }
   }
 
-  const int r0 = kv0 + warp * 16 + g, r1 = r0 + 8;
   __nv_bfloat16* dkb = dk + kv_off;
   __nv_bfloat16* dvb = dv + kv_off;
+  const int r0 = kv0 + kvr, r1 = r0 + 8;
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
 #pragma unroll
@@ -256,12 +446,12 @@ __global__ void __launch_bounds__(kThreads)
       const int c = dt * 8 + 2 * t + j;
       if (c < d) {
         if (r0 < skv) {
-          dkb[(size_t)r0 * d + c] = __float2bfloat16(dk_acc[dt][j]);
-          dvb[(size_t)r0 * d + c] = __float2bfloat16(dv_acc[dt][j]);
+          dkb[(size_t)r0 * d + c] = __float2bfloat16(dk_acc[4 * dt + j]);
+          dvb[(size_t)r0 * d + c] = __float2bfloat16(dv_acc[4 * dt + j]);
         }
         if (r1 < skv) {
-          dkb[(size_t)r1 * d + c] = __float2bfloat16(dk_acc[dt][2 + j]);
-          dvb[(size_t)r1 * d + c] = __float2bfloat16(dv_acc[dt][2 + j]);
+          dkb[(size_t)r1 * d + c] = __float2bfloat16(dk_acc[4 * dt + 2 + j]);
+          dvb[(size_t)r1 * d + c] = __float2bfloat16(dv_acc[4 * dt + 2 + j]);
         }
       }
     }
@@ -367,9 +557,9 @@ __global__ void __launch_bounds__(kThreads)
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
-                        int bh, int sq, int skv, int d, float scale, float logit_scale,
-                        cudaStream_t stream) {
-  constexpr int BR = DP <= 96 ? 32 : 16;
+                        float* dkv_part, int* counters, int bh, int sq, int skv, int d,
+                        float scale, float logit_scale, int q_splits, cudaStream_t stream) {
+  constexpr int BR = q_rows(DP);
   constexpr size_t smem = bf16_smem_bytes<DP, BR>();
   static bool configured = false;
   if (!configured) {
@@ -379,12 +569,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((skv + kBlockN - 1) / kBlockN, bh);
+  CUtensorMap qm{}, om{}, km{}, vm{}, lm{}, dm{};  // unused (zero) when d % 8 != 0
+  constexpr int SW = swizzle(DP);
+  if ((d & 7) == 0 && !(dft::make_tile_map(&qm, q, bh, sq, d, BR, SW) &&
+                        dft::make_tile_map(&om, dout, bh, sq, d, BR, SW) &&
+                        dft::make_tile_map(&km, k, bh, skv, d, kBlockN, SW) &&
+                        dft::make_tile_map(&vm, v, bh, skv, d, kBlockN, SW) &&
+                        dft::make_vec_map(&lm, lse, (long long)bh * sq, BR) &&
+                        dft::make_vec_map(&dm, delta, (long long)bh * sq, BR)))
+    return cudaErrorNotSupported;
+  const dim3 grid((skv + kBlockN - 1) / kBlockN, bh, q_splits);
   flash_bwd_bf16_kernel<DP, BR><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
-      dq_acc, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), sq, skv, d,
-      scale, logit_scale);
+      qm, om, km, vm, lm, dm, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, dq_acc,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dkv_part, counters, sq,
+      skv, d, scale, logit_scale, q_splits);
   return cudaGetLastError();
 }
 
@@ -393,20 +593,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 // q, dout (bh, sq, d); k, v, dk, dv (bh, skv, d); lse (base 2), delta (bh, sq)
 // fp32; dq_acc (bh, sq, d) fp32, zeroed by the caller, receives dQ by atomic
 // adds.  All contiguous.  dtype: 0 = fp32, 1 = bf16 (q, k, v, dout, dk, dv).
+// q_splits (bf16 only; 1 for fp32): CTAs per (head, 64 KV rows), each over
+// its share of the q tiles.  With q_splits > 1, dkv_part is fp32 scratch of
+// q_splits * bh * ceil(skv/64) blocks of 2 * 64 * d_pad (d_pad = d rounded
+// up to 16: one KV tile's dK and dV) and counters bh * ceil(skv/64) ints,
+// zero on entry and left zero on exit.
 // Returns the launch's cudaError_t (0 = launched).
 extern "C" int dft_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dq_acc, void* dk,
-                             void* dv, int bh, int sq, int skv, int d, float scale, int dtype,
-                             void* stream) {
+                             void* dv, void* dkv_part, void* counters, int bh, int sq, int skv,
+                             int d, float scale, int dtype, int q_splits, void* stream) {
   const float logit_scale = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* acc = static_cast<float*>(dq_acc);
+  if (q_splits < 1 || q_splits > 65535 ||
+      (q_splits > 1 && (dtype != 1 || dkv_part == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1) {
-#define DFT_BWD_CASE(DP) \
-  case DP:               \
-    return launch_bf16<DP>(q, k, v, dout, l, dl, acc, dk, dv, bh, sq, skv, d, scale, logit_scale, st)
+    float* part = static_cast<float*>(dkv_part);
+    int* cnt = static_cast<int*>(counters);
+#define DFT_BWD_CASE(DP)                                                                    \
+  case DP:                                                                                  \
+    return launch_bf16<DP>(q, k, v, dout, l, dl, acc, dk, dv, part, cnt, bh, sq, skv, d,   \
+                           scale, logit_scale, q_splits, st)
     switch ((d + 15) / 16 * 16) {
       DFT_BWD_CASE(16);
       DFT_BWD_CASE(32);

@@ -8,7 +8,11 @@ wrapper ``_fwd_packed`` :239) and ``_bwd_kernel`` (:285, wrapper ``_bwd``
 public ``flash_attention`` (:459).  The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1, forward, and K4, the same forward with G
 heads per CTA) and ``csrc/flash_attention_bwd.cu`` (K3, backward), all
-``sm_90a``; their designs and bounds are noted there.
+``sm_90a``; their designs and bounds are noted there.  Two host rules size
+their grids: :func:`fwd_q_tile` (64 or 128 q rows a forward CTA) and
+:func:`bwd_q_splits` (CTAs sharing one KV tile's q loop in the backward,
+whose fp32 dK/dV partials the kernel sums in split order;
+:func:`flash_backward_plain` takes the same ``q_splits``).
 
 Head packing is opt-in, as in JAX: ``head_pack`` (default
 :data:`DEFAULT_HEAD_PACK`, read once from ``DFT_FLASH_HEAD_PACK``, 1 = off)
@@ -58,6 +62,10 @@ _JAX_BLOCK_Q, _JAX_BLOCK_KV, _JAX_HEAD_PAD = 512, 1024, 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 160  # largest padded head dim the bf16 kernel is built for
+# H100 SXM streaming multiprocessors; the tile and split rules size grids
+# against one wave (one CTA an SM) and two waves of them
+_SMS = 132
+_KV_TILE = 64  # KV rows per CTA of the backward and per K/V stage of the forward
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -147,6 +155,52 @@ def use_head_pack(head_pack: int, bh: int, sq: int, skv: int, d: int,
     return head_pack_fits_vmem(head_pack, skv_p, dp, block_q, itemsize)
 
 
+def fwd_q_tile(bh: int, sq: int) -> int:
+    """q rows per CTA of the bf16 forward kernel (K1, and K4 at K1's tile):
+    128 (two consumer warpgroups, each CTA reading K/V once for 128 rows)
+    where the (ceil(Sq/128), BH) grid still covers half the card's 132 SMs,
+    else 64 (one warpgroup), so that a small call keeps its CTAs.  At
+    S=1024, BH=16 the 128 CTAs of 128 rows beat 256 of 64; at S=256 the 32
+    CTAs of 128 rows lose to 64 of 64 (``PERF.md``)."""
+    return 128 if 2 * _cdiv(sq, 128) * bh >= _SMS else 64
+
+
+def bwd_q_rows(d: int) -> int:
+    """q rows per tile of the bf16 backward (K3, ``q_rows`` there): dK and
+    dV of 64 KV rows take d_pad/2 fp32 registers a thread each, so the q
+    tile narrows as the head dim grows (64 rows up to d_pad 64, 32 up to
+    96, else 16)."""
+    dp = _round_up(d, 16)
+    return 64 if dp <= 64 else 32 if dp <= 96 else 16
+
+
+def bwd_q_splits(bh: int, sq: int, skv: int, d: int) -> int:
+    """CTAs per (head, 64 KV rows) of the bf16 backward, on the grid
+    (ceil(Skv/64), BH, q_splits): the fewest that give two waves (>= 2 x 132
+    CTAs) while every split keeps at least 4 q tiles, and at least one wave
+    (132 CTAs) wherever Sq has the q tiles for it.  Each split writes an
+    fp32 dK/dV partial that the last CTA of its KV tile reads back, so
+    splits of 1-3 tiles cost more than they give (measured on the SD1.5
+    shapes, ``PERF.md``)."""
+    base = bh * _cdiv(skv, _KV_TILE)
+    n_q = _cdiv(sq, bwd_q_rows(d))
+    if base >= 2 * _SMS:
+        return 1
+    two_waves = min(_cdiv(2 * _SMS, base), n_q // 4)
+    one_wave = min(_cdiv(_SMS, base), n_q)
+    return max(1, two_waves, one_wave)
+
+
+def bwd_split_rows(sq: int, d: int, q_splits: int):
+    """[(first, end)) q rows of each split: split s walks q tiles
+    [s*n // q_splits, (s+1)*n // q_splits) of the n = ceil(Sq/BR) tiles, as
+    the kernel's blockIdx.z does."""
+    br = bwd_q_rows(d)
+    n = _cdiv(sq, br)
+    return [(s * n // q_splits * br, min((s + 1) * n // q_splits * br, sq))
+            for s in range(q_splits)]
+
+
 def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) in fp32, (BH, Sq) -- JAX ``_bwd`` :355, outside
     the kernel there too."""
@@ -155,14 +209,16 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                         scale: float, block_q: int = 256
+                         scale: float, block_q: int = 256, q_splits: int = 1
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's math (FA2, JAX ``_bwd_kernel``) in blockwise
     torch over q blocks: P = exp2(S * scale * log2 e - lse) from the base-2
     lse, dV = P^T dO with P rounded to v's dtype, dP = dO V^T,
     dS = P (dP - delta) scale rounded to q's dtype, dK = dS^T Q, dQ = dS K;
-    products of the inputs' values with fp32 accumulation.  Returns dQ, dK,
-    dV in q's, k's and v's dtypes."""
+    products of the inputs' values with fp32 accumulation.  With
+    ``q_splits`` > 1, dK and dV are fp32 partials over the kernel's q-split
+    ranges (:func:`bwd_split_rows`) summed in split order, as the kernel's
+    last CTA sums them.  Returns dQ, dK, dV in q's, k's and v's dtypes."""
     bh, sq, d = q.shape
     logit_scale = scale * LOG2E
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
@@ -170,15 +226,20 @@ def flash_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     dqs = []
-    for i in range(0, sq, block_q):
-        qb, dob = qf[:, i:i + block_q], dof[:, i:i + block_q]
-        s = torch.matmul(qb, kf.transpose(1, 2)) * logit_scale
-        p = torch.exp2(s - lse[:, i:i + block_q, None])
-        dv += torch.matmul(p.to(v.dtype).float().transpose(1, 2), dob)
-        dp = torch.matmul(dob, vf.transpose(1, 2))
-        ds = (p * (dp - delta[:, i:i + block_q, None]) * scale).to(q.dtype).float()
-        dk += torch.matmul(ds.transpose(1, 2), qb)
-        dqs.append(torch.matmul(ds, kf).to(q.dtype))
+    for first, end in bwd_split_rows(sq, d, q_splits):
+        pk, pv = torch.zeros_like(dk), torch.zeros_like(dv)
+        for i in range(first, end, block_q):
+            j = min(i + block_q, end)
+            qb, dob = qf[:, i:j], dof[:, i:j]
+            s = torch.matmul(qb, kf.transpose(1, 2)) * logit_scale
+            p = torch.exp2(s - lse[:, i:j, None])
+            pv += torch.matmul(p.to(v.dtype).float().transpose(1, 2), dob)
+            dp = torch.matmul(dob, vf.transpose(1, 2))
+            ds = (p * (dp - delta[:, i:j, None]) * scale).to(q.dtype).float()
+            pk += torch.matmul(ds.transpose(1, 2), qb)
+            dqs.append(torch.matmul(ds, kf).to(q.dtype))
+        dk += pk
+        dv += pv
     return torch.cat(dqs, dim=1), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -212,11 +273,14 @@ def _check_qkv(q, k, v):
         raise ValueError("flash kernels take contiguous q, k, v")
 
 
-def _fwd_cuda(q, k, v, scale, head_pack=1):
+def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
     """K1 (``head_pack`` 1) or K4 (``head_pack`` heads per CTA, dividing BH)
-    on (BH, S, D) tensors."""
+    on (BH, S, D) tensors; ``q_tile`` (64 or 128 q rows a CTA) defaults to
+    :func:`fwd_q_tile` of the whole call, for K4 too."""
     global launches, packed_launches
     _check_qkv(q, k, v)
+    if not scale > 0:  # the kernel takes row maxima before scaling
+        raise ValueError(f"the flash forward kernel takes a positive scale, got {scale}")
     bh, sq, d = q.shape
     if head_pack < 1 or bh % head_pack:
         raise ValueError(f"head_pack {head_pack} must divide BH = {bh}")
@@ -224,12 +288,12 @@ def _fwd_cuda(q, k, v, scale, head_pack=1):
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     fn = _kernel("flash_attention", "dft_flash_fwd",
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-                _DTYPES[q.dtype], head_pack, stream)
+                _DTYPES[q.dtype], head_pack, q_tile or fwd_q_tile(bh, sq), stream)
     _build.check(rc, "flash_attention")
     if head_pack == 1:
         launches += 1
@@ -238,7 +302,25 @@ def _fwd_cuda(q, k, v, scale, head_pack=1):
     return o, lse
 
 
-def _bwd_cuda(q, k, v, lse, delta, do, scale):
+_COUNTERS = {}
+
+
+def _bwd_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """K3's arrival counters for ``n`` (head, KV tile) pairs, one buffer per
+    (device, stream), allocated zeroed on that stream.  Each launch leaves
+    them zero, so the launches of one stream, which run in order, share a
+    buffer; launches on two streams may run at the same time, so each
+    stream has its own."""
+    buf = _COUNTERS.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[(device, stream)] = buf
+    return buf
+
+
+def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
+    """K3 on (BH, S, D) tensors; ``q_splits`` (bf16 only) defaults to
+    :func:`bwd_q_splits`."""
     global bwd_launches
     _check_qkv(q, k, v)
     bh, sq, d = q.shape
@@ -250,17 +332,28 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale):
     for name, t in (("lse", lse), ("delta", delta)):
         if t.shape != (bh, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 ({bh}, {sq}) tensor")
+    skv = k.shape[1]
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    splits = 1
+    if q.dtype == torch.bfloat16:
+        splits = q_splits or bwd_q_splits(bh, sq, skv, d)
     fn = _kernel("flash_attention_bwd", "dft_flash_bwd",
-                 [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        part = counters = None
+        if splits > 1:  # fp32 dK/dV partials, summed by the last CTA of each KV tile
+            part = torch.empty((splits, bh, _cdiv(skv, _KV_TILE),
+                                2 * _KV_TILE * _round_up(d, 16)),
+                               dtype=torch.float32, device=q.device)
+            counters = _bwd_counters(q.device, stream, bh * _cdiv(skv, _KV_TILE))
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-                _DTYPES[q.dtype], stream)
+                dv.data_ptr(), None if part is None else part.data_ptr(),
+                None if counters is None else counters.data_ptr(), bh, sq, skv, d,
+                float(scale), _DTYPES[q.dtype], splits, stream)
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
     return dq_acc.to(q.dtype), dk, dv

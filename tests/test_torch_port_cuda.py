@@ -58,6 +58,25 @@ def test_flash_kernel_matches_plain(card, sq, skv, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("q_tile", [64, 128])
+@pytest.mark.parametrize("sq,skv,d", [(1000, 300, 40), (200, 77, 20), (130, 90, 100),
+                                      (70, 77, 160), (150, 77, 18)])
+def test_flash_kernel_tiles_match_plain(card, q_tile, sq, skv, d):
+    """K1 at both q tiles (one and two warpgroups a CTA), ragged Sq and Skv,
+    and at head dims that are not multiples of 8 (20, 100, 18: plain
+    element loads instead of TMA)."""
+    g = torch.Generator(device=card).manual_seed(10)
+    q, k, v = (torch.randn((4, s, d), generator=g, device=card, dtype=torch.bfloat16)
+               for s in (sq, skv, skv))
+    with torch.inference_mode():
+        o, lse = tfa._fwd_cuda(q, k, v, d ** -0.5, q_tile=q_tile)
+        o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert bool(torch.isfinite(o).all())
+    assert _max_err(o, o_ref) <= 2e-2
+    assert _max_err(lse, lse_ref) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_kernel_fp32_ragged(card):
     g = torch.Generator(device=card).manual_seed(1)
     q, k, v = (torch.randn((3, s, 24), generator=g, device=card) for s in (70, 77, 77))
@@ -109,6 +128,62 @@ def test_flash_bwd_kernel_matches_plain(card, sq, skv, d):
         assert bool(torch.isfinite(a).all())
         assert _max_err(a, b) <= 2e-2 * float(b.float().abs().max())
         assert _rel_l2(a, b) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits,d", [(1, 40), (2, 40), (None, 40), (None, 20), (3, 80),
+                                      (None, 160), (2, 18), (None, 30)])
+def test_flash_bwd_kernel_q_splits(card, splits, d):
+    """K3 with the q loop split over 1, 2, 3 or the planner's number of CTAs
+    (None), ragged Sq and Skv < 64, against the plain version over the same
+    split ranges; dK and dV of two runs are equal (the partials are summed
+    in split order), dQ within its atomics' rounding.  d = 18 and 30 (not
+    multiples of 4) take element loads and add dQ by fp32 atomics instead
+    of the bulk reduce-add."""
+    bh, sq, skv = 4, 300, 50
+    q, k, v, o, lse, do = _bwd_inputs(card, bh, sq, skv, d, torch.bfloat16, 3)
+    n = splits or tfa.bwd_q_splits(bh, sq, skv, d)
+    if splits is None:
+        assert n > 3
+    before = tfa.bwd_launches
+    with torch.inference_mode():
+        delta = tfa._delta(o, do)
+        got = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=splits)
+        again = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=splits)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5, q_splits=n)
+    assert tfa.bwd_launches == before + 2
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert _max_err(a, b) <= 2e-2 * float(b.float().abs().max())
+        assert _rel_l2(a, b) <= 1e-2
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+@pytest.mark.cuda
+def test_flash_bwd_kernel_on_two_streams(card):
+    """Split K3 launches in flight at the same time on two streams (each
+    stream has its own arrival counters): dK and dV of every launch equal
+    those of one launch on the current stream, bit for bit."""
+    bh, sq, skv, d = 8, 4096, 77, 40
+    q, k, v, o, lse, do = _bwd_inputs(card, bh, sq, skv, d, torch.bfloat16, 11)
+    assert tfa.bwd_q_splits(bh, sq, skv, d) > 1
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = []
+    with torch.inference_mode():
+        delta = tfa._delta(o, do)
+        want = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5)
+        for s in streams:
+            s.wait_stream(main)
+        for _ in range(8):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append(tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize(card)
+    for _, dk, dv in got:
+        assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
 
 
 @pytest.mark.cuda

@@ -137,6 +137,55 @@ def test_lora_dense_keeps_leading_dims():
     torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
 
 
+# (Sq, Skv, head dim) of SD1.5's attention calls at 512^2
+SD15_FLASH = [(4096, 4096, 40), (1024, 1024, 80), (256, 256, 160), (64, 64, 160),
+              (4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160)]
+
+
+@pytest.mark.parametrize("bh", [8, 16], ids=["train", "serve"])
+@pytest.mark.parametrize("sq,skv,d", SD15_FLASH)
+def test_flash_grid_plans_at_sd15_shapes(sq, skv, d, bh):
+    """K1's q tile and K3's q splits at every SD1.5 training (BH 8) and
+    serving (BH 16) shape: 128-row tiles only where that grid still covers
+    half the 132 SMs; the splits cover Sq in whole q tiles, none empty, reach
+    one wave (132 CTAs) wherever Sq has the q tiles for it, and two waves
+    (264) unless a split would then hold fewer than 4 q tiles, with the
+    fewest splits that do so."""
+    tile = tfa.fwd_q_tile(bh, sq)
+    assert tile == (128 if -(-sq // 128) * bh >= 66 else 64)
+    n = tfa.bwd_q_splits(bh, sq, skv, d)
+    br = tfa.bwd_q_rows(d)
+    n_q = -(-sq // br)
+    rows = tfa.bwd_split_rows(sq, d, n)
+    assert len(rows) == n and rows[0][0] == 0 and rows[-1][1] == sq
+    assert all(a < b for a, b in rows)
+    assert all(rows[i][1] == rows[i + 1][0] and rows[i][1] % br == 0 for i in range(n - 1))
+    kv_tiles = -(-skv // 64) * bh
+    assert kv_tiles * n >= 132 or n == n_q
+    assert kv_tiles * n >= 264 or n >= n_q // 4
+    assert n == 1 or kv_tiles * (n - 1) < 264
+
+
+def test_flash_grid_plans_examples():
+    """The rules' cases named in the kernels' notes: S=4096 and S=1024
+    serving take 128-row tiles (512 and 128 CTAs), S=256 keeps 64 (64 CTAs,
+    not 32), S=1024 training 64 (128 CTAs, not 64); the
+    4096 x 77 backward goes from 16 CTAs to 256 (16 splits of 4 q tiles),
+    1024 x 77 to one wave (9 splits), self-attention at 4096^2 stays
+    unsplit; the q tile narrows from 64 rows (d_pad <= 64) to 16 (d_pad >
+    96)."""
+    assert tfa.fwd_q_tile(16, 4096) == 128 and tfa.fwd_q_tile(16, 1024) == 128
+    assert tfa.fwd_q_tile(16, 256) == 64 and tfa.fwd_q_tile(8, 1024) == 64
+    assert tfa.fwd_q_tile(8, 4096) == 128 and tfa.fwd_q_tile(8, 256) == 64
+    assert tfa.bwd_q_splits(8, 4096, 77, 40) == 16
+    assert tfa.bwd_q_splits(8, 1024, 77, 80) == 9
+    assert tfa.bwd_q_splits(8, 4096, 4096, 40) == 1
+    assert tfa.bwd_q_splits(8, 1024, 1024, 80) == 3
+    assert tfa.bwd_q_splits(8, 64, 77, 160) == 4  # every one of its 4 q tiles
+    assert (tfa.bwd_q_rows(40), tfa.bwd_q_rows(80), tfa.bwd_q_rows(160)) == (64, 32, 16)
+    assert tfa.bwd_split_rows(100, 80, 3) == [(0, 32), (32, 64), (64, 100)]
+
+
 def test_kernel_library_is_keyed_on_sources(tmp_path, monkeypatch):
     """The build goes to the configured directory, one .so per source, named
     by a hash of the sources and flags (no nvcc needed to compute it)."""

@@ -53,12 +53,11 @@ def _close(got, want, dtype):
         assert np.abs(got - want).mean() < 2e-3 * peak
 
 
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("d,sq,skv", [(40, 96, 77), (80, 50, 130), (160, 40, 77)])
-def test_flash_backward_plain_matches_jax_bwd(d, sq, skv, dtype):
-    """dQ, dK, dV of flash_backward_plain against JAX _bwd (interpret,
-    exp2), from JAX's own O and base-2 lse; ragged Sq and Skv are zero rows
-    of q/dO and masked columns on the JAX side."""
+def _check_plain_bwd_against_jax(d, sq, skv, dtype, q_splits=1):
+    """dQ, dK, dV of flash_backward_plain (``q_splits`` dK/dV partials)
+    against JAX _bwd (interpret, exp2), from JAX's own O and base-2 lse;
+    ragged Sq and Skv are zero rows of q/dO and masked columns on the JAX
+    side."""
     rng = np.random.default_rng(0)
     q, do = (rng.standard_normal((2, sq, d)).astype(np.float32) for _ in range(2))
     k, v = (rng.standard_normal((2, skv, d)).astype(np.float32) for _ in range(2))
@@ -77,10 +76,28 @@ def test_flash_backward_plain_matches_jax_bwd(d, sq, skv, dtype):
     tt = lambda a: torch.from_numpy(np.array(a, np.float32)).to(_TORCH[dtype])
     o_t = tt(np.asarray(o_j.astype(jnp.float32))[:, :sq])
     lse_t = torch.from_numpy(np.array(lse_j[:, 0, :sq]))
-    got = tfa.flash_backward_plain(tt(q), tt(k), tt(v), o_t, lse_t, tt(do), scale)
+    got = tfa.flash_backward_plain(tt(q), tt(k), tt(v), o_t, lse_t, tt(do), scale,
+                                   q_splits=q_splits)
     for g, w, n in zip(got, (dq_j[:, :sq], dk_j[:, :skv], dv_j[:, :skv]), (sq, skv, skv)):
         assert g.dtype == _TORCH[dtype] and g.shape == (2, n, d)
         _close(g.float().numpy(), np.asarray(w.astype(jnp.float32)), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d,sq,skv", [(40, 96, 77), (80, 50, 130), (160, 40, 77)])
+def test_flash_backward_plain_matches_jax_bwd(d, sq, skv, dtype):
+    _check_plain_bwd_against_jax(d, sq, skv, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("d,sq,q_splits", [(40, 150, 3), (160, 70, 5)])
+def test_flash_backward_plain_q_splits_matches_jax_bwd(d, sq, q_splits, dtype):
+    """The plain version of K3's split q loop: dK and dV summed from fp32
+    partials over the kernel's q-split ranges (ragged Sq, Skv = 77) in split
+    order, against JAX _bwd in interpret mode, with the tolerance above."""
+    rows = tfa.bwd_split_rows(sq, d, q_splits)
+    assert len(rows) == q_splits and rows[-1][1] == sq and rows[-1][0] % tfa.bwd_q_rows(d) == 0
+    _check_plain_bwd_against_jax(d, sq, 77, dtype, q_splits)
 
 
 @pytest.mark.parametrize("sq,skv,heads,d", [(64, 64, 2, 40), (100, 77, 2, 80)])
