@@ -100,9 +100,38 @@ LORA_SHAPES = []
 for _m, _c, _blocks in ((8192, 320, 5), (2048, 640, 5), (512, 1280, 5), (128, 1280, 1)):
     LORA_SHAPES += [(_m, _c, _c, 6 * _blocks), (154, 768, _c, 2 * _blocks),
                     (_m, _c, 8 * _c, _blocks)]
+# training runs the same projections at batch 1: half the image rows, 77
+# text rows
+LORA_TRAIN_SHAPES = []
+for _m, _c, _blocks in ((4096, 320, 5), (1024, 640, 5), (256, 1280, 5), (64, 1280, 1)):
+    LORA_TRAIN_SHAPES += [(_m, _c, _c, 6 * _blocks), (77, 768, _c, 2 * _blocks),
+                          (_m, _c, 8 * _c, _blocks)]
 LORA_RANK = 4
 FLASH_PER_STEP = sum(s[3] for s in FLASH_SHAPES)   # 32
 LORA_PER_STEP = sum(s[3] for s in LORA_SHAPES)     # 144
+assert LORA_PER_STEP == sum(s[3] for s in LORA_TRAIN_SHAPES)
+# per-call ms of the designs before this script's, measured by this script
+# on an NVIDIA H100 80GB HBM3 at 700 W at commit 578b4ea: K2 (its first
+# design: mma.sync kernel, 128x128 tiles, two-stage cp.async ring) at the serving
+# shapes (M, K, N), K5 (its first design: mma.sync implicit GEMM with element-gathered
+# pixels) at (B, C, H, W, O); printed in the log only, never in the kernels
+# line, whose numbers are all this run's
+K2_PREV = ("first K2, 578b4ea", {
+    (8192, 320, 320): 0.0328, (154, 768, 320): 0.0361, (8192, 320, 2560): 0.1522,
+    (2048, 640, 640): 0.0325, (154, 768, 640): 0.0358, (2048, 640, 5120): 0.1237,
+    (512, 1280, 1280): 0.0493, (154, 768, 1280): 0.0348, (512, 1280, 10240): 0.1208,
+    (128, 1280, 1280): 0.0506, (128, 1280, 10240): 0.0535})
+K5_PREV = ("first K5, 578b4ea", {
+    (2, 320, 64, 64, 320): 0.2910, (2, 320, 32, 32, 640): 0.2334,
+    (2, 640, 32, 32, 640): 0.4611, (2, 640, 16, 16, 1280): 0.4494,
+    (2, 1280, 16, 16, 1280): 0.8957, (2, 1280, 8, 8, 1280): 0.8960,
+    (2, 1280, 32, 32, 640): 0.9197, (2, 960, 32, 32, 640): 0.6876,
+    (2, 960, 64, 64, 320): 0.8530, (2, 640, 64, 64, 320): 0.5756,
+    (1, 320, 64, 64, 320): 0.2348, (1, 320, 32, 32, 640): 0.2322,
+    (1, 640, 32, 32, 640): 0.4604, (1, 640, 16, 16, 1280): 0.4476,
+    (1, 1280, 16, 16, 1280): 0.8842, (1, 1280, 8, 8, 1280): 0.8728,
+    (1, 1280, 32, 32, 640): 0.9185, (1, 960, 32, 32, 640): 0.6861,
+    (1, 960, 64, 64, 320): 0.6959, (1, 640, 64, 64, 320): 0.4650})
 
 # flash forward heads per CTA on the phase-6 path, and the packings phase 2
 # holds against K1
@@ -291,14 +320,13 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
-    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8, device=dev)
     iters = 30
     results = {}
-    log(f"limits, bf16 kernel vs plain version: flash {FLASH_TOL}, lora {LORA_TOL}")
+    log(f"limits, bf16 kernel vs plain version: flash {FLASH_TOL}")
 
     rows = []
     for sq, skv, d, count in FLASH_SHAPES:
@@ -357,44 +385,86 @@ def phase_kernels():
     results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
+    results["lora_dense"] = lora_rows(gen, flush, iters)
+    return results
 
+
+def lora_rows(gen, flush, iters):
+    """K2 at every LoRA'd projection of a CFG UNet step (serving, batch 2:
+    ``per_step``) and of a train step (batch 1: ``train_per_step``), rank 4:
+    error against the plain version on the same bf16 inputs, its time
+    beside the plans its rule did not pick (the other tiles of
+    ``lora_matmul.TILES``; half and twice the splits) and beside its first
+    design (``K2_PREV``, log only), the
+    plain version's time, the library route (``addmm`` plus the low-rank
+    product: the same function in three calls) and ``F.linear`` alone (the
+    floor of any library route), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import _grid
+    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+
+    dev = torch.device("cuda")
+    log(f"limits, lora bf16 kernel vs plain version: {LORA_TOL}")
     rows = []
-    for m, kdim, n, count in LORA_SHAPES:
-        x = torch.randn((m, kdim), generator=gen, device=dev, dtype=torch.bfloat16)
-        w = (torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5).bfloat16()
-        b = (torch.randn((n,), generator=gen, device=dev) * 0.1).bfloat16()
-        up = (torch.randn((n, LORA_RANK), generator=gen, device=dev) * 0.1).bfloat16()
-        down = (torch.randn((LORA_RANK, kdim), generator=gen, device=dev)
-                / LORA_RANK).bfloat16()
-        scale = torch.tensor(0.8, device=dev)
-        with torch.inference_mode():
-            y = lm.lora_dense(x, w, b, up, down, scale)
-            y_ref = lm.lora_dense_plain(x, w, b, up, down, scale)
-            torch.cuda.synchronize()
-            mx, rel = errors(y, y_ref)
-            ok = (mx <= LORA_TOL["max_abs"] and rel <= LORA_TOL["rel_l2"]
-                  and bool(torch.isfinite(y).all()))
-            ms = cuda_time(lambda: lm.lora_dense(x, w, b, up, down, scale), iters, flush)
-            plain_ms = cuda_time(lambda: lm.lora_dense_plain(x, w, b, up, down, scale),
-                                 iters, flush)
-            lib_ms = cuda_time(
-                lambda: torch.addmm(b, x, w.t()).add_((x @ down.t()) @ up.t(),
-                                                      alpha=0.8),
-                iters, flush)
-        flops = 2 * m * n * kdim + 2 * m * kdim * LORA_RANK + 2 * m * LORA_RANK * n
-        nbytes = 2 * (m * kdim + n * kdim + m * n + n + n * LORA_RANK
-                      + LORA_RANK * kdim) + 4
-        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
-        row = dict(shape=[m, kdim, n, LORA_RANK], per_step=count, max_abs_err=mx,
-                   rel_l2=rel, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound, bound_by=by)
-        rows.append(row)
-        log(f"lora   M={m:5d} K={kdim:5d} N={n:6d} r={LORA_RANK}: max_abs={mx:.3e} "
-            f"rel_l2={rel:.3e} ms={ms:.4f} plain={plain_ms:.4f} addmm={lib_ms:.4f} "
-            f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"LoRA dense kernel disagrees at {row['shape']}")
+    for batch, shapes in ((2, LORA_SHAPES), (1, LORA_TRAIN_SHAPES)):
+        for m, kdim, n, count in shapes:
+            x = torch.randn((m, kdim), generator=gen, device=dev, dtype=torch.bfloat16)
+            w = (torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5).bfloat16()
+            b = (torch.randn((n,), generator=gen, device=dev) * 0.1).bfloat16()
+            up = (torch.randn((n, LORA_RANK), generator=gen, device=dev) * 0.1).bfloat16()
+            down = (torch.randn((LORA_RANK, kdim), generator=gen, device=dev)
+                    / LORA_RANK).bfloat16()
+            scale = torch.tensor(0.8, device=dev)
+            grid = lm.plan(m, n, kdim)
+            bm, bn, splits = grid
+            steps = -(-kdim // lm.K_STEP)
+            others = sorted(({(tm, tn, splits) for tm, tn in lm.TILES}
+                             | {(bm, bn, max(1, splits // 2)), (bm, bn, min(steps, 2 * splits))})
+                            - {grid})
+            with torch.inference_mode():
+                y = lm.lora_dense(x, w, b, up, down, scale)
+                again = lm.lora_dense(x, w, b, up, down, scale)
+                y_ref = lm.lora_dense_plain(x, w, b, up, down, scale)
+                torch.cuda.synchronize()
+                mx, rel = errors(y, y_ref)
+                same = torch.equal(y, again)
+                ok = (same and mx <= LORA_TOL["max_abs"] and rel <= LORA_TOL["rel_l2"]
+                      and bool(torch.isfinite(y).all()))
+                ms = cuda_time(lambda: lm.lora_dense(x, w, b, up, down, scale), iters, flush)
+                other_ms = {g: cuda_time(lambda: lm._lora_dense_cuda(x, w, b, up, down, scale,
+                                                                     grid=g), iters, flush)
+                            for g in others}
+                plain_ms = cuda_time(lambda: lm.lora_dense_plain(x, w, b, up, down, scale),
+                                     iters, flush)
+                lib_ms = cuda_time(
+                    lambda: torch.addmm(b, x, w.t()).add_((x @ down.t()) @ up.t(),
+                                                          alpha=0.8),
+                    iters, flush)
+                linear_ms = cuda_time(lambda: F.linear(x, w, b), iters, flush)
+            bound_ms, by = bound(
+                2 * m * n * kdim + 2 * m * kdim * LORA_RANK + 2 * m * LORA_RANK * n,
+                2 * (m * kdim + n * kdim + m * n + n + n * LORA_RANK + LORA_RANK * kdim) + 4)
+            ctas = _grid.cdiv(m, bm) * _grid.cdiv(n, bn) * splits
+            row = dict(shape=[m, kdim, n, LORA_RANK], per_step=count if batch == 2 else 0,
+                       train_per_step=count if batch == 1 else 0, max_abs_err=mx,
+                       rel_l2=rel, repeat_equal=same, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, linear_ms=linear_ms, bound_ms=bound_ms,
+                       bound_by=by, plan=list(grid), ctas=ctas,
+                       other_plans_ms={str(list(g)): t for g, t in other_ms.items()})
+            rows.append(row)
+            prev = K2_PREV[1].get((m, kdim, n))
+            log(f"lora   M={m:5d} K={kdim:5d} N={n:6d} r={LORA_RANK} x{count:2d} "
+                f"{'serve' if batch == 2 else 'train'} plan bm={bm} bn={bn} splits={splits} "
+                f"({ctas} CTAs): max_abs={mx:.3e} rel_l2={rel:.3e} repeat equal {same} "
+                f"ms={ms:.4f} ("
+                + "".join(f"{list(g)}: {t:.4f}; " for g, t in other_ms.items())
+                + (f"{K2_PREV[0]}: {prev:.4f}" if prev is not None else "no earlier time")
+                + f") plain={plain_ms:.4f} addmm+lowrank={lib_ms:.4f} linear={linear_ms:.4f} "
+                f"bound={bound_ms:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"LoRA dense kernel disagrees at {row['shape']}")
     x = torch.randn((100, 72), generator=gen, device=dev)
     w, up, down = (torch.randn(s, generator=gen, device=dev) * 0.2
                    for s in ((90, 72), (90, 3), (3, 72)))
@@ -404,8 +474,7 @@ def phase_kernels():
     log(f"lora   fp32 (100, 72, 90, r=3): max_abs={mx:.3e} rel_l2={rel:.3e}")
     if mx > 1e-4:
         fail("fp32 LoRA dense kernel disagrees")
-    results["lora_dense"] = rows
-    return results
+    return rows
 
 
 def bound(flops, nbytes):
@@ -473,8 +542,13 @@ def conv3x3_rows(gen, flush, iters):
     """K5 at every distinct SD1.5 resnet conv shape the routing sends it at
     512^2, batch 2 (a CFG UNet step) and batch 1 (a train step), without a
     bias as the layers call it: error against the plain version on the same
-    bf16 inputs, its time, the plain version's, cuDNN's (``F.conv2d``), and
-    the bound (2*B*H*W*C*O*9 operations; x, weight and y bytes)."""
+    bf16 inputs, a second run equal bit for bit, its time beside the plans
+    its rule did not pick (half and twice the splits) and beside its first
+    design (``K5_PREV``, log only), the plain
+    version's time, cuDNN's (``F.conv2d``), and the bound (2*B*H*W*C*O*9
+    operations; x, weight and y bytes).  The tap-major weight copy is made
+    before the timings, as the layers' frozen weights have it after their
+    first call."""
     import torch
     import torch.nn.functional as F
 
@@ -485,35 +559,56 @@ def conv3x3_rows(gen, flush, iters):
     side = IMAGE // 8
     log(f"limits, conv3x3 bf16 kernel vs plain version: {CONV_TOL}")
     rows = []
+    w9_bytes = 0
     for batch in (2, 1):
         for (b, c, h, w, o), calls in unet_conv3x3_calls(UNetConfig.sd15(), batch, side).items():
             x = torch.randn((b, c, h, w), generator=gen, device=dev, dtype=torch.bfloat16)
             wt = (torch.randn((o, c, 3, 3), generator=gen, device=dev)
                   / (3 * c ** 0.5)).bfloat16()
+            p = cv.plan(b, c, h, w, o)
+            steps = 9 * -(-c // cv.C_STEP)
+            others = sorted({max(1, p.splits // 2), min(steps, 2 * p.splits)} - {p.splits})
             with torch.inference_mode():
                 y = cv._conv3x3_cuda(x, wt, None)
+                again = cv._conv3x3_cuda(x, wt, None)
                 y_ref = cv.conv3x3_plain(x, wt, None)
                 torch.cuda.synchronize()
                 mx, rel = errors(y, y_ref)
                 peak = float(y_ref.float().abs().max())
-                ok = (mx <= CONV_TOL["max_rel"] * peak and rel <= CONV_TOL["rel_l2"]
+                same = torch.equal(y, again)
+                ok = (same and mx <= CONV_TOL["max_rel"] * peak and rel <= CONV_TOL["rel_l2"]
                       and bool(torch.isfinite(y).all()))
                 ms = cuda_time(lambda: cv._conv3x3_cuda(x, wt, None), iters, flush)
+                other_ms = {g: cuda_time(lambda: cv._conv3x3_cuda(
+                    x, wt, None, grid=cv.plan(b, c, h, w, o, splits=g)),
+                    iters, flush) for g in others}
                 plain_ms = cuda_time(lambda: cv.conv3x3_plain(x, wt, None), 3, flush,
                                      hide_host=False)
                 lib_ms = cuda_time(lambda: F.conv2d(x, wt, None, padding=1), iters, flush)
+            if batch == 2:
+                w9_bytes += calls * 2 * 9 * o * c  # one copy per routed conv of the UNet
             bound_ms, by = bound(2 * b * h * w * c * o * 9,
                                  2 * (b * c * h * w + o * c * 9 + b * o * h * w))
+            ctas = p.tiles * p.splits
             row = dict(shape=[b, c, h, w, o], per_step=calls if batch == 2 else 0,
                        train_per_step=calls if batch == 1 else 0, max_abs_err=mx,
-                       max_rel_err=mx / peak, rel_l2=rel, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
+                       max_rel_err=mx / peak, rel_l2=rel, repeat_equal=same, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                       plan=p._asdict(), ctas=ctas,
+                       other_plans_ms={f"splits={g}": t
+                                       for g, t in other_ms.items()})
             rows.append(row)
-            log(f"conv3x3 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d}: max_abs={mx:.3e} "
-                f"rel_l2={rel:.3e} ms={ms:.4f} plain={plain_ms:.3f} cudnn={lib_ms:.4f} "
-                f"bound={bound_ms:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+            log(f"conv3x3 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d} plan sw={p.sw} "
+                f"rows={p.rows} splits={p.splits} ({ctas} CTAs): max_abs={mx:.3e} "
+                f"rel_l2={rel:.3e} repeat equal {same} ms={ms:.4f} ("
+                + "".join(f"splits={g}: {t:.4f}; " for g, t in other_ms.items())
+                + (f"{K5_PREV[0]}: {K5_PREV[1][(b, c, h, w, o)]:.4f}"
+                   if (b, c, h, w, o) in K5_PREV[1] else "no earlier time")
+                + f") plain={plain_ms:.3f} "
+                f"cudnn={lib_ms:.4f} bound={bound_ms:.4f} ({by}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"conv3x3 kernel disagrees at {row['shape']}")
+    log(f"conv3x3 tap-major weight copies of one UNet's routed convs: {w9_bytes} bytes")
     # fp32 inputs take the FMA kernel: check it once, ragged
     x = torch.randn((2, 24, 9, 11), generator=gen, device=dev)
     wt = torch.randn((70, 24, 3, 3), generator=gen, device=dev) * 0.1

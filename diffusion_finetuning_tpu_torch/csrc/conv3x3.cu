@@ -9,7 +9,7 @@
 // accumulate in fp32 and the bias joins before the one rounding.  The TPU
 // wrapper stacks nine shifted copies of the padded input (x9, :111-114) so
 // that Mosaic sees tile-aligned 2D blocks; this kernel never builds that
-// stack, nor a padded or channels-last copy: it reads x and wt where they lie.
+// stack, nor a padded or channels-last copy of x: it reads x where it lies.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): 2*B*H*W*C*O*9
 // operations against x + wt + y bytes.  The SD1.5 UNet's routed convs are
@@ -17,26 +17,44 @@
 // against 10.5 MB (3.1 us); the 37 routed convs of one CFG step at 512^2
 // carry about 0.50 TFLOP, about 0.51 ms.
 //
-// Design (a first, simple kernel): an implicit GEMM with M = B*H*W output
-// pixels, N = O and K = 9*C ordered k = c*9 + kh*3 + kw, so that a row of
-// the B operand is a row of the OIHW weight as it lies in memory.  A CTA of
-// 8 warps computes a 128 x 128 tile (4 x 2 warps of 32 x 64) on mma.sync
-// m16n8k16 (bf16 in, fp32 out), K in steps of 32 through two shared-memory
-// stages:
-//   - B (weights): 16-byte cp.async copies of contiguous OIHW rows,
-//     zero-filled past O and past K (O is masked, never padded in memory);
-//   - A (pixels x taps): each thread owns one output pixel of the tile and
-//     16 consecutive k of each step.  It loads them from NCHW with predicated
-//     2-byte loads (zero where the tap falls outside the image: the halo),
-//     neighbouring threads reading neighbouring pixels, keeps the next step's
-//     values in registers while the current step computes, and stores them
-//     k-contiguous (two 16-byte stores) so the mma A fragments are plain
-//     32-bit shared loads.
-// The epilogue adds the bias in fp32, rounds once and writes NCHW directly.
-// No TMA, wgmma or split-K yet: the 8x8 level (M = 64 or 128) runs one CTA
-// row.  fp32 inputs take a plain FMA kernel (conv3x3_f32_kernel) with the
-// same math.
-#include "common.cuh"
+// Design (conv3x3_wgmma_kernel, bf16, W a multiple of 8 up to 128): an
+// implicit GEMM with the roles chosen for NCHW, M = output channels, N =
+// pixels, K = 9 taps x C, so that a row of the accumulator is a run of one
+// output channel's pixels:
+//   * A, the weights, by TMA from the tap-major copy w9 (9, O, C) that the
+//     wrapper keeps (ops/conv3x3.py:tap_major; OIHW keeps a tap's channels
+//     18 bytes apart, which no tensor map can stride): a (BM x 64 channels)
+//     128-byte swizzled K-major tile of one tap;
+//   * B, the pixels, by TMA straight from NCHW x through a 4-D map over
+//     (W, H, C, B) (csrc/wgmma.cuh:make_nchw_map): a box of P pixels of one
+//     image row x 64 channels lands as one slab of wgmma's MN-major layout
+//     with a swizzle of 2P bytes (P = 64, 32 or 16 pixels for W = 64, 32,
+//     16; at W = 8 the 16-pixel box is half zeros, and above 64 a row takes
+//     two boxes), 128/P boxes a k-step.  The tap's row shift dy is the
+//     box's start row, and TMA zero-fills rows outside the image, so the
+//     halo needs no padded copy and no predicate.  The column shift dx
+//     cannot be a start coordinate (TMA starts the innermost dimension only
+//     on whole 16 bytes), so every box starts at column 0 and the k-loop
+//     runs in three phases, dx = +1, 0, -1, whose products are shifted by a
+//     column in the accumulator between and after them (warp shuffles,
+//     see the kernel);
+//   * a CTA holds one consumer warpgroup (64 output channels) over 128
+//     pixels (whole image rows of one image), and one producer warp keeps
+//     a ring of 4 stages in flight; wgmma m64n128k16,
+//     one k-step's products in flight while the next are issued;
+//   * where the grid cannot fill the card (the 16x16 and 8x8 levels, K up to
+//     11,520 over 20-80 tiles), the k-loop is split over a third grid
+//     dimension and the last CTA of a tile sums the fp32 partials in split
+//     order (deterministic, one launch); ops/conv3x3.py:plan picks the tile
+//     and the splits;
+//   * the epilogue adds the bias, rounds once and stores bf16 pairs along
+//     the pixel runs of NCHW y.
+// conv3x3_bf16_kernel (the first design: mma.sync, pixels gathered by
+// predicated element loads from NCHW, the OIHW weight read as it lies) takes
+// the bf16 shapes whose rows TMA cannot stride: W not a multiple of 8, or
+// above 128 -- chosen by shape, never after a failure.  fp32 inputs take a
+// plain FMA kernel (conv3x3_f32_kernel) with the same math.
+#include "wgmma.cuh"
 
 namespace {
 
@@ -235,11 +253,248 @@ __global__ void __launch_bounds__(kFThreads)
   }
 }
 
+// --- the Hopper design (see the top) ---
+
+constexpr int kGStages = 4;
+constexpr int kGBN = 128;  // pixels a CTA
+constexpr int kGBK = 64;   // channels a k-step
+
+// 64 output channels a CTA: 128 (two consumer warpgroups) won only at the
+// 8x8 and 16x16 levels at batch 2, by 3-8%, and lost elsewhere
+struct ConvTile {
+  static constexpr int BM = 64;
+  static constexpr int NC = 128;           // consumer threads: one warpgroup
+  static constexpr int THREADS = NC + 32;  // and one producer warp
+  static constexpr int A = BM * kGBK, B = kGBN * kGBK, STAGE = A + B;  // elements a stage
+  static constexpr int PART = NC * (kGBN / 2);  // floats of a split's partial
+  static constexpr size_t smem() {
+    return 1024 + 2 * (size_t)kGStages * STAGE + 8 * 2 * kGStages + 16;
+  }
+};
+
+// Column shifts of a consumer's m64n128 accumulator within image rows of WP
+// columns (the tile is kGBN / WP image rows of WP pixels).  Thread (g =
+// lane / 4, t = lane % 4) holds columns 8i + 2t, 8i + 2t + 1 in d[4i],
+// d[4i + 1] (row g) and d[4i + 2], d[4i + 3] (row g + 8); the neighbours
+// come by warp shuffles from the lanes of the same g.
+//
+// shift_left: new[c] = old[c + 1]; a row's last column takes 0 (ROT false)
+// or the row's first column (ROT true).
+template <int WP, bool ROT, int N>
+__device__ __forceinline__ void shift_left(float (&d)[N], int lane) {
+  constexpr int G = WP / 8;  // 8-column groups a row
+  const int t = lane & 3, next = (lane & ~3) | ((t + 1) & 3), first = lane & ~3;
+  float nd[N];
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const bool row_end = (i + 1) % G == 0;
+    const int inext = row_end ? i + 1 - G : i + 1;
+    const float a0 = __shfl_sync(0xffffffffu, d[4 * i], next);
+    const float a2 = __shfl_sync(0xffffffffu, d[4 * i + 2], next);
+    const float b0 = __shfl_sync(0xffffffffu, d[4 * inext], first);
+    const float b2 = __shfl_sync(0xffffffffu, d[4 * inext + 2], first);
+    nd[4 * i] = d[4 * i + 1];
+    nd[4 * i + 2] = d[4 * i + 3];
+    nd[4 * i + 1] = t < 3 ? a0 : (row_end && !ROT) ? 0.f : b0;
+    nd[4 * i + 3] = t < 3 ? a2 : (row_end && !ROT) ? 0.f : b2;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = nd[i];
+}
+
+// rotate_right: new[c] = old[c - 1]; a row's first column takes its last.
+template <int WP, int N>
+__device__ __forceinline__ void rotate_right(float (&d)[N], int lane) {
+  constexpr int G = WP / 8;
+  const int t = lane & 3, prev = (lane & ~3) | ((t + 3) & 3), last = lane | 3;
+  float nd[N];
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const int iprev = i % G == 0 ? i - 1 + G : i - 1;
+    const float a1 = __shfl_sync(0xffffffffu, d[4 * i + 1], prev);
+    const float a3 = __shfl_sync(0xffffffffu, d[4 * i + 3], prev);
+    const float b1 = __shfl_sync(0xffffffffu, d[4 * iprev + 1], last);
+    const float b3 = __shfl_sync(0xffffffffu, d[4 * iprev + 3], last);
+    nd[4 * i + 1] = d[4 * i];
+    nd[4 * i + 3] = d[4 * i + 2];
+    nd[4 * i] = t > 0 ? a1 : b1;
+    nd[4 * i + 2] = t > 0 ? a3 : b3;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = nd[i];
+}
+
+// One (image, rows = kGBN / WP image rows, BM output channels, k split)
+// tile.  The k-loop runs over the phases dx = +1, 0, -1 (9 * cb steps:
+// phase, then dy, then the 64-channel block).  x comes through xmap (xmap_m
+// in phase dx = -1: the same map with W - 1 columns) in boxes of P = SW/2
+// pixels of one image row x 64 channels, one slab each, at W coordinate 0
+// (or 64): TMA takes a box's innermost start only in whole 16 bytes, so a
+// box is never shifted by dx.  The accumulator is shifted instead, between
+// and after the phases (y = R(Z-) + Z0 + L(Z+), Zdx the products of phase
+// dx at the unshifted columns):
+//   after dx = +1: shift_left, 0 into a row's last column -> L(Z+);
+//   after dx = 0:  rotate left (a row's first column into its last);
+//   after dx = -1: rotate right, which restores that first column; Z-'s
+//                  last column, which the rotation would carry to column 0,
+//                  is 0 because xmap_m ends one column short.
+// A split whose k-range ends in phase +1 applies the first shift at its end
+// (the shifts are linear, so the partials still sum to y).
+template <int SW, int WP>
+__global__ void __launch_bounds__(ConvTile::THREADS)
+    conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
+                         const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap xmap_m,
+                         const __nv_bfloat16* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                         float* __restrict__ part, int* __restrict__ counters, int C, int H,
+                         int W, int O, int tpi, int splits) {
+  using T = ConvTile;
+  constexpr int P = SW / 2, ROWS = kGBN / WP;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(  // 1024-byte aligned stages
+      (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kGStages * T::STAGE);
+  uint64_t* empty = full + kGStages;
+  int* flag = reinterpret_cast<int*>(empty + kGStages);
+
+  const int b = blockIdx.x / tpi, h0 = (blockIdx.x % tpi) * ROWS;
+  const int o0 = blockIdx.y * T::BM, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int cb = (C + kGBK - 1) / kGBK, per_phase = 3 * cb, nk = 3 * per_phase;
+  const int k0 = (int)((long long)split * nk / splits);
+  const int k1 = (int)((long long)(split + 1) * nk / splits);
+
+  if (tid == 0) {
+    for (int i = 0; i < kGStages; ++i) {
+      dft::mbar_init(&full[i], 1);
+      dft::mbar_init(&empty[i], T::NC);
+    }
+    dft::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[kGBN / 2];
+#pragma unroll
+  for (int i = 0; i < kGBN / 2; ++i) acc[i] = 0.f;
+
+  if (tid >= T::NC) {  // the producer warp: one thread starts every copy
+    if (tid == T::NC) {
+      for (int ks = k0; ks < k1; ++ks) {
+        const int i = ks - k0, s = i % kGStages;
+        const int phase = ks / per_phase, dy = (ks % per_phase) / cb - 1;
+        const int c0 = (ks % cb) * kGBK, tap = (dy + 1) * 3 + (1 - phase) + 1;
+        const CUtensorMap* xm = phase == 2 ? &xmap_m : &xmap;
+        if (i >= kGStages) dft::mbar_wait(&empty[s], (i / kGStages - 1) & 1);
+        __nv_bfloat16* st = ring + s * T::STAGE;
+        dft::mbar_expect_tx(&full[s], T::STAGE * 2);
+        dft::tma_load_slab(st, &amap, c0, o0, tap, &full[s]);
+        // slab j: pixels v = jP.. of the tile, image row v / WP from column v % WP
+#pragma unroll
+        for (int v = 0; v < kGBN; v += P)
+          dft::tma_load_4d(st + T::A + v * kGBK, xm, v % WP, h0 + v / WP + dy, c0, b, &full[s]);
+      }
+    }
+  } else {
+    const int lane = tid & 31;
+    bool pending = false;  // the previous step's stage is not yet released
+    for (int ks = k0; ks < k1; ++ks) {
+      const int i = ks - k0, s = i % kGStages, phase = ks / per_phase;
+      dft::mbar_wait(&full[s], (i / kGStages) & 1);
+      const __nv_bfloat16* st = ring + s * T::STAGE;
+      dft::fence_operands(acc);
+      dft::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kGBK / 16; ++kc)
+        dft::wgmma_ss<0, 1>(acc, dft::desc_kmajor<64, 128>(st, kc),
+                            dft::desc_mnmajor<kGBK, SW>(st + T::A, kc), 1);
+      dft::wgmma_commit();
+      const bool last = ks + 1 == k1, turn = !last && (ks + 1) / per_phase != phase;
+      if (!last && !turn) {
+        dft::wgmma_wait<1>();  // the previous step's products are done: free its stage
+        if (pending) dft::mbar_arrive(&empty[(i + kGStages - 1) % kGStages]);
+        pending = true;
+        continue;
+      }
+      dft::wgmma_wait<0>();
+      dft::fence_operands(acc);
+      if (pending) dft::mbar_arrive(&empty[(i + kGStages - 1) % kGStages]);
+      dft::mbar_arrive(&empty[s]);
+      pending = false;
+      if (phase == 0) shift_left<WP, false>(acc, lane);
+      else if (phase == 1 && turn) shift_left<WP, true>(acc, lane);
+      else if (phase == 2) rotate_right<WP>(acc, lane);
+    }
+    dft::fence_operands(acc);
+  }
+
+  if (splits > 1) {
+    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const size_t split_stride = (size_t)gridDim.y * gridDim.x * T::PART;
+    if (tid < T::NC) dft::part_store(part + split * split_stride + tile * T::PART, acc, tid, T::NC);
+    if (!dft::last_to_arrive(counters + tile, splits, flag)) return;
+    if (tid < T::NC) {
+#pragma unroll
+      for (int i = 0; i < kGBN / 2; ++i) acc[i] = 0.f;
+      const float* p = part + tile * T::PART;
+      for (int sp = 0; sp < splits; ++sp, p += split_stride) dft::part_add(acc, p, tid, T::NC);
+    }
+  }
+  if (tid >= T::NC) return;
+
+  // accumulator rows: output channels 16*warp + g (+8); columns 8i + 2t
+  // (+1): pixels of the tile, two neighbours of one row
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int oa = o0 + warp * 16 + g, ob = oa + 8;
+  const float ba = bias != nullptr && oa < O ? __bfloat162float(bias[oa]) : 0.f;
+  const float bb = bias != nullptr && ob < O ? __bfloat162float(bias[ob]) : 0.f;
+#pragma unroll
+  for (int i = 0; i < kGBN / 8; ++i) {
+    const int v = 8 * i + 2 * t, h = h0 + v / WP, w = v % WP;
+    if (h >= H || w >= W) continue;  // W is even: w + 1 < W too
+    const size_t pix = (size_t)h * W + w;
+    if (oa < O)
+      *reinterpret_cast<__nv_bfloat162*>(y + ((size_t)b * O + oa) * H * W + pix) =
+          __floats2bfloat162_rn(acc[4 * i] + ba, acc[4 * i + 1] + ba);
+    if (ob < O)
+      *reinterpret_cast<__nv_bfloat162*>(y + ((size_t)b * O + ob) * H * W + pix) =
+          __floats2bfloat162_rn(acc[4 * i + 2] + bb, acc[4 * i + 3] + bb);
+  }
+}
+
+template <int SW, int WP>
+cudaError_t launch_wgmma(const void* x, const void* w9, const void* bias, void* y, float* part,
+                         int* counters, int B, int C, int H, int W, int O, int splits,
+                         cudaStream_t stream) {
+  using T = ConvTile;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(conv3x3_wgmma_kernel<SW, WP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)T::smem());
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int tpi = (H + kGBN / WP - 1) / (kGBN / WP);
+  CUtensorMap am{}, xm{}, xm1{};
+  if (!(dft::make_tile_map(&am, w9, 9, O, C, T::BM, 128) &&
+        dft::make_nchw_map(&xm, x, B, C, H, W, W, SW) &&
+        dft::make_nchw_map(&xm1, x, B, C, H, W, W - 1, SW)))
+    return cudaErrorNotSupported;
+  const dim3 grid(B * tpi, (O + T::BM - 1) / T::BM, splits);
+  conv3x3_wgmma_kernel<SW, WP><<<grid, T::THREADS, T::smem(), stream>>>(
+      am, xm, xm1, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y),
+      part, counters, C, H, W, O, tpi, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B, C, H, W), wt (O, C, 3, 3), bias (O) or NULL, y (B, O, H, W); all
 // contiguous, and C a multiple of 8 for bf16 (16-byte weight rows).
-// dtype: 0 = fp32, 1 = bf16.  Returns the launch's cudaError_t (0 = launched).
+// dtype: 0 = fp32 (FMA kernel), 1 = bf16 (the element-load route, for the
+// shapes dft_conv3x3_wgmma does not take).  Returns the launch's cudaError_t
+// (0 = launched).
 extern "C" int dft_conv3x3(const void* x, const void* wt, const void* bias, void* y, int B, int C,
                            int H, int W, int O, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -264,5 +519,37 @@ extern "C" int dft_conv3x3(const void* x, const void* wt, const void* bias, void
         static_cast<const float*>(bias), static_cast<float*>(y), B, C, H, W, O);
     return static_cast<int>(cudaGetLastError());
   }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The Hopper design: bf16 x (B, C, H, W) with W a multiple of 8 and at most
+// 128, C a multiple of 8; w9 (9, O, C) the tap-major weight (w9[kh*3+kw, o,
+// c] = wt[o, c, kh, kw]); bias (O) or NULL; y (B, O, H, W); all contiguous.
+// sw in {32, 64, 128} the pixel tile's swizzle (sw/2 pixels a TMA box; an
+// image row is sw/2 pixels wide in the tile, or 128 where W > 64), splits
+// CTAs along K (1 .. 9 * ceil(C/64)).  With splits > 1, part is fp32
+// scratch of splits * tiles * 64 * 128 floats and counters `tiles` ints
+// (tiles = the grid's B * ceil(H / rows) * ceil(O / 64),
+// ops/conv3x3.py:plan), zero on entry and
+// left zero on exit.  Returns the launch's cudaError_t (0 = launched).
+extern "C" int dft_conv3x3_wgmma(const void* x, const void* w9, const void* bias, void* y,
+                                 void* part, void* counters, int B, int C, int H, int W, int O,
+                                 int sw, int splits, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nk = 9 * ((C + kGBK - 1) / kGBK);
+  const int wp = W > 64 ? 128 : sw / 2;
+  if (B < 1 || C < 1 || H < 1 || O < 1 || W < 8 || W % 8 != 0 || W > wp || C % 8 != 0 ||
+      splits < 1 || splits > nk || (splits > 1 && (part == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* p = static_cast<float*>(part);
+  int* c = static_cast<int*>(counters);
+#define DFT_CONV_CASE(SW, WP)                                                               \
+  if (sw == SW && wp == WP)                                                                 \
+    return static_cast<int>(launch_wgmma<SW, WP>(x, w9, bias, y, p, c, B, C, H, W, O, splits, st));
+  DFT_CONV_CASE(32, 16)
+  DFT_CONV_CASE(64, 32)
+  DFT_CONV_CASE(128, 64)
+  DFT_CONV_CASE(128, 128)
+#undef DFT_CONV_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -145,6 +145,62 @@ __device__ __forceinline__ void tma_load_vec(void* dst, const CUtensorMap* map, 
       : "memory");
 }
 
+// a box of a 4-D map (make_nchw_map) at coordinates {c0, c1, c2, c3}, which
+// may be negative or past the ends: TMA zero-fills what lies outside.  c0
+// (the innermost) must start on whole 16 bytes: an element-granular start
+// there is an illegal instruction on the H100
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one plain arrival on a barrier (one of the count it was initialised with)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// --- split-K: fp32 partials summed in split order by the last CTA ---
+//
+// A CTA's partial is its threads' accumulators in register order: float4 i
+// of thread tid (of nt) at (i * nt + tid) * 4, so that each access of a warp
+// is 512 contiguous bytes.
+template <int N>
+__device__ __forceinline__ void part_store(float* blk, const float (&a)[N], int tid, int nt) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    *reinterpret_cast<float4*>(blk + (i * nt + tid) * 4) =
+        make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]);
+}
+template <int N>
+__device__ __forceinline__ void part_add(float (&a)[N], const float* blk, int tid, int nt) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(blk + (i * nt + tid) * 4));
+    a[4 * i] += v.x;
+    a[4 * i + 1] += v.y;
+    a[4 * i + 2] += v.z;
+    a[4 * i + 3] += v.w;
+  }
+}
+// Called by every thread of the CTA after it stored its partial: true in the
+// last of `splits` CTAs to arrive at `counter`, which resets it to 0 for the
+// next launch on the stream.  `flag` is one int of shared memory.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int splits, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (!*flag) return false;
+  __threadfence();
+  if (threadIdx.x == 0) *counter = 0;
+  return true;
+}
+
 // --- host: tensor maps (the driver's encoder, reached through the runtime,
 // so that the library needs no -lcuda) ---
 
@@ -178,6 +234,32 @@ inline bool make_tile_map(CUtensorMap* map, const void* base, int heads, int row
                                                 : CU_TENSOR_MAP_SWIZZLE_32B;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                 strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// NCHW bf16 x (B, C, H, W), W a multiple of 8 (16-byte strides), as a 4-D
+// map over (cols, H, C, B), cols <= W the columns it reads of each row: a
+// box of sw/2 pixels of one image row and 64 channels lands as one slab of
+// 64 channel rows of sw/2 pixels swizzled by sw bytes -- a slab of the
+// MN-major layout of a (64 k x n pixels) tile.  Rows outside the image (the
+// 3x3 halo), columns past cols and channels past C are zero-filled.  A
+// box's start column must be a multiple of 8 (TMA starts the innermost
+// dimension on whole 16 bytes).
+inline bool make_nchw_map(CUtensorMap* map, const void* x, int B, int C, int H, int W, int cols,
+                          int sw) {
+  auto encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)H, (cuuint64_t)C, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)W * 2, (cuuint64_t)H * W * 2,
+                                 (cuuint64_t)C * H * W * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)sw / 2, 1, 64, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -538,6 +620,31 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 

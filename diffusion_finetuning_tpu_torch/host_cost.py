@@ -1,5 +1,5 @@
-"""Host time of the flash-attention wrappers and of a UNet step: this
-checkout against another one, on one card.
+"""Host time of the kernel wrappers and of a UNet step: this checkout
+against another one, on one card.
 
     python3 -m diffusion_finetuning_tpu_torch.host_cost --against DIR
 
@@ -10,12 +10,16 @@ take turns on the card, in rounds ordered this, other, other, this: a drift
 in the shared host's speed then falls on both.  Each turn measures
 
 * host microseconds per call of ``ops.flash_attention._fwd_cuda`` (K1, BH
-  16) and ``_bwd_cuda`` (K3, BH 8) at SD1.5's eight attention shapes: the
-  time to enqueue ``CALLS`` calls without waiting for the card, which is
-  all the host does per call (Python, ctypes, the C entry's tensor-map
-  encodes, the launch);
+  16) and ``_bwd_cuda`` (K3, BH 8) at SD1.5's eight attention shapes, of
+  ``ops.lora_matmul._lora_dense_cuda`` (K2) at the UNet step's LoRA'd
+  projections and of ``ops.conv3x3._conv3x3_cuda`` (K5) at its routed
+  convs (CFG batch 2): the time to enqueue ``CALLS`` calls without waiting
+  for the card, which is all the host does per call (Python, ctypes, the
+  plan, the C entry's tensor-map encodes, the launch);
 * wall ms of a full-width SD1.5 UNet step (CFG batch 2, 64x64 latents,
-  bf16, random weights, no LoRA), ``STEPS`` steps ending in a synchronize.
+  bf16, random weights), ``STEPS`` steps ending in a synchronize, without
+  a LoRA and with a rank-4 LoRA attached (the dynamic-LoRA step: 144 K2
+  calls).
 
 It prints the medians of each tree and, as its last line, a JSON object of
 them.  It needs a CUDA card.
@@ -38,6 +42,16 @@ import time
 SHAPES = [(4096, 4096, 40, 5), (1024, 1024, 80, 5), (256, 256, 160, 5), (64, 64, 160, 1),
           (4096, 77, 40, 5), (1024, 77, 80, 5), (256, 77, 160, 5), (64, 77, 160, 1)]
 FWD_BH, BWD_BH = 16, 8  # serving (CFG batch 2 x 8 heads), training (batch 1)
+# (M, K, N, calls a UNet step) of the LoRA'd projections at CFG batch 2
+LORA_SHAPES = [shape for m, c, blocks in ((8192, 320, 5), (2048, 640, 5), (512, 1280, 5),
+                                          (128, 1280, 1))
+               for shape in ((m, c, c, 6 * blocks), (154, 768, c, 2 * blocks),
+                             (m, c, 8 * c, blocks))]
+# (B, C, H, W, O, calls a UNet step) of the convs routed to K5 at CFG batch 2
+CONV_SHAPES = [(2, 320, 64, 64, 320, 7), (2, 320, 32, 32, 640, 1), (2, 640, 32, 32, 640, 6),
+               (2, 640, 16, 16, 1280, 1), (2, 1280, 16, 16, 1280, 6),
+               (2, 1280, 8, 8, 1280, 11), (2, 1280, 32, 32, 640, 1),
+               (2, 960, 32, 32, 640, 1), (2, 960, 64, 64, 320, 1), (2, 640, 64, 64, 320, 2)]
 CALLS = 50  # calls enqueued per host timing
 STEPS = 10  # UNet steps per wall timing
 THIS = "diffusion_finetuning_tpu_torch"
@@ -70,12 +84,15 @@ def enqueue_us(fn) -> float:
 
 
 class Tree:
-    """One checkout's flash wrappers and UNet on shared inputs."""
+    """One checkout's kernel wrappers and UNet on shared inputs."""
 
     def __init__(self, pkg: str, inputs, unet_state):
         import torch
 
         self.fa = importlib.import_module(f"{pkg}.ops.flash_attention")
+        self.lm = importlib.import_module(f"{pkg}.ops.lora_matmul")
+        self.cv = importlib.import_module(f"{pkg}.ops.conv3x3")
+        self.lora = importlib.import_module(f"{pkg}.lora")
         unet_mod = importlib.import_module(f"{pkg}.models.unet")
         with torch.device("cuda"):
             self.unet = unet_mod.UNet2DConditionModel(unet_mod.UNetConfig.sd15())
@@ -84,11 +101,24 @@ class Tree:
             self.unet.load_state_dict(unet_state)
         self.inputs = inputs
 
-    def turn(self) -> dict:
-        """One turn: host us per K1 and K3 call at every shape, UNet step ms."""
+    def step_ms(self) -> float:
         import torch
 
-        fa = self.fa
+        x, t, ctx = self.inputs["unet"]
+        self.unet(x, t, ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            self.unet(x, t, ctx)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / STEPS
+
+    def turn(self) -> dict:
+        """One turn: host us per K1, K3, K2 and K5 call at every shape, UNet
+        step ms without and with the LoRA."""
+        import torch
+
+        fa, lm, cv = self.fa, self.lm, self.cv
         fwd, bwd = [], []
         with torch.inference_mode():
             for (sq, skv, d, _), (fw, bw) in zip(SHAPES, self.inputs["flash"]):
@@ -96,15 +126,15 @@ class Tree:
                 fwd.append(enqueue_us(lambda: fa._fwd_cuda(*fw, scale)))
                 q, k, v, lse, delta, do = bw
                 bwd.append(enqueue_us(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale)))
-            x, t, ctx = self.inputs["unet"]
-            self.unet(x, t, ctx)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(STEPS):
-                self.unet(x, t, ctx)
-            torch.cuda.synchronize()
-            step = (time.perf_counter() - t0) * 1e3 / STEPS
-        return {"fwd_us": fwd, "bwd_us": bwd, "unet_step_ms": step}
+            lora = [enqueue_us(lambda: lm._lora_dense_cuda(*args))
+                    for args in self.inputs["lora"]]
+            conv = [enqueue_us(lambda: cv._conv3x3_cuda(x, w, None))
+                    for x, w in self.inputs["conv"]]
+            step = self.step_ms()
+            with self.lora.attached(self.unet, self.inputs["lora_tree"]):
+                lora_step = self.step_ms()
+        return {"fwd_us": fwd, "bwd_us": bwd, "lora_us": lora, "conv_us": conv,
+                "unet_step_ms": step, "unet_step_ms_dynamic_lora": lora_step}
 
 
 def make_inputs():
@@ -124,20 +154,48 @@ def make_inputs():
                 randn(BWD_BH, sq, d)
             o, lse = fa.flash_attention_plain(q, k, v, d ** -0.5)
             flash.append((fw, (q, k, v, lse, fa._delta(o, do), do)))
+    lora = [(randn(m, k), randn(n, k) * k ** -0.5, randn(n) * 0.1, randn(n, 4) * 0.1,
+             randn(4, k) * 0.25, torch.tensor(0.8, device="cuda"))
+            for m, k, n, _ in LORA_SHAPES]
+    conv = [(randn(b, c, h, w), randn(o, c, 3, 3) / (3 * c ** 0.5))
+            for b, c, h, w, o, _ in CONV_SHAPES]
     unet = (randn(2, 4, 64, 64), torch.tensor([500, 500], device="cuda"), randn(2, 77, 768))
-    return {"flash": flash, "unet": unet}
+    return {"flash": flash, "lora": lora, "conv": conv, "unet": unet,
+            "lora_tree": lora_tree()}
+
+
+def lora_tree():
+    """A rank-4 LoRA on SD1.5's default UNet targets (bf16, on the card,
+    non-zero up), from this checkout's ``lora`` module."""
+    import torch
+
+    lora = importlib.import_module(f"{THIS}.lora")
+    unet = importlib.import_module(f"{THIS}.models.unet")
+    g = torch.Generator().manual_seed(1)
+    targets = lora.filter_targets(unet.unet_lora_targets(unet.UNetConfig.sd15()),
+                                  lora.DEFAULT_TARGET_REPLACE)
+    tree = lora.inject_trainable_lora(targets, g, r=4, dtype=torch.bfloat16)
+    for _, leaf in lora.lora_leaves(tree):
+        leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * 0.01).bfloat16()
+
+    def to_card(node):
+        return {k: to_card(v) if isinstance(v, dict) else v.cuda() for k, v in node.items()}
+
+    return to_card(tree)
 
 
 def summary(turns) -> dict:
     """Medians over a tree's turns, per shape and summed over one step's calls."""
-    fwd = [statistics.median(t["fwd_us"][i] for t in turns) for i in range(len(SHAPES))]
-    bwd = [statistics.median(t["bwd_us"][i] for t in turns) for i in range(len(SHAPES))]
-    per = [s[3] for s in SHAPES]
-    return {"fwd_us": fwd, "bwd_us": bwd,
-            "fwd_us_a_step": sum(u * n for u, n in zip(fwd, per)),
-            "bwd_us_a_step": sum(u * n for u, n in zip(bwd, per)),
-            "unet_step_ms": statistics.median(t["unet_step_ms"] for t in turns),
-            "unet_step_ms_all": [t["unet_step_ms"] for t in turns]}
+    out = {}
+    for key, shapes in (("fwd", SHAPES), ("bwd", SHAPES), ("lora", LORA_SHAPES),
+                        ("conv", CONV_SHAPES)):
+        us = [statistics.median(t[f"{key}_us"][i] for t in turns) for i in range(len(shapes))]
+        out[f"{key}_us"] = us
+        out[f"{key}_us_a_step"] = sum(u * s[-1] for u, s in zip(us, shapes))
+    for key in ("unet_step_ms", "unet_step_ms_dynamic_lora"):
+        out[key] = statistics.median(t[key] for t in turns)
+        out[f"{key}_all"] = [t[key] for t in turns]
+    return out
 
 
 def main(argv=None):
@@ -178,23 +236,25 @@ def main(argv=None):
     other = Tree("dft_other", inputs, this.unet.state_dict())
     trees = {"this": this, "other": other}
     for tree in trees.values():  # warm-up: loads each library, configures each kernel
-        before = (tree.fa.launches, tree.fa.bwd_launches)
+        before = (tree.fa.launches, tree.fa.bwd_launches, tree.lm.launches, tree.cv.launches)
         tree.turn()
-        if (tree.fa.launches, tree.fa.bwd_launches) <= before:
-            sys.exit("a tree launched no flash kernel")
+        after = (tree.fa.launches, tree.fa.bwd_launches, tree.lm.launches, tree.cv.launches)
+        if not all(a > b for a, b in zip(after, before)):
+            sys.exit(f"a tree left a kernel unlaunched: {before} -> {after}")
     turns = {"this": [], "other": []}
     for _ in range(args.rounds):
         for name in ("this", "other", "other", "this"):
             turns[name].append(trees[name].turn())
     out = {name: summary(t) for name, t in turns.items()}
     for name, s in out.items():
-        print(f"{name}: K1 host us/call " + " ".join(f"{u:.1f}" for u in s["fwd_us"])
-              + f" ({s['fwd_us_a_step']:.1f} a step); K3 host us/call "
-              + " ".join(f"{u:.1f}" for u in s["bwd_us"])
-              + f" ({s['bwd_us_a_step']:.1f} a step); UNet step {s['unet_step_ms']:.3f} ms "
-              + f"(turns {', '.join(f'{m:.3f}' for m in s['unet_step_ms_all'])})", flush=True)
-    print(json.dumps({"shapes": [list(s) for s in SHAPES], "calls": CALLS, "steps": STEPS,
-                      **out}))
+        for key, label in (("fwd", "K1"), ("bwd", "K3"), ("lora", "K2"), ("conv", "K5")):
+            print(f"{name}: {label} host us/call " + " ".join(f"{u:.1f}" for u in s[f"{key}_us"])
+                  + f" ({s[f'{key}_us_a_step']:.1f} a step)", flush=True)
+        for key in ("unet_step_ms", "unet_step_ms_dynamic_lora"):
+            print(f"{name}: {key} {s[key]:.3f} (turns "
+                  + ", ".join(f"{m:.3f}" for m in s[f"{key}_all"]) + ")", flush=True)
+    print(json.dumps({"shapes": [list(s) for s in SHAPES], "lora_shapes": LORA_SHAPES,
+                      "conv_shapes": CONV_SHAPES, "calls": CALLS, "steps": STEPS, **out}))
 
 
 if __name__ == "__main__":

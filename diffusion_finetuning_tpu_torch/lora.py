@@ -97,10 +97,12 @@ def module_name(path: Sequence[str], prefix: str = "") -> str:
 def inject_trainable_lora(targets: Sequence[LoraTarget],
                           generator: torch.Generator, r: int = 4,
                           scale: float = 1.0, dtype: torch.dtype = torch.float32,
-                          device="cpu") -> Dict[str, Any]:
+                          device=None) -> Dict[str, Any]:
     """A fresh LoRA tree for ``targets``: ``down ~ N(0, 1) / r`` and
-    ``up = 0`` (reference lora.py:46-47), drawn from ``generator`` (on
-    ``device``) in target order."""
+    ``up = 0`` (reference lora.py:46-47), drawn from ``generator`` in target
+    order, on ``device`` (default: the generator's device)."""
+    if device is None:
+        device = generator.device
     tree: Dict[str, Any] = {}
     for t in targets:
         if r > min(t.in_features, t.out_features):

@@ -5,9 +5,11 @@ Port of the JAX package's Pallas TPU kernel ``ops/conv_pallas.py:_kernel``
 (:72, wrapper ``_conv3x3_fwd`` :95, public ``conv3x3`` :145 with a custom
 VJP whose backward is XLA's conv gradient, :155-169; routing ``supported``
 :172).  The CUDA kernel is ``csrc/conv3x3.cu`` (K5, ``sm_90a``), an implicit
-GEMM that reads the NCHW input and the OIHW weight where they lie: no
-padded, channels-last or 9-tap copy is made; its design and bound are noted
-there.
+GEMM (output channels x pixels x 9 taps * C) that reads the NCHW input where
+it lies, by TMA, with no padded, channels-last or 9-tap copy of it; its
+weight comes from a tap-major copy (:func:`tap_major`), made once per
+weight and cached.  :func:`plan` sizes its grid.  Its design and bound are
+noted there.
 
 Layouts are PyTorch's, as in the port's modules: x (B, C, H, W), weight
 (O, C, 3, 3), bias (O,) or None, y (B, O, H, W).  The JAX function takes
@@ -21,18 +23,53 @@ it launches the kernel or raises.  It is differentiable through
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import weakref
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _grid
 
 # kernel launches so far (chip_smoke.py resets and reads it)
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BN = 128  # the TPU kernel's output-channel block, read by the routing rule
+PIXELS = 128  # pixels a CTA of the Hopper kernel (whole image rows)
+CHANNELS = 64  # output channels a CTA (one consumer warpgroup)
+C_STEP = 64  # channels a k-step
+
+
+class Plan(NamedTuple):
+    """Grid of the Hopper kernel for one conv: ``sw`` the pixel tile's
+    swizzle in bytes (``sw // 2`` pixels a TMA box), ``rows`` image rows a
+    CTA, ``splits`` CTAs along the 9 * C k-loop, ``tiles`` the output tiles
+    (B * ceil(H / rows) * ceil(O / CHANNELS))."""
+    sw: int
+    rows: int
+    splits: int
+    tiles: int
+
+
+def plan(B: int, C: int, H: int, W: int, O: int,
+         splits: Optional[int] = None) -> Optional[Plan]:
+    """The bf16 Hopper kernel's grid, or None where its TMA route does not
+    take the shape (W not a multiple of 8, or above 128: the element-load
+    kernel takes those).  A tile is 64 output channels by 128 pixels of
+    whole image rows of one image, each row padded to wp = ceil(W / P) * P
+    pixels, P = 16, 32 or 64 (the widest box W needs, at most 64); the 9 *
+    ceil(C / 64) k-steps split where the tiles do not fill one wave, into
+    the fewest runs of at least 4 steps that do (``_grid.k_splits``).
+    ``splits`` overrides the rule's choice (tests, timings)."""
+    if W % 8 or W > PIXELS:
+        return None
+    p = 16 if W <= 16 else 32 if W <= 32 else 64
+    wp = _grid.cdiv(W, p) * p
+    rows = PIXELS // wp
+    tiles = B * _grid.cdiv(H, rows) * _grid.cdiv(O, CHANNELS)
+    splits = splits or _grid.k_splits(tiles, 9 * _grid.cdiv(C, C_STEP), 4)
+    return Plan(sw=2 * p, rows=rows, splits=splits, tiles=tiles)
 
 
 def _row_block(H, W, C, itemsize=2):
@@ -127,20 +164,57 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.reshape(B, H, W, -1).permute(0, 3, 1, 2).to(dt).contiguous()
 
 
-_fn = None
+_TAP_MAJOR = {}  # (id(weight), dtype) -> (weakref to the weight, its _version, w9)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("conv3x3").dft_conv3x3
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The Hopper kernel's weight operand: ``w9[kh * 3 + kw, o, c] =
+    weight[o, c, kh, kw]`` in ``dtype`` (default the weight's), contiguous
+    (9, O, C) -- JAX's ``w9`` (``conv_pallas.py:116``, (9, C, O)) with the
+    last two dims swapped, so that a tap's channels are contiguous for TMA.
+
+    A frozen weight is reordered once: the copy is cached per weight and
+    returned again only for the same tensor object at the same ``_version``
+    (an in-place update bumps it, so it gets a fresh copy); a freed weight
+    drops its copy.  Writes through ``.data`` bypass the version counter,
+    as they bypass autograd's own checks.  Inference tensors have no
+    version counter and are reordered on every call."""
+    dtype = dtype or weight.dtype
+    o, c = weight.shape[:2]
+
+    def reorder():
+        return weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
+
+    if weight.is_inference():
+        return reorder()
+    key = (id(weight), dtype)
+    hit = _TAP_MAJOR.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    w9 = reorder()
+    _TAP_MAJOR[key] = (weakref.ref(weight, lambda _, k=key: _TAP_MAJOR.pop(k, None)),
+                       weight._version, w9)
+    return w9
+
+
+_FNS = {}
+
+
+def _kernel(symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/conv3x3.cu``, built at first use."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load("conv3x3"), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _FNS[symbol] = fn
+    return fn
 
 
-def _conv3x3_cuda(x, weight, bias):
+def _conv3x3_cuda(x, weight, bias, grid: Optional[Plan] = None):
+    """The kernel on NCHW x: the Hopper design where :func:`plan` takes the
+    bf16 shape (``grid`` overrides its plan), else the element-load kernel
+    (bf16) or the FMA kernel (fp32)."""
     global launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv3x3 kernel takes fp32 or bf16, got {x.dtype}")
@@ -158,14 +232,31 @@ def _conv3x3_cuda(x, weight, bias):
         raise ValueError(f"bf16 conv3x3 kernel needs C % 8 == 0, got C={C}")
     dt = x.dtype
     x = x.contiguous()
-    weight = weight.to(dt).contiguous()
     bias = None if bias is None else bias.to(dt).contiguous()
     y = torch.empty((B, O, H, W), dtype=dt, device=x.device)
-    fn = _kernel()
+    p = (grid or plan(B, C, H, W, O)) if dt == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-                y.data_ptr(), B, C, H, W, O, _DTYPES[dt], stream)
+        bias_ptr = None if bias is None else bias.data_ptr()
+        if p is None:
+            fn = _kernel("dft_conv3x3", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+            wt = weight.to(dt).contiguous()
+            rc = fn(x.data_ptr(), wt.data_ptr(), bias_ptr, y.data_ptr(), B, C, H, W, O,
+                    _DTYPES[dt], stream)
+        else:
+            fn = _kernel("dft_conv3x3_wgmma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+            w9 = tap_major(weight, dt)
+            part = counters = None
+            if p.splits > 1:  # fp32 partials, summed by the last CTA of each tile
+                part = torch.empty(p.splits * p.tiles * CHANNELS * PIXELS, dtype=torch.float32,
+                                   device=x.device)
+                counters = _grid.arrival_counters(x.device, stream, p.tiles)
+            rc = fn(x.data_ptr(), w9.data_ptr(), bias_ptr, y.data_ptr(),
+                    None if part is None else part.data_ptr(),
+                    None if counters is None else counters.data_ptr(), B, C, H, W, O,
+                    p.sw, p.splits, stream)
     _build.check(rc, "conv3x3")
     launches += 1
     return y

@@ -43,7 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _grid
 
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
@@ -302,22 +302,6 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
     return o, lse
 
 
-_COUNTERS = {}
-
-
-def _bwd_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
-    """K3's arrival counters for ``n`` (head, KV tile) pairs, one buffer per
-    (device, stream), allocated zeroed on that stream.  Each launch leaves
-    them zero, so the launches of one stream, which run in order, share a
-    buffer; launches on two streams may run at the same time, so each
-    stream has its own."""
-    buf = _COUNTERS.get((device, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[(device, stream)] = buf
-    return buf
-
-
 def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
     """K3 on (BH, S, D) tensors; ``q_splits`` (bf16 only) defaults to
     :func:`bwd_q_splits`."""
@@ -348,7 +332,7 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
             part = torch.empty((splits, bh, _cdiv(skv, _KV_TILE),
                                 2 * _KV_TILE * _round_up(d, 16)),
                                dtype=torch.float32, device=q.device)
-            counters = _bwd_counters(q.device, stream, bh * _cdiv(skv, _KV_TILE))
+            counters = _grid.arrival_counters(q.device, stream, bh * _cdiv(skv, _KV_TILE))
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), None if part is None else part.data_ptr(),

@@ -4,7 +4,9 @@
 dtype, fp32 accumulation, in one pass.  Port of the JAX package's Pallas
 TPU kernel ``ops/lora_matmul.py:_kernel`` (:38, wrapper ``_fused`` :50,
 public ``lora_dense`` :137).  The CUDA kernel is ``csrc/lora_matmul.cu``
-(``sm_90a``); its design and its bound on the card are noted there.
+(``sm_90a``); its design and its bound on the card are noted there.  Its
+grid comes from :func:`plan`: the rows and columns of y a CTA computes and
+the CTAs that split the k-loop where the grid alone cannot fill the card.
 
 Layouts: ``weight`` is ``nn.Linear``'s (N, K) (the JAX ``kernel`` is its
 transpose), ``up`` (N, r) and ``down`` (r, K) are the on-disk LoRA layout
@@ -26,13 +28,30 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, _grid
 
 # kernel launches so far (chip_smoke.py resets and reads it)
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 16  # the rank is zero-padded to one mma k-depth in the kernel
+K_STEP = 64  # k a stage of the bf16 kernel
+TILES = ((128, 128), (64, 128), (64, 64))  # (rows, columns) of y a CTA, largest first
+
+
+def plan(m: int, n: int, k: int):
+    """(bm, bn, splits) of the bf16 kernel for an (m, k) x (k, n) call: the
+    largest of the tiles 128 x 128, 64 x 128 and 64 x 64 (rows x columns of
+    y a CTA) whose grid fills one wave, else 64 x 64; the k-loop (64-deep
+    steps) split only where even 64 x 64 tiles fill under half a wave, into
+    runs of at least 8 steps (``_grid.k_splits``): a split's partials cost
+    more than the small calls' k-loops, so the 77- and 154-row text
+    projections run unsplit."""
+    for bm, bn in TILES:
+        tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
+        if tiles >= _grid.SMS:
+            return bm, bn, 1
+    return bm, bn, _grid.k_splits(tiles, _grid.cdiv(k, K_STEP), 8, _grid.SMS // 2)
 
 
 def _scale32(scale, device) -> torch.Tensor:
@@ -63,13 +82,15 @@ def _kernel():
     if _lib is None:
         lib = _build.load("lora_matmul")
         fn = lib.dft_lora_dense
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _lib = lib
     return _lib.dft_lora_dense
 
 
-def _lora_dense_cuda(x, weight, bias, up, down, scale):
+def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None):
+    """The kernel on (M, K) inputs; ``grid`` (bm, bn, splits), bf16 only,
+    defaults to :func:`plan`."""
     global launches
     operands = [x, weight, up, down] + ([bias] if bias is not None else [])
     if x.dtype not in _DTYPES:
@@ -88,17 +109,27 @@ def _lora_dense_cuda(x, weight, bias, up, down, scale):
     if x.dtype == torch.bfloat16 and k % 8:
         raise ValueError(f"bf16 LoRA kernel needs K % 8 == 0, got K={k}")
     dt = x.dtype
+    x = x.contiguous()
     weight, up, down = (t.to(dt).contiguous() for t in (weight, up, down))
     bias = None if bias is None else bias.to(dt).contiguous()
     s = _scale32(scale, x.device)
     y = torch.empty((m, n), dtype=dt, device=x.device)
+    bm, bn, splits = (grid or plan(m, n, k)) if dt == torch.bfloat16 else (64, 64, 1)
     fn = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        part = counters = None
+        if splits > 1:  # fp32 partials of y and h, summed by the last CTA of each tile
+            tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
+            part = torch.empty(splits * tiles * bm * (bn + 16), dtype=torch.float32,
+                               device=x.device)
+            counters = _grid.arrival_counters(x.device, stream, tiles)
         rc = fn(x.data_ptr(), weight.data_ptr(),
                 None if bias is None else bias.data_ptr(), up.data_ptr(),
-                down.data_ptr(), s.data_ptr(), y.data_ptr(), m, n, k, r,
-                _DTYPES[dt], stream)
+                down.data_ptr(), s.data_ptr(), y.data_ptr(),
+                None if part is None else part.data_ptr(),
+                None if counters is None else counters.data_ptr(), m, n, k, r,
+                _DTYPES[dt], bm, bn, splits, stream)
     _build.check(rc, "lora_dense")
     launches += 1
     return y

@@ -14,6 +14,8 @@ doubles every value); packed flash 1e-5 against JAX (the same sums in
 another order) and exact against the port's unpacked forward.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from diffusion_finetuning_tpu.models.unet import _resnet_channel_map as jax_resn
 from diffusion_finetuning_tpu.ops import conv_pallas as jconv
 from diffusion_finetuning_tpu.ops import flash_attention as jfa
 
+from diffusion_finetuning_tpu_torch.ops import _grid
 from diffusion_finetuning_tpu_torch.ops import conv3x3 as tconv
 from diffusion_finetuning_tpu_torch.ops import flash_attention as tfa
 
@@ -152,6 +155,89 @@ def test_supported_rejects_as_jax():
     for x_shape, k_shape, strides, pad, want in cases:
         assert jconv.supported(x_shape, k_shape, strides, padding=pad) == want
         assert tconv.supported(x_shape, k_shape, strides, padding=pad) == want
+
+
+@pytest.mark.parametrize("batch", [2, 1], ids=["serve", "train"])
+def test_conv_plan_at_sd15(batch):
+    """K5's grid at every routed SD1.5 resnet conv (512^2): a TMA box of
+    P = sw/2 pixels, P the narrowest of 16, 32, 64 that holds an image row
+    (W = 8 reads half-empty 16-pixel boxes); 128-pixel tiles of whole rows
+    covering H; 64-channel tiles covering O; splits that cut the 9 * C/64
+    k-steps into contiguous runs of at least 4, only where the tiles fill
+    under one wave, and the fewest that reach it."""
+    for x_shape, k_shape in _sd15_resnet_convs(64, batch):
+        if not tconv.supported(x_shape, k_shape, (1, 1), padding=1, itemsize=2):
+            continue
+        b, h, w, c = x_shape
+        o = k_shape[3]
+        p = tconv.plan(b, c, h, w, o)
+        px = p.sw // 2
+        assert px in (16, 32, 64) and px >= w and (px == 16 or px // 2 < w)
+        assert p.rows * px == tconv.PIXELS
+        assert p.tiles == b * _grid.cdiv(h, p.rows) * _grid.cdiv(o, tconv.CHANNELS)
+        steps = 9 * _grid.cdiv(c, tconv.C_STEP)
+        runs = _grid.split_steps(steps, p.splits)
+        assert runs[0][0] == 0 and runs[-1][1] == steps
+        assert all(b_ - a >= 4 for a, b_ in runs)
+        assert p.tiles * p.splits >= 132 or p.splits == steps // 4
+        assert p.splits == 1 or (p.tiles < 132 and p.tiles * (p.splits - 1) < 132)
+
+
+def test_conv_plan_examples():
+    """The 64^2 level: 128-byte boxes of one 64-pixel row, 2 rows a tile,
+    unsplit (320 tiles at B = 2); 32^2: 64-byte boxes, 4 rows; 16^2 at
+    1280 channels: 80 tiles split 2 ways (90 k-steps each); 8^2: 16-pixel
+    boxes half past the image, 40 tiles split 4 ways (B = 2) and 20 split
+    7 ways (B = 1); W = 96: rows of two 64-pixel boxes; W not a multiple
+    of 8, or above 128, goes to the element-load kernel (no plan)."""
+    assert tconv.plan(2, 320, 64, 64, 320) == tconv.Plan(128, 2, 1, 320)
+    assert tconv.plan(2, 640, 32, 32, 640) == tconv.Plan(64, 4, 1, 160)
+    assert tconv.plan(2, 1280, 16, 16, 1280) == tconv.Plan(32, 8, 2, 80)
+    assert tconv.plan(2, 1280, 8, 8, 1280) == tconv.Plan(32, 8, 4, 40)
+    assert tconv.plan(1, 1280, 8, 8, 1280) == tconv.Plan(32, 8, 7, 20)
+    assert tconv.plan(1, 64, 20, 96, 128) == tconv.Plan(128, 1, 2, 40)
+    assert tconv.plan(1, 64, 9, 12, 64) is None
+    assert tconv.plan(1, 64, 8, 136, 64) is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_tap_major_weight_matches_jax_w9(dtype):
+    """The kernel's weight operand is JAX's w9 (the HWIO kernel reshaped to
+    (9, C, O), conv_pallas.py:116) with its last two dims swapped, from the
+    same numpy weights, exactly."""
+    _, k, _ = _conv_inputs((1, 8, 8, 64, 96), 4)
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = np.asarray(jnp.asarray(k).astype(jd).reshape(9, 64, 96).astype(jnp.float32))
+    _, wt = _to_port(np.zeros((1, 8, 8, 64), np.float32), k)
+    w9 = tconv.tap_major(wt, dtype)
+    assert w9.shape == (9, 96, 64) and w9.dtype == dtype and w9.is_contiguous()
+    np.testing.assert_array_equal(w9.float().permute(0, 2, 1).numpy(), want)
+
+
+def test_tap_major_cache_follows_the_weight():
+    """A frozen weight is reordered once; an in-place update (which bumps
+    its version) gives a fresh copy; another tensor with the same values
+    gets its own entry; a freed weight drops its copy."""
+    _, k, _ = _conv_inputs((1, 8, 8, 64, 64), 5)
+    _, wt = _to_port(np.zeros((1, 8, 8, 64), np.float32), k)
+    first = tconv.tap_major(wt)
+    assert tconv.tap_major(wt) is first
+    assert tconv.tap_major(wt, torch.bfloat16) is not first
+    with torch.no_grad():
+        wt.mul_(2.0)
+    again = tconv.tap_major(wt)
+    assert again is not first
+    torch.testing.assert_close(again, 2.0 * first, rtol=0, atol=0)
+    twin = wt.clone()
+    assert tconv.tap_major(twin) is not again
+    key = (id(twin), twin.dtype)
+    assert key in tconv._TAP_MAJOR
+    del twin
+    gc.collect()
+    assert key not in tconv._TAP_MAJOR
+    with torch.inference_mode():
+        frozen = wt.clone()
+        assert tconv.tap_major(frozen) is not tconv.tap_major(frozen)
 
 
 def _qkv(b, sq, skv, heads, d, seed):

@@ -12,7 +12,8 @@ absolute of the plain version on the same bf16 inputs -- the kernel and the
 plain version round p or h and the output to bf16 at the same places but sum
 in another order, so single values may land one bf16 ulp apart; fp32 within
 1e-4; the flash lse within 1e-3.  The head-packed flash forward (K4) equals
-K1 exactly.  The flash backward's dQ, dK and dV within
+K1 exactly.  K2 and K5 with split k-loops repeat bit for bit (the last CTA
+sums the partials in split order).  The flash backward's dQ, dK and dV within
 2e-2 of the largest reference value and 1e-2 relative L2 in bf16 (dS is
 rounded to bf16 from sums taken in another order, and dQ is summed by fp32
 atomics in a varying order), 1e-4 relative in fp32.
@@ -227,6 +228,62 @@ def test_lora_kernel_matches_plain(card, m, kdim, n):
     assert y.dtype == torch.bfloat16 and _max_err(y, y_ref) <= 5e-2
 
 
+def _lora_inputs(card, m, kdim, n, r, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((m, kdim), generator=g, device=card).bfloat16()
+    w = (torch.randn((n, kdim), generator=g, device=card) * kdim ** -0.5).bfloat16()
+    b = (torch.randn((n,), generator=g, device=card) * 0.1).bfloat16()
+    up = (torch.randn((n, r), generator=g, device=card) * 0.1).bfloat16()
+    down = (torch.randn((r, kdim), generator=g, device=card) / r).bfloat16()
+    return x, w, b, up, down
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(64, 64, 1), (64, 64, 2), (64, 128, 3), (128, 128, 12),
+                                  None])
+@pytest.mark.parametrize("r", [1, 4, 16])
+@pytest.mark.parametrize("m", [77, 154])
+def test_lora_kernel_forced_grids(card, grid, r, m):
+    """K2 at each tile and at 1, 2, 3 and 12 splits of its 12 k-steps (K =
+    768, the text rows' projection) and at the plan's choice (None), ranks
+    1, 4 and 16, the text rows M = 77 and 154, N = 200 (no multiple of
+    either tile): within the plain version's tolerance, and a second run
+    equal bit for bit (the split partials are summed in split order)."""
+    x, w, b, up, down = _lora_inputs(card, m, 768, 200, r, 20 + r)
+    before = tlm.launches
+    with torch.inference_mode():
+        y = tlm._lora_dense_cuda(x, w, b, up, down, 0.8, grid=grid)
+        again = tlm._lora_dense_cuda(x, w, b, up, down, 0.8, grid=grid)
+        y_ref = tlm.lora_dense_plain(x, w, b, up, down, 0.8)
+    assert tlm.launches == before + 2
+    assert bool(torch.isfinite(y).all()) and _max_err(y, y_ref) <= 5e-2
+    assert _rel_l2(y, y_ref) <= 1e-2
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_lora_kernel_on_two_streams(card):
+    """Split K2 launches in flight at the same time on two streams (each
+    stream has its own arrival counters) equal one launch bit for bit."""
+    x, w, b, up, down = _lora_inputs(card, 128, 1280, 1280, 4, 30)
+    assert tlm.plan(128, 1280, 1280)[2] > 1
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = []
+    with torch.inference_mode():
+        want = tlm.lora_dense(x, w, b, up, down, 0.8)
+        for s in streams:
+            s.wait_stream(main)
+        for _ in range(8):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append(tlm.lora_dense(x, w, b, up, down, 0.8))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize(card)
+    assert all(torch.equal(y, want) for y in got)
+
+
 @pytest.mark.cuda
 def test_lora_kernel_fp32_ragged(card):
     g = torch.Generator(device=card).manual_seed(3)
@@ -313,6 +370,86 @@ def test_conv3x3_kernel_matches_plain(card, b, c, h, o):
     assert y.shape == (b, o, h, h) and y.dtype == torch.bfloat16
     assert _max_err(y, y_ref) <= 2 ** -7 * float(y_ref.float().abs().max())
     assert _rel_l2(y, y_ref) <= 1e-2
+
+
+def _conv_inputs(card, b, c, h, w, o, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g, device=card).bfloat16()
+    wt = (torch.randn((o, c, 3, 3), generator=g, device=card) / (3 * c ** 0.5)).bfloat16()
+    bias = (torch.randn((o,), generator=g, device=card) * 0.1).bfloat16()
+    return x, wt, bias
+
+
+def _conv_close(y, y_ref):
+    assert bool(torch.isfinite(y).all())
+    assert _max_err(y, y_ref) <= 2 ** -7 * float(y_ref.float().abs().max())
+    assert _rel_l2(y, y_ref) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,o,splits", [
+    (2, 64, 8, 8, 96, 1), (2, 64, 8, 8, 96, 9), (1, 128, 16, 16, 64, 3),
+    (2, 64, 32, 32, 136, 2), (1, 64, 64, 64, 64, 1), (1, 72, 9, 24, 64, 5),
+    (1, 64, 10, 96, 64, 2), (1, 64, 5, 128, 64, 1), (1, 128, 8, 8, 64, 7),
+    (2, 64, 16, 16, 72, 4), (1, 64, 32, 32, 64, 6), (1, 64, 64, 64, 64, 3)])
+def test_conv3x3_kernel_forced_grids(card, b, c, h, w, o, splits):
+    """K5's Hopper route at every pixel layout (W = 8 and 16: 16-pixel
+    boxes, W = 24 and 32: 32-pixel boxes, W = 64: 128-byte boxes, W = 96 and
+    128: two boxes a row), forced splits (up to every one of the 9 k-steps,
+    and splits that end a run inside each of the three column-shift
+    phases), ragged H, C (72: the last 64-channel step half past C) and O:
+    within one bf16 ulp of the largest value of the plain version, and a
+    second run equal bit for bit."""
+    x, wt, bias = _conv_inputs(card, b, c, h, w, o, 40 + w)
+    p = tconv.plan(b, c, h, w, o, splits=splits)
+    before = tconv.launches
+    with torch.inference_mode():
+        y = tconv._conv3x3_cuda(x, wt, bias, grid=p)
+        again = tconv._conv3x3_cuda(x, wt, bias, grid=p)
+        y_ref = tconv.conv3x3_plain(x, wt, bias)
+    assert tconv.launches == before + 2
+    assert y.shape == (b, o, h, w)
+    _conv_close(y, y_ref)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [12, 136])
+def test_conv3x3_kernel_element_route(card, w):
+    """bf16 shapes whose rows TMA cannot take (W = 12 is not a multiple of
+    8; W = 136 is past two 64-pixel boxes) run the element-load kernel,
+    chosen by shape."""
+    assert tconv.plan(1, 64, 9, w, 80) is None
+    x, wt, bias = _conv_inputs(card, 1, 64, 9, w, 80, 50)
+    before = tconv.launches
+    with torch.inference_mode():
+        y = tconv.conv3x3(x, wt, bias)
+        y_ref = tconv.conv3x3_plain(x, wt, bias)
+    assert tconv.launches == before + 1
+    _conv_close(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_on_two_streams(card):
+    """Split K5 launches in flight at the same time on two streams equal
+    one launch bit for bit."""
+    x, wt, _ = _conv_inputs(card, 2, 1280, 8, 8, 1280, 60)
+    assert tconv.plan(2, 1280, 8, 8, 1280).splits > 1
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = []
+    with torch.inference_mode():
+        want = tconv.conv3x3(x, wt)
+        for s in streams:
+            s.wait_stream(main)
+        for _ in range(4):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append(tconv.conv3x3(x, wt))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize(card)
+    assert all(torch.equal(y, want) for y in got)
 
 
 @pytest.mark.cuda

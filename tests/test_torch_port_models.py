@@ -180,6 +180,20 @@ def test_inject_and_tune_lora_scale():
     assert all(float(l["scale"]) == 1.0 for _, l in tlora.lora_leaves(tree))
 
 
+def test_inject_lora_leaves_follow_the_generator_device():
+    """Without a ``device`` the tree lies where the generator draws (the
+    port's entry points take no CPU default); the same draws as naming that
+    device."""
+    tgts = tunet.unet_lora_targets(tunet.UNetConfig.tiny())[:3]
+    gen = torch.Generator().manual_seed(1)
+    tree = tlora.inject_trainable_lora(tgts, gen, r=2)
+    named = tlora.inject_trainable_lora(tgts, torch.Generator().manual_seed(1), r=2,
+                                        device=gen.device)
+    for (_, leaf), (_, ref) in zip(tlora.lora_leaves(tree), tlora.lora_leaves(named)):
+        assert all(t.device == gen.device for t in leaf.values())
+        assert all(torch.equal(leaf[k], ref[k]) for k in ("up", "down", "scale"))
+
+
 def test_clip_matches_jax():
     from diffusion_finetuning_tpu.data.tokenizer import CLIPTokenizer
 

@@ -21,7 +21,7 @@ from diffusion_finetuning_tpu.ops import flash_attention as jfa
 from diffusion_finetuning_tpu.ops.attention import xla_attention
 from diffusion_finetuning_tpu.ops.lora_matmul import lora_dense as jax_lora_dense
 
-from diffusion_finetuning_tpu_torch.ops import _build
+from diffusion_finetuning_tpu_torch.ops import _build, _grid
 from diffusion_finetuning_tpu_torch.ops import attention as tatt
 from diffusion_finetuning_tpu_torch.ops import flash_attention as tfa
 from diffusion_finetuning_tpu_torch.ops import lora_matmul as tlm
@@ -184,6 +184,59 @@ def test_flash_grid_plans_examples():
     assert tfa.bwd_q_splits(8, 64, 77, 160) == 4  # every one of its 4 q tiles
     assert (tfa.bwd_q_rows(40), tfa.bwd_q_rows(80), tfa.bwd_q_rows(160)) == (64, 32, 16)
     assert tfa.bwd_split_rows(100, 80, 3) == [(0, 32), (32, 64), (64, 100)]
+
+
+# (M, K, N, calls a step) of the LoRA'd projections of SD1.5 at 512^2: per
+# transformer block attn1 q/k/v/out and attn2 q/out (C -> C), attn2 k/v on
+# the text rows (768 -> C), the GEGLU projection (C -> 8C); serving runs CFG
+# batch 2 (154 text rows), training batch 1 (77)
+def _sd15_lora_shapes(batch):
+    shapes = []
+    for hw, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
+        m = batch * hw
+        shapes += [(m, c, c), (77 * batch, 768, c), (m, c, 8 * c)]
+    return shapes
+
+
+@pytest.mark.parametrize("batch", [2, 1], ids=["serve", "train"])
+def test_lora_plan_at_sd15_shapes(batch):
+    """K2's grid at every SD1.5 serving and training shape: one of the
+    plan's tiles, covering M and N; the largest tile whose grid fills one
+    wave (132 CTAs), else 64 x 64; splits that cut the 64-deep k-steps into
+    contiguous runs of at least 8, none empty, only where 64 x 64 tiles
+    fill under half a wave, and no more than one wave needs."""
+    for m, k, n in _sd15_lora_shapes(batch):
+        bm, bn, splits = tlm.plan(m, n, k)
+        assert (bm, bn) in tlm.TILES
+        assert _grid.cdiv(m, bm) * bm >= m and _grid.cdiv(n, bn) * bn >= n
+        tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
+        larger = tlm.TILES[:tlm.TILES.index((bm, bn))]
+        assert all(_grid.cdiv(m, tm) * _grid.cdiv(n, tn) < 132 for tm, tn in larger)
+        assert tiles >= 132 or (bm, bn) == (64, 64)
+        steps = _grid.cdiv(k, tlm.K_STEP)
+        runs = _grid.split_steps(steps, splits)
+        assert runs[0][0] == 0 and runs[-1][1] == steps
+        assert all(b - a >= 8 for a, b in runs) or splits == 1
+        assert all(runs[i][1] == runs[i + 1][0] for i in range(splits - 1))
+        assert splits == 1 or tiles < 66
+        assert splits == 1 or tiles * (splits - 1) < 132, (m, k, n)
+
+
+def test_lora_plan_examples():
+    """Named cases: the text rows (154 x 768 -> N) run 64 x 64 tiles
+    unsplit; the 64^2 level's C -> C projections 64 x 128 at batch 1 and
+    128 x 128 at batch 2; the GEGLU projections 128 x 128; 512 x 1280 ->
+    1280 64 x 64 (160 CTAs); the mid block's 128 rows at 1280 -> 1280, 40
+    tiles, split in two (10 k-steps each)."""
+    assert tlm.plan(154, 320, 768) == (64, 64, 1)
+    assert tlm.plan(77, 1280, 768) == (64, 64, 1)
+    assert tlm.plan(4096, 320, 320) == (64, 128, 1)
+    assert tlm.plan(8192, 320, 320) == (128, 128, 1)
+    assert tlm.plan(8192, 2560, 320) == (128, 128, 1)
+    assert tlm.plan(512, 1280, 1280) == (64, 64, 1)
+    assert tlm.plan(128, 1280, 1280) == (64, 64, 2)
+    assert tlm.plan(128, 10240, 1280) == (64, 128, 1)
+    assert _grid.split_steps(12, 6) == [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 12)]
 
 
 def test_kernel_library_is_keyed_on_sources(tmp_path, monkeypatch):
