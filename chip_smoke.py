@@ -12,10 +12,11 @@ Phases, each fatal on failure:
      training shapes, BH = 8): error, kernel time, plain-version time, one
      PyTorch library call's time (SDPA's backward alone for the flash
      backward), and the bound; the flash forward's q tile and the flash
-     backward's q splits (whose dK/dV must repeat bit for bit), each timed
-     beside the choices its rule did not make (the other tile; half and
-     twice the splits) and beside the time of the first design of each
-     (constants below);
+     backward's q splits (whose dQ, dK and dV must repeat bit for bit, and
+     whose dQ must not change with the splits), each timed beside the
+     choices its rule did not make (the other tile; half and twice the
+     splits) and beside the time of the first design of each and of the
+     designs the last commit replaced (constants below);
   3. the UNet step of ``entry()``: full SD1.5 width in bf16 with a rank-4
      dynamic LoRA (non-zero up), CFG batch 2 at 64x64 latents, through both
      kernels, held against the same UNet run on the CPU in fp32 through the
@@ -41,14 +42,16 @@ Phases, each fatal on failure:
      (same draws); then the main path of this phase, img2img requests
      through ``StableDiffusionPipeline.img2img`` (512^2, 50 DDIM steps,
      strength 0.75 so 38 UNet steps, CFG, dynamic LoRA) with exact launch
-     counts (37 K5, 32 K4, 144 K2 a UNet step, no K1); then training: one
+     counts (37 K5, 32 K4, 144 K2 a UNet step, no K1); merged serving with
+     a LoRA on the resnet convs too, whose second request must make no
+     tap-major weight copy (``conv3x3.tap_major_copies``); then training: one
      ``loss_step`` + backward against phase 5's CPU fp32 gradient, 1 + 4
      ``build_train_step`` steps (37 K5, 32 K4, 32 K3, 144 K2 a step) and
      one checkpointed step (72 / 64 / 32 / 288: the first resnet block,
      which needs no gradient, is not recomputed).  Phase 2 also holds K5
      against its plain version at every routed SD1.5 conv shape (batch 2
-     and 1), and K4 (G = 2 and 4) equal to K1 bit for bit at every flash
-     shape.
+     and 1), and K4 (G = 2 and 4, at both q tiles) equal to K1 bit for bit
+     at every flash shape, timed beside K1 in the same run.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -133,6 +136,24 @@ K5_PREV = ("first K5, 578b4ea", {
     (1, 1280, 32, 32, 640): 0.9185, (1, 960, 32, 32, 640): 0.6861,
     (1, 960, 64, 64, 320): 0.6959, (1, 640, 64, 64, 320): 0.4650})
 
+# per-call ms of the designs these replaced, measured by this script's phase
+# 2 (flash_packed_rows, flash_bwd_rows) at commit e663ccd on an NVIDIA H100
+# 80GB HBM3 at 700 W, the mean of two runs in one call: K4 (K1's body for
+# the G heads in turn, at K1's tile) at (G, Sq, Skv, d), BH = 16; K3 with dQ
+# added by bulk reduce-adds and atomics in no fixed order, BH = 8; printed
+# in the log only
+K4_PREV = ("K4 before, e663ccd", {
+    (2, 4096, 4096, 40): 0.1912, (2, 1024, 1024, 80): 0.0411, (2, 256, 256, 160): 0.0195,
+    (2, 64, 64, 160): 0.0132, (2, 4096, 77, 40): 0.0212, (2, 1024, 77, 80): 0.0167,
+    (2, 256, 77, 160): 0.0155, (2, 64, 77, 160): 0.0147,
+    (4, 4096, 4096, 40): 0.2267, (4, 1024, 1024, 80): 0.0761, (4, 256, 256, 160): 0.0354,
+    (4, 64, 64, 160): 0.0231, (4, 4096, 77, 40): 0.0242, (4, 1024, 77, 80): 0.0269,
+    (4, 256, 77, 160): 0.0272, (4, 64, 77, 160): 0.0270})
+K3_UNORDERED = ("K3 before, e663ccd", {
+    (4096, 4096, 40): 0.3289, (1024, 1024, 80): 0.0689, (256, 256, 160): 0.0406,
+    (64, 64, 160): 0.0236, (4096, 77, 40): 0.0341, (1024, 77, 80): 0.0347,
+    (256, 77, 160): 0.0371, (64, 77, 160): 0.0239})
+
 # flash forward heads per CTA on the phase-6 path, and the packings phase 2
 # holds against K1
 HEAD_PACK = 2
@@ -172,7 +193,7 @@ PEAK_BYTES = 3.35e12
 # rounding of p / h to bf16 and of the output flips at ulp boundaries)
 FLASH_TOL = {"max_abs": 2e-2, "rel_l2": 1e-2, "lse_abs": 1e-3}
 # dQ/dK/dV: max |err| relative to the largest reference value, and rel L2
-# (dS rounds to bf16 from sums in another order; dQ sums by fp32 atomics)
+# (dS rounds to bf16 from sums taken in another order)
 FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
 # conv3x3: max |err| within one bf16 ulp of the largest reference value,
 # and rel L2 (the 9*C-term fp32 sums run in another order, then both round)
@@ -382,7 +403,7 @@ def phase_kernels():
     if not (torch.equal(o4, o) and torch.equal(lse4, lse)):
         fail("fp32 packed flash attention kernel differs from the unpacked one")
     results["flash_attention_fwd"] = rows
-    results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters)
+    results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters, rows)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
     results["lora_dense"] = lora_rows(gen, flush, iters)
@@ -483,18 +504,21 @@ def bound(flops, nbytes):
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3, by
 
 
-def flash_packed_rows(gen, flush, iters):
+def flash_packed_rows(gen, flush, iters, k1_rows):
     """K4 at G = 2 and 4 at every serving flash shape (BH = 16): O and lse
     equal to K1's bit for bit, error against the packed plain version, its
-    time, the plain version's, SDPA's, and the bound (K1's: the same work).
-    Rows of G = HEAD_PACK carry the calls a phase-6 UNet step makes; the
-    others count 0."""
+    time at the tile of ``packed_q_tile`` beside the tile the rule did not
+    pick, beside K1's time in this run (``k1_rows``) and the parent design's
+    (``K4_PREV``, log only), the plain version's, SDPA's, and the bound
+    (K1's: the same work).  Rows of G = HEAD_PACK carry the calls a phase-6
+    UNet step makes; the others count 0."""
     import torch
     import torch.nn.functional as F
 
     from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
+    k1_ms = {tuple(r["shape"]): r["ms"] for r in k1_rows}
     log(f"limits, packed flash: O and lse equal to K1's; vs plain version {FLASH_TOL}")
     rows = []
     for pack in K4_PACKS:
@@ -502,17 +526,23 @@ def flash_packed_rows(gen, flush, iters):
             q, k, v = (torch.randn((FLASH_BH, s, d), generator=gen, device=dev,
                                    dtype=torch.bfloat16) for s in (sq, skv, skv))
             scale = d ** -0.5
+            tile = fa.packed_q_tile(FLASH_BH, pack, sq)
+            other = 64 if tile == 128 else 128  # the tile the rule did not pick
             with torch.inference_mode():
                 o1, lse1 = fa._fwd_cuda(q, k, v, scale)
                 o, lse = fa._fwd_cuda(q, k, v, scale, pack)
+                o2, lse2 = fa._fwd_cuda(q, k, v, scale, pack, q_tile=other)
                 o_ref, lse_ref = fa.flash_attention_plain_packed(q, k, v, scale, pack)
                 torch.cuda.synchronize()
-                equal = torch.equal(o, o1) and torch.equal(lse, lse1)
+                equal = all(torch.equal(a, b) for a, b in ((o, o1), (lse, lse1), (o2, o1),
+                                                           (lse2, lse1)))
                 mx, rel = errors(o, o_ref)
                 lse_err = float((lse - lse_ref).abs().max())
                 ok = (equal and mx <= FLASH_TOL["max_abs"] and rel <= FLASH_TOL["rel_l2"]
                       and lse_err <= FLASH_TOL["lse_abs"])
                 ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale, pack), iters, flush)
+                other_ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale, pack, q_tile=other),
+                                     iters, flush)
                 plain_ms = cuda_time(
                     lambda: fa.flash_attention_plain_packed(q, k, v, scale, pack),
                     3, flush, hide_host=False)
@@ -522,19 +552,30 @@ def flash_packed_rows(gen, flush, iters):
             routed = fa.use_head_pack(pack, FLASH_BH, sq, skv, d, 2)
             bound_ms, by = bound(4 * FLASH_BH * sq * skv * d,
                                  2 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq)
+            k1 = k1_ms[(FLASH_BH, sq, skv, d)]
+            prev = K4_PREV[1][(pack, sq, skv, d)]
             row = dict(shape=[FLASH_BH, sq, skv, d], head_pack=pack, routed=routed,
-                       q_tile=fa.fwd_q_tile(FLASH_BH, sq),
+                       q_tile=tile, ctas=-(-sq // tile) * (FLASH_BH // pack),
                        per_step=count if pack == HEAD_PACK and routed else 0,
-                       equal_to_k1=equal, max_abs_err=mx, rel_l2=rel, lse_abs_err=lse_err,
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                       bound_by=by)
+                       calls_per_step=count, equal_to_k1=equal, max_abs_err=mx, rel_l2=rel,
+                       lse_abs_err=lse_err, ms=ms, other_tile_ms=other_ms, k1_ms=k1,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=by)
             rows.append(row)
-            log(f"flash packed G={pack} BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
-                f"equal to K1 {equal}, max_abs={mx:.3e} lse={lse_err:.2e} ms={ms:.4f} "
+            log(f"flash packed G={pack} BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d} "
+                f"tile={tile:3d} ({row['ctas']} CTAs): equal to K1 {equal}, "
+                f"max_abs={mx:.3e} lse={lse_err:.2e} ms={ms:.4f} (tile {other}: "
+                f"{other_ms:.4f}; K1 {k1:.4f}, x{ms / k1:.3f}; {K4_PREV[0]}: {prev:.4f}) "
                 f"plain={plain_ms:.3f} sdpa={lib_ms:.4f} bound={bound_ms:.4f} ({by}) "
                 f"routed={routed} {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"packed flash attention kernel disagrees at G={pack} {row['shape']}")
+    for pack in K4_PACKS:
+        mine = [r for r in rows if r["head_pack"] == pack]
+        ours = sum(r["ms"] * r["calls_per_step"] for r in mine)
+        k1 = sum(r["k1_ms"] * r["calls_per_step"] for r in mine)
+        prev = sum(K4_PREV[1][(pack, *r["shape"][1:])] * r["calls_per_step"] for r in mine)
+        log(f"flash packed G={pack}, summed over a CFG UNet step's calls: {ours:.4f} ms "
+            f"(K1 {k1:.4f}, x{ours / k1:.3f}; {K4_PREV[0]}: {prev:.4f})")
     return rows
 
 
@@ -623,7 +664,11 @@ def conv3x3_rows(gen, flush, iters):
 
 def flash_bwd_rows(gen, flush, iters):
     """K3 at every training shape (BH = 8): dQ, dK, dV against the plain
-    version on the same bf16 inputs (O and lse from K1), its time, the
+    version on the same bf16 inputs (O and lse from K1); all three repeat
+    bit for bit, and dQ at half and twice the rule's q splits equals dQ at
+    the rule's (it is summed over the KV tiles in their order); its time
+    beside those splits, beside the parent's K3 (``K3_UNORDERED``, whose dQ
+    was summed in no fixed order) and the first design (``K3_PREV``), the
     plain version's, SDPA's backward alone, and the bound."""
     import torch
     import torch.nn.functional as F
@@ -645,21 +690,26 @@ def flash_bwd_rows(gen, flush, iters):
             got = fa.flash_bwd(q, k, v, o, lse, do, scale)
             again = fa.flash_bwd(q, k, v, o, lse, do, scale)
             want = fa.flash_backward_plain(q, k, v, o, lse, do, scale, q_splits=splits)
+            # the split rule's choice beside half and twice as many splits
+            n_q = -(-sq // fa.bwd_q_rows(d))
+            others = sorted({max(1, splits // 2), min(n_q, 2 * splits)} - {splits})
+            dq_other = [fa._bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=n)[0]
+                        for n in others]
             torch.cuda.synchronize()
-            same = torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            dq_splits_same = all(torch.equal(got[0], x) for x in dq_other)
             errs = {}
             for name, a, b in zip(("dq", "dk", "dv"), got, want):
                 mx, rel = errors(a, b)
                 errs[name] = (mx, mx / float(b.float().abs().max()), rel,
                               bool(torch.isfinite(a).all()))
-            ok = same and all(r <= FLASH_BWD_TOL["max_rel"] and l2 <= FLASH_BWD_TOL["rel_l2"]
-                              and fin for _, r, l2, fin in errs.values())
+            ok = same and dq_splits_same and all(
+                r <= FLASH_BWD_TOL["max_rel"] and l2 <= FLASH_BWD_TOL["rel_l2"] and fin
+                for _, r, l2, fin in errs.values())
             ms = cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale), iters, flush)
-            # the split rule's choice beside half and twice as many splits
-            n_q = -(-sq // fa.bwd_q_rows(d))
             other_ms = {n: cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale,
                                                           q_splits=n), iters, flush)
-                        for n in sorted({max(1, splits // 2), min(n_q, 2 * splits)} - {splits})}
+                        for n in others}
             plain_ms = cuda_time(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale),
                                  3, flush, hide_host=False)
         q4, k4, v4 = (t.reshape(1, bh, -1, d).detach().requires_grad_(True) for t in (q, k, v))
@@ -672,6 +722,7 @@ def flash_bwd_rows(gen, flush, iters):
         bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
         prev = K3_PREV[1][(sq, skv, d)]
+        unordered = K3_UNORDERED[1][(sq, skv, d)]
         row = dict(shape=[bh, sq, skv, d], per_step=count,
                    max_abs_err=max(e[0] for e in errs.values()),
                    rel_l2=max(e[2] for e in errs.values()),
@@ -679,18 +730,24 @@ def flash_bwd_rows(gen, flush, iters):
                            for n, e in errs.items()},
                    ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
                    q_splits=splits, ctas=-(-skv // 64) * bh * splits,
-                   other_splits_ms=other_ms, dkdv_deterministic=same)
+                   other_splits_ms=other_ms, deterministic=same,
+                   dq_same_across_splits=dq_splits_same)
         rows.append(row)
         log(f"flash bwd BH={bh} Sq={sq:5d} Skv={skv:5d} d={d:3d} q_splits={splits:2d} "
             f"({row['ctas']} CTAs): "
             + " ".join(f"{n} max_abs={e[0]:.2e} rel_l2={e[2]:.2e}" for n, e in errs.items())
-            + f" dK/dV repeat equal {same} ms={ms:.4f} ("
+            + f" dQ/dK/dV repeat equal {same}, dQ equal across splits {others} "
+            f"{dq_splits_same} ms={ms:.4f} ("
             + "".join(f"q_splits {n}: {t:.4f}; " for n, t in other_ms.items())
-            + f"{K3_PREV[0]}: {prev:.4f}) "
+            + f"{K3_UNORDERED[0]}: {unordered:.4f}; {K3_PREV[0]}: {prev:.4f}) "
             f"plain={plain_ms:.3f} sdpa_bwd={lib_ms:.4f} "
             f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash attention backward kernel disagrees at {row['shape']}")
+    ours = sum(r["ms"] * r["per_step"] for r in rows)
+    before = sum(K3_UNORDERED[1][tuple(r["shape"][1:])] * r["per_step"] for r in rows)
+    log(f"flash bwd summed over a train step's calls: {ours:.4f} ms ({K3_UNORDERED[0]}: "
+        f"{before:.4f}, x{ours / before:.3f})")
     # fp32 inputs take the FMA kernel: check it once, ragged
     q, k, v, do = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77, 200))
     with torch.inference_mode():
@@ -746,17 +803,18 @@ def random_weights(ucfg, vcfg, tcfg, seed=SEED):
     return out
 
 
-def random_lora(ucfg, seed=SEED + 10):
-    """A rank-4 LoRA tree on the default UNet targets (bf16, on the CPU):
-    ``inject_trainable_lora``'s down, and an up drawn non-zero."""
+def random_lora(ucfg, seed=SEED + 10, replace=None):
+    """A rank-4 LoRA tree on the UNet targets of ``replace`` (default: the
+    default targets; bf16, on the CPU): ``inject_trainable_lora``'s down,
+    and an up drawn non-zero."""
     import torch
 
     from diffusion_finetuning_tpu_torch import lora as lora_lib
-    from diffusion_finetuning_tpu_torch.models.unet import unet_lora_targets
+    from diffusion_finetuning_tpu_torch.models.unet import unet_all_lora_targets
 
     g = torch.Generator().manual_seed(seed)
-    targets = lora_lib.filter_targets(unet_lora_targets(ucfg),
-                                      lora_lib.DEFAULT_TARGET_REPLACE)
+    targets = lora_lib.filter_targets(unet_all_lora_targets(ucfg),
+                                      replace or lora_lib.DEFAULT_TARGET_REPLACE)
     tree = lora_lib.inject_trainable_lora(targets, g, r=LORA_RANK, dtype=torch.bfloat16)
     for _, leaf in lora_lib.lora_leaves(tree):
         leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * LORA_UP_STD).bfloat16()
@@ -1344,6 +1402,49 @@ def phase_img2img(pipe, lora_dev, per_step):
     return launched, rows
 
 
+def phase_merged_conv_cache(pipe, ucfg, per_step):
+    """Merged serving with a LoRA on the resnet convs too
+    (``UNET_EXTENDED_TARGET_REPLACE``), the fused conv on: two txt2img
+    requests of one UNet step each.  The first merges the LoRA and makes
+    the tap-major copy of every routed conv's merged weight; the second
+    must make none (``conv3x3.tap_major_copies`` read around it), and both
+    must launch ``per_step`` kernels (no LoRA kernel: the LoRA is merged)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
+
+    tree = tree_to(random_lora(ucfg, seed=SEED + 70,
+                               replace=lora_lib.UNET_EXTENDED_TARGET_REPLACE), "cuda")
+    routed = per_step["conv3x3"]
+    old = (pipe.unet_lora, pipe.materialize_lora)
+    pipe.unet_lora, pipe.materialize_lora = tree, True
+    try:
+        copies = []
+        for _ in range(2):
+            before, launched = cv.tap_major_copies, counts()
+            imgs = pipe("photo of sks", num_inference_steps=1, seed=5, guidance_scale=GUIDANCE,
+                        height=IMAGE, width=IMAGE, output_type="uint8")
+            torch.cuda.synchronize()
+            launched = {k: v - launched[k] for k, v in counts().items()}
+            copies.append(cv.tap_major_copies - before)
+            if launched != dict(per_step, lora_dense=0):
+                fail(f"a merged switched request launched {launched}, want "
+                     f"{dict(per_step, lora_dense=0)}")
+    finally:
+        pipe.unet_lora, pipe.materialize_lora = old
+        pipe.invalidate_merged_cache()
+    log(f"merged serving, LoRA on the resnet convs too: tap-major copies {copies[0]} in the "
+        f"first request (want {routed}, one a routed conv), {copies[1]} in the second (want 0); "
+        f"image std {imgs.std():.2f}")
+    if copies != [routed, 0]:
+        fail(f"tap-major copies of the merged conv weights per request {copies}, "
+             f"want [{routed}, 0]")
+    if not imgs.std() > 0:
+        fail("a merged switched image is constant")
+    return {"tap_major_copies": copies}
+
+
 def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe,
                    batch, train_ref, profile_dir=None, device="cuda"):
     """Phase 6: both switches on for the UNet step check, img2img (the
@@ -1375,6 +1476,7 @@ def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, re
                                                      profile_dir)}
         out["img2img_reference"] = phase_img2img_reference(pipe, ref_pipe, lora_cpu, lora_dev)
         img_launches, out["img2img"] = phase_img2img(pipe, lora_dev, unet_step)
+        out["merged_conv_cache"] = phase_merged_conv_cache(pipe, ucfg, unet_step)
         out["train_reference"], _ = phase_train_reference(
             pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device=device, cpu_ref=train_ref)
         train_launches, out["train"] = phase_train(

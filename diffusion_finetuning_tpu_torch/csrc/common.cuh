@@ -44,17 +44,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// B fragment of a row-major (k x n) tile in shared memory: lanes 0-15 give
-// the addresses of rows k0..k0+15 at column n0; .trans hands each lane the
-// (k = 2t, 2t+1; n = g) pairs and (k = 2t+8, 2t+9; n = g).
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
 // 16-byte global -> shared copy; src_bytes = 0 writes 16 zero bytes.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));

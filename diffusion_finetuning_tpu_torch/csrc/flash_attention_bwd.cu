@@ -46,16 +46,22 @@
 //     operands from shared memory (N = BR q columns), dV += P^T dO and
 //     dK += dS^T Q with P^T and dS^T as register A fragments built from the
 //     accumulators and dO / Q read MN-major (N = d_pad);
-//   * dQ = dS K: dS goes to shared memory as bf16 (JAX's
-//     ds.astype(q.dtype)).  Where the q tile has 64 rows (d_pad <= 64) dQ is
-//     a wgmma too (A = dS, B = the K tile read MN-major).  Above that, dK and
-//     dV of 64 KV rows leave registers for a q tile of only 32 or 16 rows,
-//     under wgmma's M of 64, so dQ stays on mma.sync there: the 4 warps split
-//     the (BR x d) tile while the dV/dK wgmmas run.  The dQ tile is staged in
-//     shared memory as fp32 and added to a zeroed buffer (which the wrapper
-//     casts to q's dtype) by one bulk reduce-add (cp.reduce.async.bulk, done
-//     in L2) where d % 4 == 0, else by fp32 atomicAdd.  The order of those
-//     additions across KV tiles varies from run to run: a few fp32 ulps;
+//   * dQ is a second kernel (flash_bwd_dq_kernel), so that it sums over the
+//     KV tiles in one fixed order, as JAX's fori_loop over KV blocks does,
+//     and repeats bit for bit whatever the q splits, the stream or the run:
+//     grid (ceil(Sq/QT), BH), QT = 64 or 128 q rows (one or two consumer
+//     warpgroups; K1's q-tile rule, ops/flash_attention.py:fwd_q_tile),
+//     Q and dO held in shared memory, K/V tiles through a TMA ring in KV
+//     order; per tile S = Q K^T and dP = dO V^T on wgmma (A and B from
+//     shared memory), P and dS formed as this kernel forms them, dS rounded
+//     to bf16 into register A fragments, and dQ += dS K (B = the K tile
+//     read MN-major) in fp32 registers, the product of tile j-1 running
+//     beside tile j's S and dP; dQ is written once, in q's dtype.
+//     It costs two products more than a dQ inside this kernel (seven for
+//     five), but no cross-CTA sum: adding each KV tile's dQ tile in KV order
+//     (a turn counter a (head, q tile), each CTA waiting for the CTA of the
+//     KV tile before) made 4096^2 three times slower, the CTAs of a head
+//     waiting in a chain of L2 round trips (PERF.md);
 //   * with q_splits > 1 each CTA writes its dK/dV as an fp32 partial to
 //     scratch (q_splits, BH, ceil(Skv/64), 64 x d_pad x 2, in register order
 //     so that a warp's float4 accesses are contiguous); the last CTA of a
@@ -65,15 +71,15 @@
 // Registers: dK and dV take d_pad/2 floats a thread each (160 at d=160), so
 // the q tile is as narrow as they force (q_rows: BR = 64 up to d_pad 64, 32
 // up to 96, else 16).
-// fp32 inputs take a plain FMA kernel (flash_bwd_f32_kernel) with the same
-// math, one launch, no split.
+// fp32 inputs take plain FMA kernels (flash_bwd_f32_kernel for dK/dV,
+// flash_bwd_dq_f32_kernel for dQ, also in KV order) with the same math, no
+// split.
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBlockN = 64;  // kv rows per CTA (16 per warp)
-constexpr int kPad = 8;      // row padding of the dS tile (elements)
 constexpr int kThreads = 128;
 // Q/dO/lse/delta ring depth: tile it computes while the next one or two are
 // in flight (two stages at 64-row tiles, to keep three CTAs an SM)
@@ -88,29 +94,23 @@ __host__ __device__ constexpr int swizzle(int DP) {
   return DP <= 64 || DP % 64 == 0 ? 128 : DP % 32 == 0 ? 64 : 32;
 }
 
-// q rows per tile: 64 (dQ = dS K on wgmma) where the registers allow,
-// narrower as dK and dV grow with the head dim
+// q rows per tile: 64 where the registers allow, narrower as dK and dV grow
+// with the head dim
 constexpr int q_rows(int DP) { return DP <= 64 ? 64 : DP <= 96 ? 32 : 16; }
 
-// bf16 elements of the dS tile: core-matrix layout for the wgmma dQ, else
-// rows padded by kPad for mma.sync fragments
-__host__ __device__ constexpr int ds_elems(int BR) {
-  return BR == 64 ? BR * kBlockN : BR * (kBlockN + kPad);
-}
-
-// from a 1024-byte aligned base: K, V, the ring's Q and dO tiles, dS, the
-// fp32 dQ tile, the ring's lse and delta, the barriers and a flag
+// from a 1024-byte aligned base: K, V, the ring's Q and dO tiles, the
+// ring's lse and delta, the barriers and a flag
 template <int DP, int BR>
 constexpr size_t bf16_smem_bytes() {
   constexpr int SW = swizzle(DP);
   return 1024 +
-         sizeof(__nv_bfloat16) * ((size_t)(2 * dft::tile_elems(kBlockN, DP, SW) +
-                                           2 * q_stages(BR) * dft::tile_elems(BR, DP, SW)) +
-                                  ds_elems(BR)) +
-         sizeof(float) * ((size_t)BR * DP + 2 * q_stages(BR) * l_stride(BR)) +
+         sizeof(__nv_bfloat16) * (size_t)(2 * dft::tile_elems(kBlockN, DP, SW) +
+                                          2 * q_stages(BR) * dft::tile_elems(BR, DP, SW)) +
+         sizeof(float) * (size_t)(2 * q_stages(BR) * l_stride(BR)) +
          sizeof(uint64_t) * (1 + q_stages(BR)) + 16;
 }
 
+// dK and dV
 template <int DP, int BR>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -124,11 +124,9 @@ __global__ void __launch_bounds__(kThreads)
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, float* __restrict__ dkv_part,
-                          int* __restrict__ counters, int sq, int skv, int d, float scale,
-                          float logit_scale, int q_splits) {
-  constexpr int LDS = kBlockN + kPad;  // row stride of the dS tile (BR x 64)
+                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ dkv_part, int* __restrict__ counters, int sq,
+                          int skv, int d, float scale, float logit_scale, int q_splits) {
   constexpr int KC = DP / 16;          // k-chunks over the head dim
   constexpr int DT = DP / 8;           // n-tiles over the head dim
   constexpr int NQ = BR / 8;           // n-tiles of S^T over the q rows
@@ -137,19 +135,16 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int TQ = dft::tile_elems(BR, DP, SW);       // elements of one Q or dO tile
   constexpr int TKV = dft::tile_elems(kBlockN, DP, SW);  // elements of the K or V tile
   constexpr int kQStages = q_stages(BR);
-  constexpr bool kWgmmaDq = BR == 64;  // dQ on wgmma (M = 64 q rows), else mma.sync
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(  // 64 x DP; 1024-byte aligned
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   __nv_bfloat16* Vs = Ks + TKV;                                     // 64 x DP
   __nv_bfloat16* Qring = Vs + TKV;  // stage s: Q at 2*s*TQ, dO at 2*s*TQ + TQ
-  __nv_bfloat16* dSs = Qring + 2 * kQStages * TQ;  // dS[q][kv], ds_elems(BR)
-  float* dQs = reinterpret_cast<float*>(dSs + ds_elems(BR));  // BR x d fp32, dense rows
   constexpr int LST = l_stride(BR);
-  float* Lring = dQs + BR * DP;  // stage s: lse at 2*s*LST, delta at 2*s*LST + LST
+  float* Lring = reinterpret_cast<float*>(Qring + 2 * kQStages * TQ);  // lse at 2*s*LST, delta LST on
   // barriers: K/V's, then one a ring stage
   uint64_t* bars = reinterpret_cast<uint64_t*>(Lring + 2 * kQStages * LST);
-  int* is_last = reinterpret_cast<int*>(bars + 1 + kQStages);
+  int* flag = reinterpret_cast<int*>(bars + 1 + kQStages);
 
   const int bh = blockIdx.y, kv0 = blockIdx.x * kBlockN, split = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -159,15 +154,15 @@ __global__ void __launch_bounds__(kThreads)
   const int it1 = (int)((long long)(split + 1) * n_qt / q_splits);
   q += (size_t)bh * sq * d;
   dout += (size_t)bh * sq * d;
-  dq_acc += (size_t)bh * sq * d;
   lse += (size_t)bh * sq;
   delta += (size_t)bh * sq;
   const size_t kv_off = (size_t)bh * skv * d;
-  // dQ tiles go to global memory by one bulk reduce-add each where every
-  // row is 16-byte aligned (d % 4 == 0), else by fp32 atomics
-  const bool bulk_dq = (d & 3) == 0;
 
   const bool tma = (d & 7) == 0;  // 16-byte rows: TMA; else plain loads
+  // lse/delta rows by TMA only where every head's run starts on 16 bytes
+  // (Sq % 4 == 0): TMA refuses an innermost start that is not (an illegal
+  // instruction), so other Sq take plain loads for them
+  const bool tma_vec = tma && (sq & 3) == 0;
   if (tma && tid == 0) {
     for (int i = 0; i < 1 + kQStages; ++i) dft::mbar_init(&bars[i], 1);
     dft::mbar_init_fence();
@@ -182,15 +177,19 @@ __global__ void __launch_bounds__(kThreads)
     if (tma) {
       if (tid == 0) {  // lse/delta: the flat (BH*Sq) vectors; a ragged tile reads masked rows
         dft::fence_proxy_async();
-        dft::mbar_expect_tx(&bars[1 + s], 2 * TQ * 2 + 2 * BR * 4);
+        dft::mbar_expect_tx(&bars[1 + s], 2 * TQ * 2 + (tma_vec ? 2 * BR * 4 : 0));
         dft::tma_load_tile<BR, DP, SW>(qs, &qmap, q0, bh, &bars[1 + s]);
         dft::tma_load_tile<BR, DP, SW>(qs + TQ, &omap, q0, bh, &bars[1 + s]);
-        dft::tma_load_vec(ls, &lmap, bh * sq + q0, &bars[1 + s]);
-        dft::tma_load_vec(ls + LST, &dmap, bh * sq + q0, &bars[1 + s]);
+        if (tma_vec) {
+          dft::tma_load_vec(ls, &lmap, bh * sq + q0, &bars[1 + s]);
+          dft::tma_load_vec(ls + LST, &dmap, bh * sq + q0, &bars[1 + s]);
+        }
       }
     } else {
       dft::load_tile_elems<BR, DP, SW>(qs, q, q0, sq, d, tid, kThreads);
       dft::load_tile_elems<BR, DP, SW>(qs + TQ, dout, q0, sq, d, tid, kThreads);
+    }
+    if (!tma_vec) {
       for (int i = tid; i < BR; i += kThreads) {
         const bool ok = q0 + i < sq;
         ls[i] = ok ? lse[q0 + i] : 0.f;
@@ -216,9 +215,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const int kvr = warp * 16 + g;  // this thread's kv rows of the tile: kvr, kvr + 8
-  // dS[q][kv] of (q = 2t, kv = kvr) in the 64 x 64 tile; q 8nt + j more
-  // is 64nt + 8j on, kv 8 more 512 on
-  const int ds_base = dft::core_off<kBlockN>(2 * t, 2 * warp) + g;
   const bool kv_ok0 = kv0 + kvr < skv, kv_ok1 = kv0 + kvr + 8 < skv;
 
   for (int it = it0; it < it1; ++it) {
@@ -271,24 +267,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // dS (bf16) to shared memory as dS[q][kv], for dQ = dS K
-#pragma unroll
-    for (int nt = 0; nt < NQ; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if constexpr (kWgmmaDq) {
-          dSs[ds_base + nt * 64 + j * 8] = __float2bfloat16(dpT[4 * nt + j]);
-          dSs[ds_base + nt * 64 + j * 8 + 512] = __float2bfloat16(dpT[4 * nt + 2 + j]);
-        } else {
-          const int qc = nt * 8 + 2 * t + j;
-          dSs[qc * LDS + kvr] = __float2bfloat16(dpT[4 * nt + j]);
-          dSs[qc * LDS + kvr + 8] = __float2bfloat16(dpT[4 * nt + 2 + j]);
-        }
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q (k runs over the q rows of the tile);
-    // left running on the tensor cores while the warps compute dQ
+    // dV += P^T dO and dK += dS^T Q (k runs over the q rows of the tile),
+    // with P^T and dS^T rounded to bf16 as register A fragments
     uint32_t pa[QC][4], da[QC][4];
 #pragma unroll
     for (int qc = 0; qc < QC; ++qc) {
@@ -308,88 +288,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int qc = 0; qc < QC; ++qc)
       dft::wgmma_rs<1>(dk_acc, da[qc], dft::desc_mnmajor<BR, SW>(Qs, qc), 1);
     dft::wgmma_commit();
-    if constexpr (kWgmmaDq) dft::fence_proxy_async();  // dS is read by wgmma
-    if (bulk_dq && tid == 0) dft::bulk_wait_read();  // the last dQ tile has left dQs
-    __syncthreads();  // dS is written; dQs is free
-
-    if constexpr (kWgmmaDq) {
-      // dQ (64 q rows x DP) = dS (64 x 64, K-major) K (64 kv x DP, read MN-major)
-      float dq[DP / 2];
-#pragma unroll
-      for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
-      dft::fence_operands(dq);
-      dft::wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < kBlockN / 16; ++kc)
-        dft::wgmma_ss<0, 1>(dq, dft::desc_kmajor_interleave<kBlockN>(dSs, kc),
-                            dft::desc_mnmajor<kBlockN, SW>(Ks, kc), 1);
-      dft::wgmma_commit();
-      dft::wgmma_wait<0>();
-      dft::fence_operands(dq);
-      const int r0 = kvr, r1 = kvr + 8;  // this thread's q rows of the tile
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const int col = dt * 8 + 2 * t;
-        if (bulk_dq) {
-          if (col < d) {
-            *reinterpret_cast<float2*>(dQs + r0 * d + col) =
-                make_float2(dq[4 * dt], dq[4 * dt + 1]);
-            *reinterpret_cast<float2*>(dQs + r1 * d + col) =
-                make_float2(dq[4 * dt + 2], dq[4 * dt + 3]);
-          }
-          continue;
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (col + j < d) {
-            if (q0 + r0 < sq) atomicAdd(dq_acc + (size_t)(q0 + r0) * d + col + j, dq[4 * dt + j]);
-            if (q0 + r1 < sq)
-              atomicAdd(dq_acc + (size_t)(q0 + r1) * d + col + j, dq[4 * dt + 2 + j]);
-          }
-        }
-      }
-    }
-
-    // mma.sync dQ tile (BR x DP) += dS (BR x 64) K (64 x DP): 16x8 output tiles over the warps
-    for (int tile = warp; !kWgmmaDq && tile < QC * DT; tile += kThreads / 32) {
-      const int mt = tile / DT, dt = tile % DT;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kc = 0; kc < kBlockN / 16; ++kc) {
-        const __nv_bfloat16* ar = dSs + mt * 16 * LDS + kc * 16 + 2 * t;
-        const uint32_t a[4] = {dft::ld_u32(ar + g * LDS), dft::ld_u32(ar + (g + 8) * LDS),
-                               dft::ld_u32(ar + g * LDS + 8),
-                               dft::ld_u32(ar + (g + 8) * LDS + 8)};
-        uint32_t b0, b1;
-        dft::ldmatrix_x2_trans(b0, b1,
-                               Ks + dft::tile_off<kBlockN, SW>(kc * 16 + (lane & 15), 8 * dt));
-        dft::mma_bf16(acc, a, b0, b1);
-      }
-      const int r0 = mt * 16 + g, r1 = r0 + 8, col = dt * 8 + 2 * t;
-      if (bulk_dq) {  // d even: col < d covers col + 1
-        if (col < d) {
-          *reinterpret_cast<float2*>(dQs + r0 * d + col) = make_float2(acc[0], acc[1]);
-          *reinterpret_cast<float2*>(dQs + r1 * d + col) = make_float2(acc[2], acc[3]);
-        }
-        continue;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (col + j < d) {
-          if (q0 + r0 < sq) atomicAdd(dq_acc + (size_t)(q0 + r0) * d + col + j, acc[j]);
-          if (q0 + r1 < sq) atomicAdd(dq_acc + (size_t)(q0 + r1) * d + col + j, acc[2 + j]);
-        }
-      }
-    }
-    if (bulk_dq) dft::fence_proxy_async();  // dQs is read by the bulk engine
     dft::wgmma_wait<0>();
     dft::fence_operands(dv_acc);
     dft::fence_operands(dk_acc);
-    __syncthreads();  // stage s and the dS tile are reused; dQs is complete
-    if (bulk_dq && tid == 0)
-      dft::bulk_reduce_add_f32(dq_acc + (size_t)q0 * d, dQs, min(BR, sq - q0) * d * 4);
+    __syncthreads();  // stage s is reused
   }
-  if (bulk_dq && tid == 0) dft::bulk_wait();
 
   if (q_splits > 1) {
     // this split's fp32 partial, in register order: float4 i of thread tid
@@ -406,14 +309,8 @@ __global__ void __launch_bounds__(kThreads)
       *reinterpret_cast<float4*>(mine + ((NV / 2 + i) * kThreads + tid) * 4) =
           make_float4(dv_acc[4 * i], dv_acc[4 * i + 1], dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
     }
-    __threadfence();
-    __syncthreads();
-    int* counter = counters + (size_t)bh * gridDim.x + blockIdx.x;
-    if (tid == 0) *is_last = atomicAdd(counter, 1) == q_splits - 1;
-    __syncthreads();
-    if (!*is_last) return;
-    __threadfence();
-    if (tid == 0) *counter = 0;  // ready for the next launch
+    if (!dft::last_to_arrive(counters + (size_t)bh * gridDim.x + blockIdx.x, q_splits, flag))
+      return;
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     const size_t split_stride = (size_t)gridDim.y * gridDim.x * block;
@@ -458,8 +355,182 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// fp32 inputs: the same math with plain FMA in shared memory; one CTA per
-// (batch*head, 16 kv rows), q in tiles of 16 rows, dK/dV in shared memory.
+// --- dQ ---
+
+// K/V ring stages of the dQ kernel: 4 where they fit beside Q and dO
+template <int DP, int NWG>
+__host__ __device__ constexpr int dq_stages() {
+  constexpr size_t tile = 2 * (size_t)dft::tile_elems(kBlockN, DP, swizzle(DP));
+  return 1024 + 2 * NWG * tile + 4 * 2 * tile + 64 <= 232448 ? 4 : 3;
+}
+template <int DP, int NWG>
+constexpr size_t dq_smem_bytes() {
+  return 1024 + sizeof(__nv_bfloat16) * (size_t)(2 * NWG + 2 * dq_stages<DP, NWG>()) *
+                    dft::tile_elems(kBlockN, DP, swizzle(DP)) +
+         sizeof(uint64_t) * (1 + dq_stages<DP, NWG>());
+}
+
+// dQ of NWG*64 q rows of one head: warpgroup w owns rows 64w.., its thread
+// rows r0 and r0 + 8 (g = lane / 4), dQ in acc[DP / 2].
+template <int DP, int NWG>
+__global__ void __launch_bounds__(NWG * 128, NWG == 2 && DP <= 64 ? 2 : 1)
+    flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int sq,
+                        int skv, int d, float scale, float logit_scale) {
+  constexpr int SW = swizzle(DP);
+  constexpr int KC = DP / 16;
+  constexpr int QR = NWG * 64;
+  constexpr int NTHR = NWG * 128;
+  constexpr int TILE = dft::tile_elems(kBlockN, DP, SW);  // one 64-row K or V tile
+  constexpr int TQ = dft::tile_elems(QR, DP, SW);        // the Q or dO tile
+  constexpr int S = dq_stages<DP, NWG>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  __nv_bfloat16* dOs = Qs + TQ;
+  __nv_bfloat16* ring = dOs + TQ;  // stage st: K at 2*st*TILE, V TILE on
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + 2 * S * TILE);  // Q/dO's, one a stage
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * QR;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;  // this thread's q rows
+  const int n_kv = (skv + kBlockN - 1) / kBlockN;
+  const size_t kv_off = (size_t)bh * skv * d;
+  const bool tma = (d & 7) == 0;
+  if (tma && tid == 0) {
+    for (int i = 0; i < 1 + S; ++i) dft::mbar_init(&bars[i], 1);
+    dft::mbar_init_fence();
+  }
+  __syncthreads();
+  auto load_kv = [&](int j) {  // TMA: started by thread 0; else complete on return
+    __nv_bfloat16* kd = ring + (j % S) * 2 * TILE;
+    if (tma) {
+      if (tid == 0) {
+        dft::mbar_expect_tx(&bars[1 + j % S], 2 * TILE * 2);
+        dft::tma_load_tile<kBlockN, DP, SW>(kd, &kmap, j * kBlockN, bh, &bars[1 + j % S]);
+        dft::tma_load_tile<kBlockN, DP, SW>(kd + TILE, &vmap, j * kBlockN, bh, &bars[1 + j % S]);
+      }
+    } else {
+      dft::load_tile_elems<kBlockN, DP, SW>(kd, k + kv_off, j * kBlockN, skv, d, tid, NTHR);
+      dft::load_tile_elems<kBlockN, DP, SW>(kd + TILE, v + kv_off, j * kBlockN, skv, d, tid,
+                                            NTHR);
+    }
+  };
+  if (tma) {
+    if (tid == 0) {
+      dft::mbar_expect_tx(&bars[0], 2 * TQ * 2);
+      dft::tma_load_tile<QR, DP, SW>(Qs, &qmap, q0, bh, &bars[0]);
+      dft::tma_load_tile<QR, DP, SW>(dOs, &omap, q0, bh, &bars[0]);
+    }
+  } else {
+    dft::load_tile_elems<QR, DP, SW>(Qs, q + (size_t)bh * sq * d, q0, sq, d, tid, NTHR);
+    dft::load_tile_elems<QR, DP, SW>(dOs, dout + (size_t)bh * sq * d, q0, sq, d, tid, NTHR);
+  }
+  for (int j = 0; j < (tma ? S - 1 : 1) && j < n_kv; ++j) load_kv(j);  // tiles 0..S-2
+  const bool ok0 = r0 < sq, ok1 = r1 < sq;
+  const float l0 = ok0 ? lse[(size_t)bh * sq + r0] : 0.f;
+  const float l1 = ok1 ? lse[(size_t)bh * sq + r1] : 0.f;
+  const float e0 = ok0 ? delta[(size_t)bh * sq + r0] : 0.f;
+  const float e1 = ok1 ? delta[(size_t)bh * sq + r1] : 0.f;
+  if (tma) dft::mbar_wait(&bars[0], 0);
+  // this warpgroup's 64 rows of Q and dO: row 64*wg of the QR-row tiles
+  const __nv_bfloat16* Qw = Qs + wg * 64 * (SW / 2);
+  const __nv_bfloat16* dOw = dOs + wg * 64 * (SW / 2);
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  uint32_t da[kBlockN / 16][4];  // dS of the tile before, as bf16 A fragments
+  // Iteration j: S_j = Q K_j^T, dP_j = dO V_j^T and dQ += dS_{j-1} K_{j-1}
+  // run on the tensor cores together; once all three land, dS_j is formed
+  // in place of dS_{j-1}.  (Forming dS_j while the dQ product still runs,
+  // from a second buffer, was slower: the buffer, indexed by j's parity,
+  // went to local memory.)  Tile j+S-2 is copied meanwhile into the stage
+  // of tile j-2, whose dQ product landed before the barrier (element
+  // loads: tile j+1, once this iteration's products have landed).
+  for (int j = 0; j <= n_kv; ++j) {
+    if (tma && j < n_kv) dft::mbar_wait(&bars[1 + j % S], (j / S) & 1);
+    dft::fence_proxy_async();  // element loads of tile j are seen by wgmma
+    __syncthreads();  // tile j is in; every warpgroup is done with tile j-2's stage
+    if (tma && j >= 1 && j + S - 2 < n_kv) load_kv(j + S - 2);
+    float s[kBlockN / 2], dp[kBlockN / 2];
+    const __nv_bfloat16* Kt = ring + (j % S) * 2 * TILE;
+    dft::fence_operands(s);
+    dft::fence_operands(dp);
+    dft::fence_operands(acc);
+    dft::wgmma_fence();
+    if (j < n_kv) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        dft::wgmma_ss<0, 0>(s, dft::desc_kmajor<QR, SW>(Qw, kc),
+                            dft::desc_kmajor<kBlockN, SW>(Kt, kc), kc > 0);
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        dft::wgmma_ss<0, 0>(dp, dft::desc_kmajor<QR, SW>(dOw, kc),
+                            dft::desc_kmajor<kBlockN, SW>(Kt + TILE, kc), kc > 0);
+      dft::wgmma_commit();
+    }
+    if (j >= 1) {
+      const __nv_bfloat16* Kp = ring + ((j - 1) % S) * 2 * TILE;
+#pragma unroll
+      for (int kc = 0; kc < kBlockN / 16; ++kc)
+        dft::wgmma_rs<1>(acc, da[kc], dft::desc_mnmajor<kBlockN, SW>(Kp, kc), 1);
+      dft::wgmma_commit();
+    }
+    if (j == n_kv) break;
+    dft::wgmma_wait<0>();
+    dft::fence_operands(acc);
+    dft::fence_operands(s);
+    dft::fence_operands(dp);
+    // dS in place of S, then as bf16 A fragments (k-chunk kc = kv 16kc..)
+#pragma unroll
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const bool kv_ok = j * kBlockN + nt * 8 + 2 * t + jj < skv;
+        const float p0 = (ok0 && kv_ok) ? exp2f(s[4 * nt + jj] * logit_scale - l0) : 0.f;
+        const float p1 = (ok1 && kv_ok) ? exp2f(s[4 * nt + 2 + jj] * logit_scale - l1) : 0.f;
+        s[4 * nt + jj] = p0 * (dp[4 * nt + jj] - e0) * scale;
+        s[4 * nt + 2 + jj] = p1 * (dp[4 * nt + 2 + jj] - e1) * scale;
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < kBlockN / 16; ++kc) {
+      da[kc][0] = dft::pack_bf16(s[8 * kc], s[8 * kc + 1]);
+      da[kc][1] = dft::pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+      da[kc][2] = dft::pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+      da[kc][3] = dft::pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+    }
+    // no TMA: tile j+1 into the stage of tile j+1-S (<= j-2), free since
+    // the barrier
+    if (!tma && j + 1 < n_kv) load_kv(j + 1);
+  }
+  dft::wgmma_wait<0>();
+  dft::fence_operands(acc);
+  __nv_bfloat16* dqb = dq + (size_t)bh * sq * d;
+#pragma unroll
+  for (int dt = 0; dt < DP / 8; ++dt) {
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int c = dt * 8 + 2 * t + jj;
+      if (c < d) {
+        if (ok0) dqb[(size_t)r0 * d + c] = __float2bfloat16(acc[4 * dt + jj]);
+        if (ok1) dqb[(size_t)r1 * d + c] = __float2bfloat16(acc[4 * dt + 2 + jj]);
+      }
+    }
+  }
+}
+
+// fp32 inputs: the same math with plain FMA in shared memory; dK and dV:
+// one CTA per (batch*head, 16 kv rows), q in tiles of 16 rows, dK/dV in
+// shared memory.
 constexpr int kF32N = 16, kF32M = 16;
 
 size_t f32_smem_bytes(int d) {
@@ -470,7 +541,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dq_acc, float* __restrict__ dk,
+                         float* __restrict__ dk,
                          float* __restrict__ dv, int sq, int skv, int d, float scale,
                          float logit_scale) {
   extern __shared__ float sm[];
@@ -490,7 +561,6 @@ __global__ void __launch_bounds__(kThreads)
   const float* vb = v + (size_t)bh * skv * d;
   const float* qb = q + (size_t)bh * sq * d;
   const float* db = dout + (size_t)bh * sq * d;
-  float* dqb = dq_acc + (size_t)bh * sq * d;
   for (int i = tid; i < kF32N * d; i += kThreads) {
     const int gr = kv0 + i / d;
     const bool ok = gr < skv;
@@ -535,14 +605,6 @@ __global__ void __launch_bounds__(kThreads)
       dVs[i] = a;
       dKs[i] = b;
     }
-    for (int i = tid; i < kF32M * d; i += kThreads) {
-      const int c = i / d, col = i % d;
-      if (q0 + c < sq) {
-        float a = 0.f;
-        for (int r = 0; r < kF32N; ++r) a = fmaf(dS[r * (kF32M + 1) + c], Ks[r * d + col], a);
-        atomicAdd(dqb + (size_t)(q0 + c) * d + col, a);
-      }
-    }
   }
   __syncthreads();
   for (int i = tid; i < kF32N * d; i += kThreads) {
@@ -554,13 +616,116 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// fp32 dQ: one CTA per (batch*head, 16 q rows) walking the KV rows in
+// tiles of 16, in order, dQ in shared memory.
+size_t dq_f32_smem_bytes(int d) {
+  return sizeof(float) * (size_t)(5 * kF32M * d + kF32M * (kF32N + 1) + 2 * kF32M);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int sq, int skv, int d, float scale,
+                            float logit_scale) {
+  extern __shared__ float sm[];
+  float* Qs = sm;                      // kF32M x d
+  float* dOs = Qs + kF32M * d;         // kF32M x d
+  float* dQs = dOs + kF32M * d;        // kF32M x d
+  float* Ks = dQs + kF32M * d;         // kF32N x d
+  float* Vs = Ks + kF32N * d;          // kF32N x d
+  float* dS = Vs + kF32N * d;          // kF32M x (kF32N + 1), dS[q][kv]
+  float* Ls = dS + kF32M * (kF32N + 1);
+  float* Ds = Ls + kF32M;
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * kF32M, tid = threadIdx.x;
+  const float* kb = k + (size_t)bh * skv * d;
+  const float* vb = v + (size_t)bh * skv * d;
+  const float* qb = q + (size_t)bh * sq * d;
+  const float* db = dout + (size_t)bh * sq * d;
+  for (int i = tid; i < kF32M * d; i += kThreads) {
+    const int gr = q0 + i / d;
+    const bool ok = gr < sq;
+    Qs[i] = ok ? qb[(size_t)gr * d + i % d] : 0.f;
+    dOs[i] = ok ? db[(size_t)gr * d + i % d] : 0.f;
+    dQs[i] = 0.f;
+  }
+  if (tid < kF32M) {
+    const bool ok = q0 + tid < sq;
+    Ls[tid] = ok ? lse[(size_t)bh * sq + q0 + tid] : 0.f;
+    Ds[tid] = ok ? delta[(size_t)bh * sq + q0 + tid] : 0.f;
+  }
+  for (int kv0 = 0; kv0 < skv; kv0 += kF32N) {
+    __syncthreads();
+    for (int i = tid; i < kF32N * d; i += kThreads) {
+      const int gr = kv0 + i / d;
+      const bool ok = gr < skv;
+      Ks[i] = ok ? kb[(size_t)gr * d + i % d] : 0.f;
+      Vs[i] = ok ? vb[(size_t)gr * d + i % d] : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < kF32M * kF32N; i += kThreads) {
+      const int r = i / kF32N, c = i % kF32N;
+      float sv = 0.f, dpv = 0.f;
+      for (int e = 0; e < d; ++e) {
+        sv = fmaf(Ks[c * d + e], Qs[r * d + e], sv);
+        dpv = fmaf(Vs[c * d + e], dOs[r * d + e], dpv);
+      }
+      const bool ok = kv0 + c < skv && q0 + r < sq;
+      const float p = ok ? exp2f(sv * logit_scale - Ls[r]) : 0.f;
+      dS[r * (kF32N + 1) + c] = p * (dpv - Ds[r]) * scale;
+    }
+    __syncthreads();
+    for (int i = tid; i < kF32M * d; i += kThreads) {
+      const int r = i / d, col = i % d;
+      float a = dQs[i];
+      for (int c = 0; c < kF32N; ++c) a = fmaf(dS[r * (kF32N + 1) + c], Ks[c * d + col], a);
+      dQs[i] = a;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < kF32M * d; i += kThreads) {
+    const int gr = q0 + i / d;
+    if (gr < sq) dq[(size_t)bh * sq * d + (size_t)gr * d + i % d] = dQs[i];
+  }
+}
+
+template <int DP, int NWG>
+cudaError_t launch_dq(const CUtensorMap& km, const CUtensorMap& vm, const void* q, const void* k,
+                      const void* v, const void* dout, const float* lse, const float* delta,
+                      void* dq, int bh, int sq, int skv, int d, float scale, float logit_scale,
+                      cudaStream_t stream) {
+  constexpr size_t smem = dq_smem_bytes<DP, NWG>();
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP, NWG>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  constexpr int SW = swizzle(DP);
+  CUtensorMap qm{}, om{};  // unused (zero) when d % 8 != 0
+  if ((d & 7) == 0 && !(dft::make_tile_map(&qm, q, bh, sq, d, NWG * 64, SW) &&
+                        dft::make_tile_map(&om, dout, bh, sq, d, NWG * 64, SW)))
+    return cudaErrorNotSupported;
+  const dim3 grid((sq + NWG * 64 - 1) / (NWG * 64), bh);
+  flash_bwd_dq_kernel<DP, NWG><<<grid, NWG * 128, smem, stream>>>(
+      qm, om, km, vm, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout), lse, delta,
+      static_cast<__nv_bfloat16*>(dq), sq, skv, d, scale, logit_scale);
+  return cudaGetLastError();
+}
+
+// dK/dV (q_splits CTAs a KV tile), then dQ (dq_tile q rows a CTA)
 template <int DP>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+                        const float* lse, const float* delta, void* dq, void* dk, void* dv,
                         float* dkv_part, int* counters, int bh, int sq, int skv, int d,
-                        float scale, float logit_scale, int q_splits, cudaStream_t stream) {
+                        float scale, float logit_scale, int q_splits, int dq_tile,
+                        cudaStream_t stream) {
   constexpr int BR = q_rows(DP);
   constexpr size_t smem = bf16_smem_bytes<DP, BR>();
+  if (dq_tile != 64 && dq_tile != 128) return cudaErrorInvalidValue;
   static bool configured = false;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(flash_bwd_bf16_kernel<DP, BR>,
@@ -582,32 +747,37 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   flash_bwd_bf16_kernel<DP, BR><<<grid, kThreads, smem, stream>>>(
       qm, om, km, vm, lm, dm, static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), lse, delta, dq_acc,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), dkv_part, counters, sq,
-      skv, d, scale, logit_scale, q_splits);
-  return cudaGetLastError();
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), dkv_part, counters, sq, skv, d, scale, logit_scale,
+      q_splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return dq_tile == 64 ? launch_dq<DP, 1>(km, vm, q, k, v, dout, lse, delta, dq, bh, sq, skv, d,
+                                          scale, logit_scale, stream)
+                       : launch_dq<DP, 2>(km, vm, q, k, v, dout, lse, delta, dq, bh, sq, skv, d,
+                                          scale, logit_scale, stream);
 }
 
 }  // namespace
 
-// q, dout (bh, sq, d); k, v, dk, dv (bh, skv, d); lse (base 2), delta (bh, sq)
-// fp32; dq_acc (bh, sq, d) fp32, zeroed by the caller, receives dQ by atomic
-// adds.  All contiguous.  dtype: 0 = fp32, 1 = bf16 (q, k, v, dout, dk, dv).
-// q_splits (bf16 only; 1 for fp32): CTAs per (head, 64 KV rows), each over
-// its share of the q tiles.  With q_splits > 1, dkv_part is fp32 scratch of
-// q_splits * bh * ceil(skv/64) blocks of 2 * 64 * d_pad (d_pad = d rounded
-// up to 16: one KV tile's dK and dV) and counters bh * ceil(skv/64) ints,
-// zero on entry and left zero on exit.
-// Returns the launch's cudaError_t (0 = launched).
+// q, dout, dq (bh, sq, d); k, v, dk, dv (bh, skv, d); lse (base 2), delta
+// (bh, sq) fp32.  All contiguous.  dtype: 0 = fp32, 1 = bf16 (q, k, v, dout,
+// dq, dk, dv).  Two launches: dK/dV, then dQ summed over the KV tiles in
+// their order.  q_splits (bf16 only; 1 for fp32): CTAs per (head, 64 KV
+// rows), each over its share of the q tiles.  With q_splits > 1, dkv_part
+// is fp32 scratch of q_splits * bh * ceil(skv/64) blocks of 2 * 64 * d_pad
+// (d_pad = d rounded up to 16: one KV tile's dK and dV) and counters bh *
+// ceil(skv/64) ints, zero on entry and left zero on exit.  dq_tile (bf16):
+// q rows a CTA of the dQ kernel, 64 or 128.
+// Returns the launches' cudaError_t (0 = launched).
 extern "C" int dft_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq_acc, void* dk,
-                             void* dv, void* dkv_part, void* counters, int bh, int sq, int skv,
-                             int d, float scale, int dtype, int q_splits, void* stream) {
+                             const void* lse, const void* delta, void* dq, void* dk, void* dv,
+                             void* dkv_part, void* counters, int bh, int sq, int skv, int d,
+                             float scale, int dtype, int q_splits, int dq_tile, void* stream) {
   const float logit_scale = scale * kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  float* acc = static_cast<float*>(dq_acc);
   if (q_splits < 1 || q_splits > 65535 ||
       (q_splits > 1 && (dtype != 1 || dkv_part == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -616,8 +786,8 @@ extern "C" int dft_flash_bwd(const void* q, const void* k, const void* v, const 
     int* cnt = static_cast<int*>(counters);
 #define DFT_BWD_CASE(DP)                                                                    \
   case DP:                                                                                  \
-    return launch_bf16<DP>(q, k, v, dout, l, dl, acc, dk, dv, part, cnt, bh, sq, skv, d,   \
-                           scale, logit_scale, q_splits, st)
+    return launch_bf16<DP>(q, k, v, dout, l, dl, dq, dk, dv, part, cnt, bh, sq, skv, d,    \
+                           scale, logit_scale, q_splits, dq_tile, st)
     switch ((d + 15) / 16 * 16) {
       DFT_BWD_CASE(16);
       DFT_BWD_CASE(32);
@@ -634,15 +804,24 @@ extern "C" int dft_flash_bwd(const void* q, const void* k, const void* v, const 
 #undef DFT_BWD_CASE
   }
   if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(d);
+    const size_t smem = f32_smem_bytes(d), dq_smem = dq_f32_smem_bytes(d);
     cudaError_t err = cudaFuncSetAttribute(
         flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((skv + kF32N - 1) / kF32N, bh);
-    flash_bwd_f32_kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<const float*>(dout), l, dl, acc, static_cast<float*>(dk),
-        static_cast<float*>(dv), sq, skv, d, scale, logit_scale);
+    const auto* qf = static_cast<const float*>(q);
+    const auto* kf = static_cast<const float*>(k);
+    const auto* vf = static_cast<const float*>(v);
+    const auto* of = static_cast<const float*>(dout);
+    flash_bwd_f32_kernel<<<dim3((skv + kF32N - 1) / kF32N, bh), kThreads, smem, st>>>(
+        qf, kf, vf, of, l, dl, static_cast<float*>(dk), static_cast<float*>(dv), sq, skv, d,
+        scale, logit_scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dq_f32_kernel<<<dim3((sq + kF32M - 1) / kF32M, bh), kThreads, dq_smem, st>>>(
+        qf, kf, vf, of, l, dl, static_cast<float*>(dq), sq, skv, d, scale, logit_scale);
     return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);

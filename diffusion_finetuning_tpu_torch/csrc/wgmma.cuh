@@ -22,14 +22,6 @@
 // A wider swizzle means fewer, larger TMA requests; a narrower one wastes
 // less shared memory on the pad (d_pad 48 fills 48 of 64 columns at 128
 // bytes, all of them at 32).
-// K3's dS tile, written by the threads, uses the plain no-swizzle
-// ("interleave") layout instead, chunk-major: [c/8][r][c%8] (core_off),
-// each core matrix of 8 rows x 16 bytes contiguous; K-major descriptor
-// (desc_kmajor_interleave): leading byte offset (next 8 columns) R*16,
-// stride byte offset (next 8 rows) 128, k-chunk i at element 16*R*i.
-// mma.sync fragments and ldmatrix rows read either layout at those offsets
-// without bank conflicts (a core matrix's 8 rows fall in 8 distinct chunk
-// positions).
 //
 // Register layouts (per warp w of the warpgroup, g = lane / 4, t = lane % 4):
 // an m64nNk16 accumulator d[N/2] holds rows 16w+g (d[4i], d[4i+1]) and
@@ -61,12 +53,6 @@ __device__ __forceinline__ int tile_off(int r, int c) {
   constexpr int W = SW / 2;  // columns a slab
   const int chunk = ((c % W) >> 3) ^ ((r * SW / 128) % (SW / 16));
   return (c / W) * R * W + r * W + (chunk << 3) + (c & 7);
-}
-
-// element offset of row r, 8-column chunk c8, in an R-row interleave tile
-template <int R>
-__device__ __forceinline__ int core_off(int r, int c8) {
-  return (c8 * R + r) * 8;
 }
 
 // Rows [row0, row0 + R) of a row-major (rows, d) bf16 matrix into an R x C
@@ -162,6 +148,13 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
 // one plain arrival on a barrier (one of the count it was initialised with)
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// named CTA barrier `id` (1-15; 0 is __syncthreads) over the `nthreads`
+// threads (a multiple of 32) that use it: a group of warps synchronises
+// without the rest of the CTA
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
 // --- split-K: fp32 partials summed in split order by the last CTA ---
@@ -303,13 +296,6 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const __nv_bfloat16* tile, int 
   return make_desc(tile + kchunk * 8 * SW, R * SW, 8 * SW, SW == 128 ? 1 : SW == 64 ? 2 : 3);
 }
 
-// k-chunk `kchunk` of an R-row interleave tile, read K-major
-template <int R>
-__device__ __forceinline__ uint64_t desc_kmajor_interleave(const __nv_bfloat16* tile,
-                                                           int kchunk) {
-  return make_desc(tile + kchunk * 16 * R, R * 16, 128, 0);
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -324,25 +310,6 @@ __device__ __forceinline__ void wgmma_wait() {
 // ld.shared, cp.async) with the async proxy that wgmma and TMA use
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// [gmem] += [smem], `bytes` fp32 values' worth (a multiple of 16, both
-// addresses 16-byte aligned), reduced by the bulk-copy engine in L2: one
-// instruction from one thread instead of an atomic per value.  The smem
-// source must be fenced (fence_proxy_async) and complete before the call.
-__device__ __forceinline__ void bulk_reduce_add_f32(float* gmem, const float* smem, int bytes) {
-  const uint32_t src = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-               ::"l"(gmem), "r"(src), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// wait until this thread's bulk reductions have read their source
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// wait until they have completed
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 // keep the compiler from moving accumulator reads or writes across a wgmma
 // start or wait (the hardware writes them asynchronously)

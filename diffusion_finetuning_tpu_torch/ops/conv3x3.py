@@ -165,6 +165,7 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
 
 
 _TAP_MAJOR = {}  # (id(weight), dtype) -> (weakref to the weight, its _version, w9)
+tap_major_copies = 0  # misses of the cache: tap-major copies made so far
 
 
 def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -178,11 +179,15 @@ def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torc
     (an in-place update bumps it, so it gets a fresh copy); a freed weight
     drops its copy.  Writes through ``.data`` bypass the version counter,
     as they bypass autograd's own checks.  Inference tensors have no
-    version counter and are reordered on every call."""
+    version counter and are reordered on every call (the pipeline builds
+    its merged LoRA weights outside inference mode for that reason).
+    :data:`tap_major_copies` counts the copies made."""
     dtype = dtype or weight.dtype
     o, c = weight.shape[:2]
 
     def reorder():
+        global tap_major_copies
+        tap_major_copies += 1
         return weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
 
     if weight.is_inference():

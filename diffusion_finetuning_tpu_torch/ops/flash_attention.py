@@ -9,10 +9,13 @@ public ``flash_attention`` (:459).  The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1, forward, and K4, the same forward with G
 heads per CTA) and ``csrc/flash_attention_bwd.cu`` (K3, backward), all
 ``sm_90a``; their designs and bounds are noted there.  Two host rules size
-their grids: :func:`fwd_q_tile` (64 or 128 q rows a forward CTA) and
+their grids: :func:`fwd_q_tile` and :func:`packed_q_tile` (64 or 128 q
+rows a forward CTA of K1 and of K4) and
 :func:`bwd_q_splits` (CTAs sharing one KV tile's q loop in the backward,
 whose fp32 dK/dV partials the kernel sums in split order;
-:func:`flash_backward_plain` takes the same ``q_splits``).
+:func:`flash_backward_plain` takes the same ``q_splits``).  The backward's
+dQ is a second kernel that sums over the KV tiles in their order, so dQ,
+like dK and dV, repeats bit for bit.
 
 Head packing is opt-in, as in JAX: ``head_pack`` (default
 :data:`DEFAULT_HEAD_PACK`, read once from ``DFT_FLASH_HEAD_PACK``, 1 = off)
@@ -156,13 +159,24 @@ def use_head_pack(head_pack: int, bh: int, sq: int, skv: int, d: int,
 
 
 def fwd_q_tile(bh: int, sq: int) -> int:
-    """q rows per CTA of the bf16 forward kernel (K1, and K4 at K1's tile):
-    128 (two consumer warpgroups, each CTA reading K/V once for 128 rows)
-    where the (ceil(Sq/128), BH) grid still covers half the card's 132 SMs,
-    else 64 (one warpgroup), so that a small call keeps its CTAs.  At
-    S=1024, BH=16 the 128 CTAs of 128 rows beat 256 of 64; at S=256 the 32
-    CTAs of 128 rows lose to 64 of 64 (``PERF.md``)."""
+    """q rows per CTA of the bf16 forward kernel K1 (and of K3's dQ kernel,
+    which walks the KV tiles as K1 does): 128 (two consumer warpgroups,
+    each CTA reading K/V once for 128 rows) where the (ceil(Sq/128), BH)
+    grid still covers half the card's 132 SMs, else 64 (one warpgroup), so
+    that a small call keeps its CTAs.  At S=1024, BH=16 the 128 CTAs of 128
+    rows beat 256 of 64; at S=256 the 32 CTAs of 128 rows lose to 64 of 64
+    (``PERF.md``)."""
     return 128 if 2 * _cdiv(sq, 128) * bh >= _SMS else 64
+
+
+def packed_q_tile(bh: int, head_pack: int, sq: int) -> int:
+    """q rows per CTA of the head-packed forward (K4): :func:`fwd_q_tile`
+    of its own grid, (ceil(Sq/tile), BH/G) CTAs, each running its G heads
+    at once on separate warpgroups -- 128 where that grid still covers half
+    the SMs, else 64, so that K4 keeps as many CTAs as the packing allows.
+    At S=1024, BH=16, G=2 that is 64 (128 CTAs), where K1 takes 128 (also
+    128 CTAs)."""
+    return fwd_q_tile(bh // head_pack, sq)
 
 
 def bwd_q_rows(d: int) -> int:
@@ -276,7 +290,7 @@ def _check_qkv(q, k, v):
 def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
     """K1 (``head_pack`` 1) or K4 (``head_pack`` heads per CTA, dividing BH)
     on (BH, S, D) tensors; ``q_tile`` (64 or 128 q rows a CTA) defaults to
-    :func:`fwd_q_tile` of the whole call, for K4 too."""
+    :func:`fwd_q_tile` for K1 and :func:`packed_q_tile` for K4."""
     global launches, packed_launches
     _check_qkv(q, k, v)
     if not scale > 0:  # the kernel takes row maxima before scaling
@@ -293,7 +307,9 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-                _DTYPES[q.dtype], head_pack, q_tile or fwd_q_tile(bh, sq), stream)
+                _DTYPES[q.dtype], head_pack,
+                q_tile or (fwd_q_tile(bh, sq) if head_pack == 1
+                           else packed_q_tile(bh, head_pack, sq)), stream)
     _build.check(rc, "flash_attention")
     if head_pack == 1:
         launches += 1
@@ -303,8 +319,9 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
 
 
 def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
-    """K3 on (BH, S, D) tensors; ``q_splits`` (bf16 only) defaults to
-    :func:`bwd_q_splits`."""
+    """K3 on (BH, S, D) tensors: dK/dV with ``q_splits`` (bf16 only;
+    default :func:`bwd_q_splits`) CTAs a KV tile, then dQ summed over the KV
+    tiles in their order, on :func:`fwd_q_tile`'s q tile."""
     global bwd_launches
     _check_qkv(q, k, v)
     bh, sq, d = q.shape
@@ -317,14 +334,13 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
         if t.shape != (bh, sq) or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous fp32 ({bh}, {sq}) tensor")
     skv = k.shape[1]
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     splits = 1
     if q.dtype == torch.bfloat16:
         splits = q_splits or bwd_q_splits(bh, sq, skv, d)
     fn = _kernel("flash_attention_bwd", "dft_flash_bwd",
                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part = counters = None
@@ -334,13 +350,13 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
                                dtype=torch.float32, device=q.device)
             counters = _grid.arrival_counters(q.device, stream, bh * _cdiv(skv, _KV_TILE))
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), None if part is None else part.data_ptr(),
                 None if counters is None else counters.data_ptr(), bh, sq, skv, d,
-                float(scale), _DTYPES[q.dtype], splits, stream)
+                float(scale), _DTYPES[q.dtype], splits, fwd_q_tile(bh, sq), stream)
     _build.check(rc, "flash_attention_bwd")
     bwd_launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    return dq, dk, dv
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,

@@ -101,11 +101,17 @@ class StableDiffusionPipeline:
 
     def _merged(self, which: str, model, lora) -> Dict[str, torch.Tensor]:
         """Merged weights for ``lora``, cached while the same tree object
-        stays installed (identity, as the JAX cache)."""
+        stays installed (identity, as the JAX cache).  They are built
+        outside inference mode, as ordinary tensors that need no grad, so
+        that per-weight caches keyed on a tensor's version (the fused
+        conv's tap-major copy, ``ops/conv3x3.py:tap_major``) can hold them:
+        the generation entry points run under ``torch.inference_mode()``,
+        whose tensors have no version counter."""
         hit = self._merged_current.get(which)
         if hit is not None and hit[0] is lora:
             return hit[1]
-        merged = lora_lib.materialize_lora_tree(model, lora)
+        with torch.inference_mode(False), torch.no_grad():
+            merged = lora_lib.materialize_lora_tree(model, lora)
         self._merged_current[which] = (lora, merged)
         return merged
 

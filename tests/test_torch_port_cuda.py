@@ -15,8 +15,9 @@ in another order, so single values may land one bf16 ulp apart; fp32 within
 K1 exactly.  K2 and K5 with split k-loops repeat bit for bit (the last CTA
 sums the partials in split order).  The flash backward's dQ, dK and dV within
 2e-2 of the largest reference value and 1e-2 relative L2 in bf16 (dS is
-rounded to bf16 from sums taken in another order, and dQ is summed by fp32
-atomics in a varying order), 1e-4 relative in fp32.
+rounded to bf16 from sums taken in another order), 1e-4 relative in fp32;
+in bf16 all three repeat bit for bit, and dQ is the same whatever the q
+splits (it is summed over the KV tiles in their order).
 """
 
 import pytest
@@ -137,10 +138,9 @@ def test_flash_bwd_kernel_matches_plain(card, sq, skv, d):
 def test_flash_bwd_kernel_q_splits(card, splits, d):
     """K3 with the q loop split over 1, 2, 3 or the planner's number of CTAs
     (None), ragged Sq and Skv < 64, against the plain version over the same
-    split ranges; dK and dV of two runs are equal (the partials are summed
-    in split order), dQ within its atomics' rounding.  d = 18 and 30 (not
-    multiples of 4) take element loads and add dQ by fp32 atomics instead
-    of the bulk reduce-add."""
+    split ranges; dQ, dK and dV of two runs are equal (the partials are
+    summed in split order, dQ in KV-tile order).  d = 18 and 30 (not
+    multiples of 8) take element loads."""
     bh, sq, skv = 4, 300, 50
     q, k, v, o, lse, do = _bwd_inputs(card, bh, sq, skv, d, torch.bfloat16, 3)
     n = splits or tfa.bwd_q_splits(bh, sq, skv, d)
@@ -157,14 +157,40 @@ def test_flash_bwd_kernel_q_splits(card, splits, d):
         assert bool(torch.isfinite(a).all())
         assert _max_err(a, b) <= 2e-2 * float(b.float().abs().max())
         assert _rel_l2(a, b) <= 1e-2
-    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [18, 30, 40, 80])
+def test_flash_bwd_dq_repeats_across_runs_and_splits(card, d):
+    """K3's dQ, dK and dV repeat bit for bit over 3 runs at each of q_splits
+    1, 2 and the q-tile count n (one q tile a split), and dQ is the same
+    bit for bit whatever the splits: it is summed over the KV tiles in their
+    order, as JAX's loop over KV blocks sums it.  d = 18 and 30 take element
+    loads; 40 the wgmma dQ product, 80 the mma.sync one."""
+    bh, sq, skv = 4, 333, 300
+    q, k, v, o, lse, do = _bwd_inputs(card, bh, sq, skv, d, torch.bfloat16, 21)
+    n = -(-sq // tfa.bwd_q_rows(d))
+    dqs = []
+    with torch.inference_mode():
+        delta = tfa._delta(o, do)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5)
+        for splits in (1, 2, n):
+            runs = [tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=splits)
+                    for _ in range(3)]
+            for again in runs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
+            dqs.append(runs[0][0])
+    assert all(torch.equal(dqs[0], x) for x in dqs[1:])
+    assert _max_err(dqs[0], want[0]) <= 2e-2 * float(want[0].float().abs().max())
+    assert _rel_l2(dqs[0], want[0]) <= 1e-2
 
 
 @pytest.mark.cuda
 def test_flash_bwd_kernel_on_two_streams(card):
     """Split K3 launches in flight at the same time on two streams (each
-    stream has its own arrival counters): dK and dV of every launch equal
-    those of one launch on the current stream, bit for bit."""
+    stream has its own arrival counters): dQ, dK and dV of every launch
+    equal those of one launch on the current stream, bit for bit."""
     bh, sq, skv, d = 8, 4096, 77, 40
     q, k, v, o, lse, do = _bwd_inputs(card, bh, sq, skv, d, torch.bfloat16, 11)
     assert tfa.bwd_q_splits(bh, sq, skv, d) > 1
@@ -183,7 +209,8 @@ def test_flash_bwd_kernel_on_two_streams(card):
         for s in streams:
             main.wait_stream(s)
         torch.cuda.synchronize(card)
-    for _, dk, dv in got:
+    for dq, dk, dv in got:
+        assert torch.equal(dq, want[0])
         assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
 
 
@@ -352,6 +379,50 @@ def test_packed_flash_kernel_equals_k1(card, pack, dtype, sq, skv, d):
         o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack)
     assert (tfa.launches, tfa.packed_launches) == (before[0] + 1, before[1] + 1)
     assert torch.equal(o4, o1) and torch.equal(lse4, lse1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("q_tile", [64, 128])
+@pytest.mark.parametrize("sq,skv,d", [(1024, 1024, 80), (4096, 77, 40), (300, 200, 100),
+                                      (200, 77, 20), (64, 64, 160)])
+def test_packed_flash_kernel_tiles_equal_k1(card, pack, q_tile, sq, skv, d):
+    """K4 at both q tiles of its rule (64 and 128 rows a CTA: one or two
+    warpgroups a head), at head dims that are and are not multiples of 8
+    (20 and 100 take element loads and named barriers), equals K1 at its
+    own tile bit for bit: every row runs K1's arithmetic."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q, k, v = (torch.randn((8, s, d), generator=g, device=card, dtype=torch.bfloat16)
+               for s in (sq, skv, skv))
+    with torch.inference_mode():
+        o1, lse1 = tfa._fwd_cuda(q, k, v, d ** -0.5)
+        o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack, q_tile=q_tile)
+    assert torch.equal(o4, o1) and torch.equal(lse4, lse1)
+
+
+@pytest.mark.cuda
+def test_packed_flash_kernel_on_two_streams(card):
+    """K4 launches in flight on two streams at once, at G = 2 and 4: every
+    output equals K1's on the current stream bit for bit."""
+    g = torch.Generator(device=card).manual_seed(8)
+    q, k, v = (torch.randn((16, s, 40), generator=g, device=card, dtype=torch.bfloat16)
+               for s in (1024, 1024, 1024))
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = []
+    with torch.inference_mode():
+        want = tfa._fwd_cuda(q, k, v, 40 ** -0.5)
+        for s in streams:
+            s.wait_stream(main)
+        for i in range(8):
+            for pack, s in zip((2, 4), streams):
+                with torch.cuda.stream(s):
+                    got.append(tfa._fwd_cuda(q, k, v, 40 ** -0.5, pack))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize(card)
+    for o, lse in got:
+        assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
 
 
 @pytest.mark.cuda

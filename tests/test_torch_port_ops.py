@@ -166,6 +166,35 @@ def test_flash_grid_plans_at_sd15_shapes(sq, skv, d, bh):
     assert n == 1 or kv_tiles * (n - 1) < 264
 
 
+@pytest.mark.parametrize("bh", [8, 16], ids=["train", "serve"])
+@pytest.mark.parametrize("head_pack", [2, 4])
+@pytest.mark.parametrize("sq,skv,d", SD15_FLASH)
+def test_packed_q_tile_at_sd15_shapes(sq, skv, d, head_pack, bh):
+    """K4's q tile at every SD1.5 shape and G = 2, 4: sized for the packed
+    grid of ceil(Sq/tile) x BH/G CTAs (each running its G heads at once),
+    128 rows only where that grid still covers half the 132 SMs.  It never
+    takes a larger tile than K1's, so K4 never has fewer CTAs per head than
+    the packing forces, and ``_fwd_cuda`` takes it for packed calls."""
+    tile = tfa.packed_q_tile(bh, head_pack, sq)
+    ctas = -(-sq // tile) * (bh // head_pack)
+    assert tile == (128 if -(-sq // 128) * (bh // head_pack) >= 66 else 64)
+    assert tile <= tfa.fwd_q_tile(bh, sq)
+    assert tile == 64 or ctas >= 66
+    # the 64-row grid is taken only where the 128-row one would starve
+    assert tile == 128 or -(-sq // 128) * (bh // head_pack) < 66
+
+
+def test_packed_q_tile_examples():
+    """The packed rule's cases named in the kernel's notes: at S=1024 and G
+    = 2 K4 takes 64-row tiles (128 CTAs of two heads, as many CTAs as K1's
+    128-row grid), at S=4096 128-row tiles (256 CTAs at G = 2, 128 at G =
+    4), at S <= 256 64-row tiles."""
+    assert tfa.packed_q_tile(16, 2, 1024) == 64 and tfa.fwd_q_tile(16, 1024) == 128
+    assert tfa.packed_q_tile(16, 2, 4096) == 128 and tfa.packed_q_tile(16, 4, 4096) == 128
+    assert tfa.packed_q_tile(16, 2, 256) == 64 and tfa.packed_q_tile(16, 4, 64) == 64
+    assert tfa.packed_q_tile(8, 2, 4096) == 128 and tfa.packed_q_tile(16, 4, 1024) == 64
+
+
 def test_flash_grid_plans_examples():
     """The rules' cases named in the kernels' notes: S=4096 and S=1024
     serving take 128-row tiles (512 and 128 CTAs), S=256 keeps 64 (64 CTAs,

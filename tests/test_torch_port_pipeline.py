@@ -245,6 +245,35 @@ def test_merged_cache_follows_tree_identity(pipes):
     tpipe.unet_lora = None
 
 
+def test_merged_weights_are_cached_for_tap_major(pipes):
+    """Merged weights built inside the generation entry points'
+    ``torch.inference_mode()`` are ordinary tensors that need no grad, so
+    the fused conv's tap-major copy of a merged resnet conv weight is made
+    once and found again on the next call."""
+    _, tpipe = pipes
+    targets = tpipe.lora_targets("unet", tlora.UNET_EXTENDED_TARGET_REPLACE)
+    assert any(t.is_conv for t in targets)
+    tpipe.materialize_lora = True
+    tpipe.unet_lora = weights.lora_tree_to_torch(numpy_lora_tree(targets, seed=13))
+    try:
+        with torch.inference_mode():
+            merged = tpipe._generation_params()[0]
+            assert tpipe._generation_params()[0] is merged
+        assert len(merged) == len(targets)
+        for w in merged.values():
+            assert not w.is_inference() and not w.requires_grad
+        convs = [w for w in merged.values() if w.ndim == 4 and w.shape[2:] == (3, 3)]
+        assert convs
+        copies = tconv.tap_major_copies
+        with torch.inference_mode():
+            first = [tconv.tap_major(w) for w in convs]
+            again = [tconv.tap_major(w) for w in convs]
+        assert all(a is b for a, b in zip(first, again))
+        assert tconv.tap_major_copies == copies + len(convs)
+    finally:
+        tpipe.unet_lora = None
+
+
 def test_entry_points_default_to_cuda():
     """Without CUDA and without device="cpu" the pipeline, the train-state
     set-up and the latent cache refuse to start."""
