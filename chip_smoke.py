@@ -51,7 +51,24 @@ Phases, each fatal on failure:
      which needs no gradient, is not recomputed).  Phase 2 also holds K5
      against its plain version at every routed SD1.5 conv shape (batch 2
      and 1), and K4 (G = 2 and 4, at both q tiles) equal to K1 bit for bit
-     at every flash shape, timed beside K1 in the same run.
+     at every flash shape, timed beside K1 in the same run;
+  7. graphed: the main paths through their CUDA graphs (``graph.py``), each
+     beside its eager run -- 512^2 txt2img (50 DDIM steps, CFG 7.5) at
+     batches 1 and 2 with the LoRA merged and dynamic (``__call__``), the
+     switched img2img request (``img2img``), and the train step at spd 1
+     (``jit_train_step``) and 4 (``multi_step``), switches off and on.  Each
+     graphed result must equal the eager one bit for bit (images; losses,
+     LoRA masters, moments and counts from equal states and generators);
+     the launch counters, set to 0 just before a path's first graphed call,
+     must read twice its launches (the warm-up and the capture) and no
+     more after 10 replays, and one replay traced with torch.profiler must
+     run them on the device.  Printed for both: wall ms (median and range
+     of 10 calls; of 5 eager requests), requests or steps a second,
+     device-busy ms and kernels of one traced call, idle share (1 - busy /
+     median wall), peak memory, tap-major copies the graph holds; for the
+     graph its first call (warm-up, capture, replay).  ``--profile DIR``
+     also writes the kernel tables of one graphed dynamic-LoRA image and
+     one graphed train step.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -966,16 +983,32 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
 )
 
 
-def profile_step(fn, label, out_dir):
+# device kernel -> the launch counter of its wrapper, and the kernels one
+# launch runs (K3: its dK/dV kernel and its dQ kernel); first match wins
+DEVICE_KERNELS = (("flash_fwd_bf16_packed", "flash_attention_fwd_packed", 1),
+                  ("flash_fwd", "flash_attention_fwd", 1),
+                  ("flash_bwd_dq", None, 0),
+                  ("flash_bwd", "flash_attention_bwd", 1),
+                  ("lora_dense", "lora_dense", 1),
+                  ("conv3x3", "conv3x3", 1))
+
+
+def profile_step(fn, label, out_dir, cpu=True, warm=True):
     """Trace one step with torch.profiler: device time by kernel kind
-    and the card's idle share over the step's wall time.  The per-kernel
-    table goes to ``out_dir``/unet_step_profile_<label>.txt."""
+    and the card's idle share over the step's wall time, and the launches of
+    the port's kernels it saw on the device (``launches``, by counter
+    name).  The per-kernel table goes to
+    ``out_dir``/unet_step_profile_<label>.txt (no table without ``out_dir``).
+    ``cpu=False`` traces the device only (cheaper for long eager runs);
+    ``warm=False`` skips the untraced call before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -997,11 +1030,17 @@ def profile_step(fn, label, out_dir):
     busy = sum(by_kind.values())
     if busy <= 0:
         fail("the profiler saw no device time")
-    os.makedirs(out_dir, exist_ok=True)
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    with open(os.path.join(out_dir, f"unet_step_profile_{label}.txt"), "w") as f:
-        for name, (n, us) in rows:
-            f.write(f"{us / 1e3:10.3f} ms {n:6d} x  {name}\n")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"unet_step_profile_{label}.txt"), "w") as f:
+            for name, (n, us) in rows:
+                f.write(f"{us / 1e3:10.3f} ms {n:6d} x  {name}\n")
+    launches = want_counts()
+    for name, (n, _) in by_name.items():
+        counter, per = next(((c, k) for sub, c, k in DEVICE_KERNELS if sub in name), (None, 0))
+        if counter is not None:
+            launches[counter] += n * per
     log(f"profile {label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
         f"idle share {1 - busy / wall_us:.3f}, "
         f"{sum(n for n, _ in by_name.values())} kernels")
@@ -1010,6 +1049,8 @@ def profile_step(fn, label, out_dir):
     for name, (n, us) in rows[:12]:
         log(f"  {us / 1e3:8.3f} ms {n:5d} x {name[:100]}")
     return {"label": label, "wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / wall_us,
+            "kernels": sum(n for n, _ in by_name.values()), "launches": launches,
             "by_kind_ms": {k: v / 1e3 for k, v in by_kind.items()}}
 
 
@@ -1445,10 +1486,9 @@ def phase_merged_conv_cache(pipe, ucfg, per_step):
     return {"tap_major_copies": copies}
 
 
-def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe,
-                   batch, train_ref, profile_dir=None, device="cuda"):
-    """Phase 6: both switches on for the UNet step check, img2img (the
-    reference and the requests) and training; off again after."""
+def switched_launches(pipe, ucfg):
+    """Launches a step with both switches on: (UNet step, train step,
+    checkpointed train step)."""
     from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
 
     side = IMAGE // pipe.vae_scale_factor
@@ -1468,6 +1508,14 @@ def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, re
     train_ckpt = {name: n * (1 if name == "flash_attention_bwd" else 2)
                   for name, n in train_step.items()}
     train_ckpt["conv3x3"] -= first
+    return unet_step, train_step, train_ckpt
+
+
+def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe,
+                   batch, train_ref, profile_dir=None, device="cuda"):
+    """Phase 6: both switches on for the UNet step check, img2img (the
+    reference and the requests) and training; off again after."""
+    unet_step, train_step, train_ckpt = switched_launches(pipe, ucfg)
     log(f"phase 6 launches a step: UNet {unet_step}; train {train_step}; "
         f"checkpointed train {train_ckpt}")
     set_switches(True)
@@ -1485,6 +1533,253 @@ def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, re
     finally:
         set_switches(False)
     return {"img2img": img_launches, "train_switched": train_launches}, out
+
+
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+GRAPH_REPEATS = 10  # timed calls of each graphed path, and of each eager train path
+# timed eager requests of each serving path: one takes 2-4 s, host-bound, and
+# ten of every path would cost 2-3 minutes on a slow host
+EAGER_REQUESTS = 5
+TRAIN_SPDS = (1, 4)
+
+
+def walls_ms(fn, n):
+    """Host-clock ms of ``n`` calls of fn(), each ending in a synchronize."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def spread(ms):
+    s = sorted(ms)
+    return {"median": s[len(s) // 2], "min": s[0], "max": s[-1]}
+
+
+def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
+                 eager_repeats=GRAPH_REPEATS):
+    """One path eager and graphed: ``eager()`` / ``graphed()`` run one call
+    (a request, or a dispatch of ``units`` train steps); ``same()`` checks,
+    after the first call of each, that they agree bit for bit.  The first
+    graphed call warms up, captures and replays: the launch counters, set to
+    0 just before it, must read twice ``per_call`` (warm-up and capture)
+    after it and again after the timed replays.  Then walls, peak memory and
+    one profiled call of each; the profiled replay must run ``per_call`` of
+    the port's kernels on the device."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e_walls = walls_ms(eager, eager_repeats)
+    e_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    copies = cv.tap_major_copies
+    t0 = time.perf_counter()
+    graphed()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captured = counts()
+    # the eager runs cached every cacheable tap-major weight: copies now are
+    # an inference tensor's, made by the warm-up and recorded by the capture
+    # (half of them redone by every replay)
+    copies = cv.tap_major_copies - copies
+    equal = same()
+    g_walls = walls_ms(graphed, GRAPH_REPEATS)
+    replayed = counts()
+    g_peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    prof_e = profile_step(eager, f"{label}_eager", None, cpu=False, warm=False)
+    prof_g = profile_step(graphed, f"{label}_graphed", profile_dir, cpu=False)
+    want2 = {k: 2 * n for k, n in per_call.items()}
+    e_med, g_med = spread(e_walls)["median"], spread(g_walls)["median"]
+    # idle share: 1 - busy / the untraced median wall (tracing slows the
+    # eager launches, so the traced call's own wall overstates its idling)
+    e_idle, g_idle = 1 - prof_e["busy_ms"] / e_med, 1 - prof_g["busy_ms"] / g_med
+    row = {"path": label, "units": units, "equal": equal,
+           "eager_ms": spread(e_walls), "graphed_ms": spread(g_walls),
+           "eager_units_per_s": units * 1e3 / e_med, "graphed_units_per_s": units * 1e3 / g_med,
+           "first_graphed_call_s": first_s,
+           "eager_busy_ms": prof_e["busy_ms"], "graphed_busy_ms": prof_g["busy_ms"],
+           "eager_idle_share": e_idle, "graphed_idle_share": g_idle,
+           "eager_idle_share_traced": prof_e["idle_share"],
+           "graphed_idle_share_traced": prof_g["idle_share"],
+           "eager_kernels": prof_e["kernels"], "graphed_kernels_a_replay": prof_g["kernels"],
+           "launches_at_capture": captured, "ours_a_replay": prof_g["launches"],
+           "tap_major_copies_in_graph": copies,
+           "eager_by_kind_ms": prof_e["by_kind_ms"], "graphed_by_kind_ms": prof_g["by_kind_ms"],
+           "eager_peak_bytes": e_peak, "graphed_peak_bytes": g_peak,
+           "reserved_bytes": reserved}
+    log(f"graphed {label}: equal to eager {equal}; wall ms eager {e_med:.3f} "
+        f"({spread(e_walls)['min']:.3f}-{spread(e_walls)['max']:.3f}), graphed {g_med:.3f} "
+        f"({spread(g_walls)['min']:.3f}-{spread(g_walls)['max']:.3f}), "
+        f"x{e_med / g_med:.2f}; {units} a call: {row['eager_units_per_s']:.3f} -> "
+        f"{row['graphed_units_per_s']:.3f} a s; first graphed call {first_s:.2f} s; "
+        f"busy ms {prof_e['busy_ms']:.3f} -> {prof_g['busy_ms']:.3f}, idle share "
+        f"{e_idle:.3f} -> {g_idle:.3f} (traced call {prof_e['idle_share']:.3f} -> "
+        f"{prof_g['idle_share']:.3f}); kernels {prof_e['kernels']} "
+        f"eager, {prof_g['kernels']} a replay; peak GiB {e_peak / 2**30:.3f} -> "
+        f"{g_peak / 2**30:.3f} (reserved {reserved / 2**30:.3f})")
+    log(f"  launches at capture {captured} (want {want2}), after the replays {replayed}; "
+        f"the port's kernels in one profiled replay {prof_g['launches']} (want {per_call}); "
+        f"tap-major copies in the first graphed call {copies}")
+    if not equal:
+        fail(f"the graphed {label} differs from the eager one")
+    if captured != want2 or replayed != want2:
+        fail(f"the graphed {label} launched {captured} at capture and {replayed} after the "
+             f"replays, want {want2} both")
+    if prof_g["launches"] != per_call:
+        fail(f"a replay of the graphed {label} ran {prof_g['launches']}, want {per_call}")
+    return row
+
+
+def phase_graphed_serving(pipe, lora_dev, per_step, profile_dir=None):
+    """512^2 txt2img, 50 DDIM steps, CFG 7.5, batches 1 and 2, LoRA merged
+    and dynamic, eager (``cuda_graphs = False``) and through the request's
+    CUDA graph: each graphed image equal to the eager one."""
+    import torch
+
+    rows = []
+    pipe.unet_lora = lora_dev
+    for mat in (True, False):
+        pipe.materialize_lora = mat
+        for prompt, seed in (("a photo of sks", 1), (["photo of sks", "a photo of sks person"],
+                                                     [3, 4])):
+            b = 1 if isinstance(prompt, str) else len(prompt)
+            kw = dict(seed=seed, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                      height=IMAGE, width=IMAGE, output_type="device")
+            out = {}
+
+            def run(graphs):
+                old, pipe.cuda_graphs = pipe.cuda_graphs, graphs
+                try:
+                    out[graphs] = pipe(prompt, **kw)
+                finally:
+                    pipe.cuda_graphs = old
+
+            per_call = {k: n * STEPS for k, n in per_step.items()
+                        if k != "lora_dense" or not mat}
+            label = f"txt2img_b{b}_{'merged' if mat else 'dynamic'}"
+            rows.append(graphed_path(
+                label, lambda: run(False), lambda: run(True),
+                lambda: torch.equal(out[False], out[True]), want_counts(**per_call), b,
+                profile_dir if (b, mat) == (1, False) else None, EAGER_REQUESTS))
+            if not all(float(im.float().std()) > 0 for im in out[True]):
+                fail(f"a graphed {label} image is constant")
+    return rows
+
+
+def phase_graphed_img2img(pipe, lora_dev, per_step):
+    """Phase 6's img2img request (512^2, strength 0.75: 38 UNet steps,
+    both switches on, dynamic LoRA), eager and graphed."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import img2img_start
+
+    pipe.unet_lora, pipe.materialize_lora = lora_dev, False
+    image = init_image(IMAGE)
+    out = {}
+
+    def run(graphs):
+        old, pipe.cuda_graphs = pipe.cuda_graphs, graphs
+        try:
+            out[graphs] = pipe.img2img("a photo of sks", image, strength=STRENGTH,
+                                       num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                                       seed=1, output_type="device")
+        finally:
+            pipe.cuda_graphs = old
+
+    unet_steps = STEPS - img2img_start(STEPS, STRENGTH)
+    return graphed_path("img2img_switched", lambda: run(False), lambda: run(True),
+                        lambda: torch.equal(out[False], out[True]),
+                        {k: n * unet_steps for k, n in per_step.items()}, 1,
+                        eager_repeats=EAGER_REQUESTS)
+
+
+def phase_graphed_train(pipe, lora_cpu, per_step, label, profile_dir=None):
+    """The train step of phase 5 (512^2, batch 1, AdamW, clip 1.0) at spd 1
+    (``jit_train_step``) and spd 4 (``multi_step``): eager steps from one
+    state against the graphed ones from an equal state, with generators of
+    one seed; after the first call the losses and the whole state (LoRA
+    masters, moments, counts) must be equal bit for bit."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models.schedulers import DDPMScheduler, SchedulerConfig
+    from diffusion_finetuning_tpu_torch.training.optim import ParamGroup, multi_group_optimizer
+    from diffusion_finetuning_tpu_torch.training.train_step import (
+        TrainablePartition, build_train_step, carried_tensors, init_train_state,
+        jit_train_step, multi_step, stack_batches)
+
+    batches = [train_batch(pipe.tokenizer, seed=SEED + 40 + i) for i in range(max(TRAIN_SPDS))]
+    rows = []
+    for spd in TRAIN_SPDS:
+        opt = multi_group_optimizer({"unet_lora": ParamGroup(lr=TRAIN_LR)}, max_grad_norm=1.0)
+        step = build_train_step(unet=pipe.unet, text_encoder=pipe.text_encoder, vae=pipe.vae,
+                                scheduler=DDPMScheduler(SchedulerConfig()), optimizer=opt,
+                                partition=TrainablePartition(unet_lora=True))
+        states = [init_train_state(opt, unet_lora=lora_cpu) for _ in range(2)]
+        gens = [torch.Generator(device="cuda").manual_seed(SEED + 51) for _ in range(2)]
+        fused = jit_train_step(step) if spd == 1 else multi_step(step, spd)
+        group = batches[:spd]
+        stacked = group[0] if spd == 1 else stack_batches(group)
+        losses = {}
+
+        first = {}  # the first call's losses and state, eager and graphed
+
+        def eager():
+            loss = torch.stack([step(states[0], b, gens[0])[1]["loss"] for b in group])
+            if "eager" not in first:
+                first["eager"] = (loss, [t.clone() for t in carried_tensors(states[0])])
+
+        def graphed():
+            loss = fused(states[1], stacked, gens[1])[1]["loss"].reshape(-1)
+            losses["graphed"] = loss
+            if "graphed" not in first:
+                first["graphed"] = (loss, [t.clone() for t in carried_tensors(states[1])])
+
+        def same():
+            (le, se), (lg, sg) = first["eager"], first["graphed"]
+            return torch.equal(le, lg) and all(torch.equal(a, b) for a, b in zip(se, sg))
+
+        rows.append(graphed_path(f"{label}_spd{spd}", eager, graphed, same,
+                                 {k: n * spd for k, n in per_step.items()}, spd,
+                                 profile_dir if spd == 1 else None))
+        if not all(math.isfinite(float(x)) for x in losses["graphed"]):
+            fail(f"a graphed {label} loss is not finite")
+    return rows
+
+
+def phase_graphed(pipe, ucfg, lora_cpu, lora_dev, profile_dir=None):
+    """Phase 7: the paths of phases 4-6 through their CUDA graphs, each
+    against its eager run."""
+    switched_unet_step, switched_train_step, _ = switched_launches(pipe, ucfg)
+    rows = phase_graphed_serving(pipe, lora_dev, want_counts(
+        flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP), profile_dir)
+    rows += phase_graphed_train(pipe, lora_cpu, want_counts(
+        flash_attention_fwd=FLASH_PER_STEP, flash_attention_bwd=FLASH_PER_STEP,
+        lora_dense=LORA_PER_STEP), "train", profile_dir)
+    set_switches(True)
+    try:
+        rows.append(phase_graphed_img2img(pipe, lora_dev, switched_unet_step))
+        rows += phase_graphed_train(pipe, lora_cpu, switched_train_step, "train_switched")
+    finally:
+        set_switches(False)
+    launches = {}
+    for r in rows:
+        for k, n in r["launches_at_capture"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches, rows
 
 
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
@@ -1556,6 +1851,7 @@ def main():
     lora_cpu = random_lora(ucfg)
     lora_dev = tree_to(lora_cpu, "cuda")
     pipe = build_pipe(ucfg, vcfg, tcfg, sds, torch.bfloat16, "cuda")
+    pipe.cuda_graphs = False  # phases 3-6 drive the eager requests, phase 7 the graphs
     log(f"models: {time.time() - t0:.1f} s")
     t0 = time.time()
     step, unet_ref = phase_unet_step(pipe, sds[0], lora_cpu, lora_dev, profile_dir=args.profile)
@@ -1574,16 +1870,22 @@ def main():
             lora_dense=LORA_PER_STEP), profile_dir=args.profile)
     log(f"phase 5: {time.time() - t0:.1f} s")
     t0 = time.time()
-    switched_launches, switched = phase_switched(
+    switched_paths, switched = phase_switched(
         pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, ref_pipe, batch, train_ref,
         profile_dir=args.profile)
     del ref_pipe
     log(f"phase 6: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    graphed_launches, graphed = phase_graphed(pipe, ucfg, lora_cpu, lora_dev,
+                                              profile_dir=args.profile)
+    log(f"phase 7: {time.time() - t0:.1f} s")
     log(json.dumps({"unet_step": step, "serving": serving,
-                    "train": dict(train, reference=reference), "switched": switched}))
+                    "train": dict(train, reference=reference), "switched": switched,
+                    "graphed": graphed}))
 
     log(json.dumps(kernels_line(results, dict(
-        {"serving": launches, "train": train_launches}, **switched_launches))))
+        {"serving": launches, "train": train_launches}, **switched_paths,
+        graphed=graphed_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,7 @@ are computed in fp32, so a step here matches a step there.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -51,11 +51,17 @@ class DDPMScheduler:
         self.betas = torch.tensor(betas, dtype=torch.float32)
         self.alphas = torch.tensor(alphas, dtype=torch.float32)
         self.num_train_timesteps = config.num_train_timesteps
+        self._alphas_cumprod_on: Dict[torch.device, torch.Tensor] = {}
 
     def _coeffs(self, sample: torch.Tensor, timesteps: torch.Tensor):
         """sqrt(a_t) and sqrt(1 - a_t) per example, shaped to broadcast over
-        ``sample`` and cast to its dtype (computed in fp32)."""
-        a = self.alphas_cumprod.to(sample.device)[timesteps.to(sample.device).long()]
+        ``sample`` and cast to its dtype (computed in fp32).  The table is
+        copied to the sample's device once: a CUDA graph cannot capture a
+        copy from pageable host memory."""
+        table = self._alphas_cumprod_on.get(sample.device)
+        if table is None:
+            table = self._alphas_cumprod_on[sample.device] = self.alphas_cumprod.to(sample.device)
+        a = table[timesteps.to(sample.device).long()]
         shape = (-1,) + (1,) * (sample.ndim - 1)
         return (torch.sqrt(a).reshape(shape).to(sample.dtype),
                 torch.sqrt(1.0 - a).reshape(shape).to(sample.dtype))

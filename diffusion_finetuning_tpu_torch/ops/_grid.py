@@ -42,9 +42,19 @@ def arrival_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
     stream), allocated zeroed on that stream.  Each launch leaves them zero,
     so the launches of one stream, which run in order, share a buffer (K2,
     K3 and K5 alike); launches on two streams may run at the same time, so
-    each stream has its own."""
+    each stream has its own.
+
+    A CUDA graph captured on a stream bakes in its buffer, so the buffer
+    must exist before the capture (a warm-up on the capture stream makes
+    it): a zero-fill made while capturing would only be recorded, and the
+    buffer, from the graph's pool, would be handed to later launches.  That
+    raises."""
     buf = _COUNTERS.get((device, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "arrival counters requested for a new stream or a larger grid while a "
+                "CUDA graph is being captured: warm up on the capture stream first")
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _COUNTERS[(device, stream)] = buf
     return buf

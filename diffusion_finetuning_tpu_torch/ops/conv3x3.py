@@ -180,8 +180,10 @@ def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torc
     drops its copy.  Writes through ``.data`` bypass the version counter,
     as they bypass autograd's own checks.  Inference tensors have no
     version counter and are reordered on every call (the pipeline builds
-    its merged LoRA weights outside inference mode for that reason).
-    :data:`tap_major_copies` counts the copies made."""
+    its merged LoRA weights outside inference mode for that reason); inside
+    a CUDA graph such a reorder is one copy each replay.  A cache miss of
+    another weight while a graph is being captured raises (a warm-up fills
+    the cache first).  :data:`tap_major_copies` counts the copies made."""
     dtype = dtype or weight.dtype
     o, c = weight.shape[:2]
 
@@ -196,6 +198,10 @@ def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torc
     hit = _TAP_MAJOR.get(key)
     if hit is not None and hit[0]() is weight and hit[1] == weight._version:
         return hit[2]
+    if weight.is_cuda and torch.cuda.is_current_stream_capturing():
+        # the copy would be recorded, not made, yet cached for eager calls
+        raise RuntimeError("a tap-major weight copy was asked for while a CUDA graph is "
+                           "being captured: warm up on the capture stream first")
     w9 = reorder()
     _TAP_MAJOR[key] = (weakref.ref(weight, lambda _, k=key: _TAP_MAJOR.pop(k, None)),
                        weight._version, w9)

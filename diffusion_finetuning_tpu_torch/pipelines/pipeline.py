@@ -8,10 +8,25 @@ doubled batch and mixes ``eps = eps_u + g * (eps_c - eps_u)``, VAE decode of
 uint8.  :meth:`~StableDiffusionPipeline.img2img` (JAX :945, ``_build_img2img_fn`` :808)
 starts the same loop part-way: VAE encode of the init image, a posterior
 sample times 0.18215 for every prompt, forward noising to the first used
-timestep, then the DDIM steps from there.  PyTorch runs it eagerly; on the
-card the UNet's attention calls go through the flash-attention kernels,
-with a dynamic LoRA its LoRA projections through the fused LoRA kernel, and
-with ``DFT_CONV_PALLAS`` its resnet 3x3 convs through the fused conv.
+timestep, then the DDIM steps from there.  On the card the UNet's attention
+calls go through the flash-attention kernels, with a dynamic LoRA its LoRA
+projections through the fused LoRA kernel, and with ``DFT_CONV_PALLAS`` its
+resnet 3x3 convs through the fused conv.
+
+On the card a whole request -- text encode, the denoise loop, VAE decode
+and uint8 (img2img: also the VAE encode and the forward noising) -- is one
+CUDA graph (``graph.py``), as the JAX pipeline jits one executable per key
+(``_cached`` :303, ``_build_denoise_fn`` :567, ``_build_img2img_fn`` :808).
+The key: the request kind, steps (and img2img's first step), height, width,
+scheduler, batch; the scheduler config; the installed LoRA trees by
+identity and the LoRA policy; the two kernel switches.  The first request
+of a key captures its graph, later ones copy their inputs into its static
+buffers and replay it: the token ids, the initial latents (drawn eagerly
+per seed, as before), img2img's init image and draws, and the guidance
+scale, a 0-d device tensor (a new scale does not re-capture).  The JAX key
+also holds the latents mode; here given and seeded latents feed the same
+buffer.  ``cuda_graphs = False`` runs requests eagerly on the card, the
+reference the graphs are held against; on the CPU they always run eagerly.
 
 LoRA serving follows the JAX pipeline's policy (:154-165): with
 ``materialize_lora`` (the default) the installed tree is folded into the
@@ -19,7 +34,8 @@ weights once per tree (``lora.materialize_lora_tree``) and cached by tree
 identity, and generation runs the merged weights; with it off, the tree is
 attached to the LoRA layers for the call (the dynamic path).  Trees are
 swapped, never edited in place (``tune_lora_scale`` returns a new tree);
-call :meth:`invalidate_merged_cache` after an in-place edit.
+call :meth:`invalidate_merged_cache` after an in-place edit (it drops the
+graphs too).
 
 Public layouts are the JAX package's: ``latents`` (B, h, w, 4), images
 (B, H, W, 3), img2img's init image (H, W, 3).  The model modules run NCHW.
@@ -39,6 +55,8 @@ from torch.func import functional_call
 from .. import lora as lora_lib
 from .. import resolve_device
 from ..data.tokenizer import CLIPTokenizer
+from ..graph import Graphs
+from ..models.layers import kernel_switches
 from ..models.clip_text import CLIPTextConfig, CLIPTextModel, text_encoder_lora_targets
 from ..models.schedulers import DDIMScheduler, DDPMScheduler, SchedulerConfig
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
@@ -78,8 +96,15 @@ class StableDiffusionPipeline:
         # fold LoRA deltas into the weights for generation (JAX :154-165);
         # False runs the dynamic path through the LoRA kernel
         self.materialize_lora: bool = True
+        # whole requests through CUDA graphs on the card; False runs them
+        # eagerly there (the graphs' reference)
+        self.cuda_graphs: bool = True
         self._merged_current: Dict[str, Tuple] = {}
         self._swap_lock = threading.RLock()
+        self._graphs: Optional[Graphs] = None
+        # forward-noising schedulers by config; never dropped, since a
+        # captured img2img graph reads its device table
+        self._ddpm: Dict[SchedulerConfig, DDPMScheduler] = {}
 
     @property
     def vae_scale_factor(self) -> int:
@@ -96,39 +121,70 @@ class StableDiffusionPipeline:
 
     # -- LoRA materialization ----------------------------------------------
     def invalidate_merged_cache(self) -> None:
+        """Drop the merged weights and the request graphs: the next request
+        merges and captures anew."""
         with self._swap_lock:
             self._merged_current.clear()
+            if self._graphs is not None:
+                self._graphs.graphs.clear()
 
-    def _merged(self, which: str, model, lora) -> Dict[str, torch.Tensor]:
-        """Merged weights for ``lora``, cached while the same tree object
-        stays installed (identity, as the JAX cache).  They are built
-        outside inference mode, as ordinary tensors that need no grad, so
-        that per-weight caches keyed on a tensor's version (the fused
-        conv's tap-major copy, ``ops/conv3x3.py:tap_major``) can hold them:
-        the generation entry points run under ``torch.inference_mode()``,
-        whose tensors have no version counter."""
-        hit = self._merged_current.get(which)
+    def _merged(self, which: str, model, lora, dynamic: bool = False):
+        """Merged weights for ``lora`` (``dynamic``: the tree itself on the
+        model's device and dtype), cached while the same tree object stays
+        installed (identity, as the JAX cache).  They are built outside
+        inference mode, as ordinary tensors that need no grad, so that
+        per-weight caches keyed on a tensor's version (the fused conv's
+        tap-major copy, ``ops/conv3x3.py:tap_major``) can hold them: the
+        generation entry points run under ``torch.inference_mode()``, whose
+        tensors have no version counter.  A dynamic tree is moved once, not
+        in every request: a CUDA graph cannot capture a copy from host
+        memory."""
+        slot = which + (" dynamic" if dynamic else "")
+        hit = self._merged_current.get(slot)
         if hit is not None and hit[0] is lora:
             return hit[1]
+        w = next(model.parameters())
         with torch.inference_mode(False), torch.no_grad():
-            merged = lora_lib.materialize_lora_tree(model, lora)
-        self._merged_current[which] = (lora, merged)
-        return merged
+            out = (_tree_to(lora, w.device, w.dtype) if dynamic
+                   else lora_lib.materialize_lora_tree(model, lora))
+        self._merged_current[slot] = (lora, out)
+        return out
 
     def _generation_params(self):
         """(unet overrides, unet lora, text overrides, text lora) under the
         materialization policy, read as one consistent set."""
         with self._swap_lock:
             unet_lora, text_lora = self.unet_lora, self.text_encoder_lora
+            mat = self.materialize_lora
             unet_over: Dict[str, torch.Tensor] = {}
             text_over: Dict[str, torch.Tensor] = {}
-            if self.materialize_lora:
-                if unet_lora is not None:
-                    unet_over, unet_lora = self._merged("unet", self.unet, unet_lora), None
-                if text_lora is not None:
-                    text_over, text_lora = self._merged(
-                        "text", self.text_encoder, text_lora), None
+            if unet_lora is not None:
+                unet_lora = self._merged("unet", self.unet, unet_lora, dynamic=not mat)
+                if mat:
+                    unet_over, unet_lora = unet_lora, None
+            if text_lora is not None:
+                text_lora = self._merged("text", self.text_encoder, text_lora, dynamic=not mat)
+                if mat:
+                    text_over, text_lora = text_lora, None
             return unet_over, unet_lora, text_over, text_lora
+
+    def _generate(self, key: tuple, body, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """``body(params, inputs)`` -> uint8 images, ``params`` from
+        :meth:`_generation_params`.  On the card (unless ``cuda_graphs`` is
+        off) through the CUDA graph of ``key`` and of what the graph reads
+        besides ``inputs``: captured by the first request, replayed with the
+        new inputs copied into its static buffers by later ones."""
+        if self.device.type != "cuda" or not self.cuda_graphs:
+            return body(self._generation_params(), inputs)
+        with self._swap_lock:  # one request at a time through a graph's buffers
+            params = self._generation_params()
+            trees = (self.materialize_lora, self.unet_lora, self.text_encoder_lora)
+            key = key + (self.scheduler_config, trees[0], id(trees[1]), id(trees[2]),
+                         kernel_switches())
+            if self._graphs is None:
+                self._graphs = Graphs(self.device)
+            return self._graphs.run(key, lambda static: body(params, static), inputs,
+                                    holds=(trees, params)).clone()
 
     # -- text encoding ------------------------------------------------------
     def _tokenize(self, prompts: Sequence[str]) -> torch.Tensor:
@@ -187,21 +243,30 @@ class StableDiffusionPipeline:
         if scheduler != "ddim":
             raise ValueError(f"scheduler {scheduler!r} is not ported yet (only 'ddim')")
 
-        unet_over, unet_lora, text_over, text_lora = self._generation_params()
-        context = self._encode(self._tokenize(negs + prompts), text_over, text_lora)
-        x = self._initial_latents(b, height, width, latents, seed)
-        sch = DDIMScheduler(self.scheduler_config)
-        x = self._denoise(x, sch, sch.timesteps(num_inference_steps).tolist(),
-                          num_inference_steps, context, unet_over, unet_lora, guidance_scale)
-        return self._postprocess(self._decode(x), output_type)
+        inputs = {"ids": self._tokenize(negs + prompts),
+                  "latents": self._initial_latents(b, height, width, latents, seed),
+                  "guidance": self._guidance(guidance_scale)}
+        images = self._generate(
+            ("txt2img", num_inference_steps, height, width, scheduler, b),
+            lambda params, inp: self._txt2img(params, inp, num_inference_steps), inputs)
+        return self._postprocess(images, output_type)
 
-    def _denoise(self, x, sch, timesteps, num_steps, context, unet_over, unet_lora,
-                 guidance_scale):
+    def _guidance(self, scale: float) -> torch.Tensor:
+        return torch.full((), scale, dtype=torch.float32, device=self.device)
+
+    def _txt2img(self, params, inputs, num_steps: int) -> torch.Tensor:
+        unet_over, unet_lora, text_over, text_lora = params
+        context = self._encode(inputs["ids"], text_over, text_lora)
+        sch = DDIMScheduler(self.scheduler_config)
+        x = self._denoise(inputs["latents"], sch, sch.timesteps(num_steps).tolist(), num_steps,
+                          context, unet_over, unet_lora, inputs["guidance"])
+        return self._decode(x)
+
+    def _denoise(self, x, sch, timesteps, num_steps, context, unet_over, unet_lora, g):
         """The CFG loop over ``timesteps``: the UNet on [x; x] against
-        ``context`` ([uncond; cond]), eps_u + g (eps_c - eps_u) in fp32, a
-        ``sch.step`` each."""
+        ``context`` ([uncond; cond]), eps_u + g (eps_c - eps_u) in fp32 (``g``
+        a 0-d fp32 device tensor), a ``sch.step`` each."""
         b = x.shape[0]
-        g = torch.tensor(guidance_scale, dtype=torch.float32)
         with lora_lib.attached(self.unet, unet_lora):
             for t in timesteps:
                 x2 = torch.cat([x, x])
@@ -260,29 +325,42 @@ class StableDiffusionPipeline:
             img = img.astype(np.float32) / 255.0
         x = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         x = (x * 2.0 - 1.0).permute(2, 0, 1)[None]  # (1, 3, H, W) in [-1, 1]
+        h, w, f = x.shape[2], x.shape[3], self.vae_scale_factor
+        if h % f or w % f:
+            raise ValueError(f"init image {h}x{w} is not a multiple of the VAE's factor {f}")
 
-        sch = DDIMScheduler(self.scheduler_config)
-        ts = sch.timesteps(num_inference_steps).tolist()
+        ts = DDIMScheduler(self.scheduler_config).timesteps(num_inference_steps).tolist()
         t_start = img2img_start(len(ts), strength)
-        ts_used = ts[t_start:]
-
-        unet_over, unet_lora, text_over, text_lora = self._generation_params()
-        context = self._encode(self._tokenize(negs + prompts), text_over, text_lora)
-        post = self.vae.encode(x)
         if draws is None:
-            draws = self.img2img_draws(seed, b, tuple(post.mean.shape[2:]))
+            draws = self.img2img_draws(seed, b, (h // f, w // f))
 
         def draw(key):
             d = draws[key]
             d = d if isinstance(d, torch.Tensor) else torch.from_numpy(np.array(d, np.float32))
             return d.to(self.device, torch.float32).permute(0, 3, 1, 2)
 
-        latents0 = (post.sample(noise=draw("sample")) * SCALING_FACTOR).repeat(b, 1, 1, 1)
-        t0 = torch.tensor(ts_used[:1], device=self.device)
-        x = DDPMScheduler(self.scheduler_config).add_noise(latents0.float(), draw("noise"), t0)
-        x = self._denoise(x, sch, ts_used, num_inference_steps, context, unet_over,
-                          unet_lora, guidance_scale)
-        return self._postprocess(self._decode(x), output_type)
+        inputs = {"ids": self._tokenize(negs + prompts), "image": x, "sample": draw("sample"),
+                  "noise": draw("noise"), "guidance": self._guidance(guidance_scale)}
+        images = self._generate(
+            ("img2img", num_inference_steps, t_start, h, w, scheduler, b),
+            lambda params, inp: self._img2img(params, inp, num_inference_steps, ts[t_start:]),
+            inputs)
+        return self._postprocess(images, output_type)
+
+    def _img2img(self, params, inputs, num_steps: int, ts_used) -> torch.Tensor:
+        unet_over, unet_lora, text_over, text_lora = params
+        context = self._encode(inputs["ids"], text_over, text_lora)
+        post = self.vae.encode(inputs["image"])
+        latents0 = (post.sample(noise=inputs["sample"]) * SCALING_FACTOR).repeat(
+            inputs["noise"].shape[0], 1, 1, 1)
+        t0 = torch.full((1,), ts_used[0], dtype=torch.long, device=self.device)
+        cfg = self.scheduler_config
+        ddpm = self._ddpm.get(cfg)
+        if ddpm is None:
+            ddpm = self._ddpm[cfg] = DDPMScheduler(cfg)
+        x = ddpm.add_noise(latents0.float(), inputs["noise"], t0)
+        return self._decode(self._denoise(x, DDIMScheduler(cfg), ts_used, num_steps, context,
+                                          unet_over, unet_lora, inputs["guidance"]))
 
     @staticmethod
     def _postprocess(images: torch.Tensor, output_type: str):
@@ -299,3 +377,11 @@ class StableDiffusionPipeline:
 
             return [Image.fromarray(im) for im in arr]
         return arr
+
+
+def _tree_to(tree, device, dtype):
+    """A LoRA tree's up/down leaves in ``dtype`` and its scale leaves in
+    fp32, all on ``device`` (leaves already there are kept, not copied)."""
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict) else
+            torch.as_tensor(v).to(device, torch.float32 if k == "scale" else dtype)
+            for k, v in tree.items()}

@@ -21,6 +21,8 @@ sample, the noise and the timesteps -- come from a ``torch.Generator`` on
 the model's device, or are handed in as ``draws`` (``sample`` and ``noise``
 in the latents' (B, h, w, C) layout, ``timesteps`` (B,)): ``jax.random``
 cannot be reproduced, so the parity tests pass JAX's draws in.
+:func:`draw_inputs` makes the generator's draws for a batch ahead of the
+step, as a captured train step needs them.
 """
 
 from __future__ import annotations
@@ -64,6 +66,27 @@ def face_mask_weights(mask: torch.Tensor, batch: int, lh: int, lw: int) -> torch
     return mask
 
 
+def draw_inputs(batch: Mapping[str, Any], *, vae, scheduler, t_mutliplier: float = 1.0,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """The three draws :func:`loss_step` makes for ``batch`` from
+    ``generator`` on the VAE's device, in its order: the posterior sample's
+    noise in the VAE's dtype and the forward noise in fp32, both (B, h, w,
+    C) on the latent grid, then the timesteps in [0, T * t_mutliplier)."""
+    dev = _device(vae)
+    if "latent_moments" in batch:
+        b, h, w, c2 = batch["latent_moments"].shape
+        c = c2 // 2
+    else:
+        b, hp, wp, _ = batch["pixel_values"].shape
+        f = 2 ** (len(vae.config.block_out_channels) - 1)
+        h, w, c = hp // f, wp // f, vae.config.latent_channels
+    t_max = int(scheduler.num_train_timesteps * t_mutliplier)
+    return {"sample": torch.randn((b, h, w, c), generator=generator, device=dev, dtype=vae.dtype),
+            "noise": torch.randn((b, h, w, c), generator=generator, device=dev,
+                                 dtype=torch.float32),
+            "timesteps": torch.randint(0, t_max, (b,), generator=generator, device=dev)}
+
+
 def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
               unet_lora: Optional[dict] = None, text_lora: Optional[dict] = None,
               token_embedding: Optional[torch.Tensor] = None,
@@ -76,16 +99,15 @@ def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
     the TI path).  With prior preservation the batch is [instance; class]
     stacked along axis 0."""
     dev = _device(unet)
-    draws = dict(draws or {})
+    if draws is None:
+        draws = draw_inputs(batch, vae=vae, scheduler=scheduler, t_mutliplier=t_mutliplier,
+                            generator=generator)
 
     def get(key):
         return torch.as_tensor(batch[key]).to(dev)
 
-    def draw(key, shape, dtype):
-        given = draws.get(key)
-        if given is not None:
-            return torch.as_tensor(given).to(dev, dtype)
-        return torch.randn(shape, generator=generator, device=dev, dtype=dtype)
+    def draw(key, dtype):
+        return torch.as_tensor(draws[key]).to(dev, dtype)
 
     with torch.no_grad():
         if "latent_moments" in batch:
@@ -98,16 +120,11 @@ def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
                 px = px.float() / 255.0 * 2.0 - 1.0
             posterior = vae.encode(px.permute(0, 3, 1, 2))
         mean = posterior.mean
-        b, c, h, w = mean.shape
-        eps = draw("sample", (b, h, w, c), mean.dtype).permute(0, 3, 1, 2)
+        eps = draw("sample", mean.dtype).permute(0, 3, 1, 2)
         latents = ((mean + posterior.std * eps) * SCALING_FACTOR).float()
 
-    noise = draw("noise", (b, h, w, c), torch.float32).permute(0, 3, 1, 2)
-    t_max = int(scheduler.num_train_timesteps * t_mutliplier)
-    timesteps = draws.get("timesteps")
-    if timesteps is None:
-        timesteps = torch.randint(0, t_max, (b,), generator=generator, device=dev)
-    timesteps = torch.as_tensor(timesteps).to(dev).long()
+    noise = draw("noise", torch.float32).permute(0, 3, 1, 2)
+    timesteps = torch.as_tensor(draws["timesteps"]).to(dev).long()
     noisy = scheduler.add_noise(latents, noise, timesteps)
 
     ids = get("input_ids").long()

@@ -560,3 +560,375 @@ def test_conv3x3_gradients_match_conv2d(card, monkeypatch):
     want = torch.autograd.grad(F.conv2d(x, w, b, padding=1), (x, w, b), dy)
     for a, b_ in zip(got, want):
         assert a.dtype == b_.dtype and _rel_l2(a, b_) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs (graph.py): replays equal to the eager runs, bit for bit
+# ---------------------------------------------------------------------------
+
+SMALL_UNET = dict(sample_size=16, block_out_channels=(64, 128), layers_per_block=1,
+                  cross_attention_dim=32, attention_head_dim=2, norm_num_groups=8,
+                  down_block_types=("CrossAttnDownBlock2D", "DownBlock2D"),
+                  up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
+
+
+def _small_lora(ucfg, seed, device="cpu"):
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.models.unet import unet_all_lora_targets
+
+    g = torch.Generator().manual_seed(seed)
+    targets = lora_lib.filter_targets(unet_all_lora_targets(ucfg),
+                                      lora_lib.DEFAULT_TARGET_REPLACE)
+    tree = lora_lib.inject_trainable_lora(targets, g, r=4, dtype=torch.bfloat16)
+    for _, leaf in lora_lib.lora_leaves(tree):
+        leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * 0.05).bfloat16()
+    return _tree_to(tree, device)
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+@pytest.fixture(scope="module")
+def small_pipe():
+    """A bf16 pipeline on the card with random weights: a UNet of 64 and 128
+    channels (its resnet convs route to K5 with the switch on), the tiny VAE
+    and CLIP; images of 32^2 (16^2 latents)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfgs = (UNetConfig(**SMALL_UNET), VAEConfig.tiny(), CLIPTextConfig.tiny())
+    sds = []
+    for i, (cls, cfg) in enumerate(zip((UNet2DConditionModel, AutoencoderKL, CLIPTextModel),
+                                       cfgs)):
+        torch.manual_seed(i)
+        sds.append(cls(cfg).state_dict())
+    return StableDiffusionPipeline(cfgs[0], sds[0], cfgs[1], sds[1], cfgs[2], sds[2],
+                                   CLIPTokenizer.tiny(["photo", "sks"]), dtype=torch.bfloat16,
+                                   device="cuda")
+
+
+@pytest.fixture(params=[False, True], ids=["switches_off", "switches_on"])
+def switches(request, monkeypatch):
+    """The opt-in kernels off, or on: K5 for the routed resnet convs and K4
+    (two heads a CTA) for the flash forwards."""
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", request.param)
+    monkeypatch.setattr(tfa, "DEFAULT_HEAD_PACK", 2 if request.param else 1)
+    return request.param
+
+
+def _eager(pipe, call):
+    pipe.cuda_graphs = False
+    try:
+        return call()
+    finally:
+        pipe.cuda_graphs = True
+
+
+@pytest.mark.cuda
+def test_unet_step_replay_equals_eager(small_pipe, switches):
+    """One dynamic-LoRA UNet step captured with graph.Graphs: its replay
+    equals the eager step bit for bit, and its capture launched the port's
+    kernels (K1 or K4, K2, and with the switches K5)."""
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.graph import Graphs
+
+    pipe = small_pipe
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((2, 4, 16, 16), generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((2, 77, 32), generator=g, device="cuda").bfloat16()
+    t = torch.tensor([500, 20], device="cuda")
+    lora = _small_lora(pipe.unet_config, 3, "cuda")
+    graphs = Graphs(pipe.device)
+    with torch.inference_mode(), lora_lib.attached(pipe.unet, lora):
+        want = pipe.unet(x, t, ctx)
+        before = (tlm.launches, tconv.launches, tfa.launches + tfa.packed_launches)
+        entry = graphs.capture("unet step", lambda: pipe.unet(x, t, ctx))
+        launched = (tlm.launches - before[0], tconv.launches - before[1],
+                    tfa.launches + tfa.packed_launches - before[2])
+        got = entry.replay().clone()
+        again = entry.replay().clone()
+    assert torch.equal(got, want) and torch.equal(again, want)
+    assert launched[0] > 0 and launched[2] > 0 and (launched[1] > 0) == switches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("materialize", [False, True], ids=["dynamic", "merged"])
+def test_txt2img_graph_equals_eager(small_pipe, switches, materialize):
+    """txt2img (4 DDIM steps, batches 1 and 2) through its CUDA graph:
+    captured by the first request of a key, replayed by the next ones, every
+    image equal to the eager request's bit for bit."""
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 4, "cuda"), materialize
+    pipe.invalidate_merged_cache()
+    kw = dict(height=32, width=32, num_inference_steps=4, output_type="device")
+    for prompt, seed in (("photo of sks", 1), (["photo", "sks photo"], [2, 3]),
+                         ("photo of sks", 5)):
+        got = pipe(prompt, seed=seed, **kw)
+        want = _eager(pipe, lambda: pipe(prompt, seed=seed, **kw))
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+    graphs = pipe._graphs.graphs
+    assert len(graphs) == 2 and sorted(e.replays for e in graphs.values()) == [1, 2]
+
+
+@pytest.mark.cuda
+def test_img2img_graph_equals_eager(small_pipe, switches):
+    """img2img (10 steps at strength 0.6, batch 2, dynamic LoRA) through its
+    graph, twice, against the eager request."""
+    import numpy as np
+
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 5, "cuda"), False
+    pipe.invalidate_merged_cache()
+    image = np.random.default_rng(0).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    for seed in (1, 2):
+        kw = dict(strength=0.6, num_inference_steps=10, seed=seed, output_type="device")
+        got = pipe.img2img(["photo", "photo of sks"], image, **kw)
+        want = _eager(pipe, lambda: pipe.img2img(["photo", "photo of sks"], image, **kw))
+        assert torch.equal(got, want)
+    assert [e.replays for e in pipe._graphs.graphs.values()] == [2]
+
+
+@pytest.mark.cuda
+def test_pipeline_graph_cache_keys(small_pipe):
+    """A new guidance scale replays the same graph (and changes the image);
+    a swapped LoRA tree and invalidate_merged_cache capture anew, and the
+    new images equal the eager ones (no stale weights)."""
+    pipe = small_pipe
+    pipe.materialize_lora = True
+    pipe.unet_lora = _small_lora(pipe.unet_config, 6, "cuda")
+    pipe.invalidate_merged_cache()
+    kw = dict(height=32, width=32, num_inference_steps=3, seed=0, output_type="device")
+    a = pipe("photo", guidance_scale=7.5, **kw)
+    b = pipe("photo", guidance_scale=3.0, **kw)
+    graphs = pipe._graphs.graphs
+    assert len(graphs) == 1 and not torch.equal(a, b)
+    assert torch.equal(b, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
+    pipe.unet_lora = _small_lora(pipe.unet_config, 7, "cuda")
+    c = pipe("photo", guidance_scale=3.0, **kw)
+    assert len(graphs) == 2 and not torch.equal(b, c)
+    assert torch.equal(c, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+
+    with torch.no_grad():  # an in-place edit, then the invalidation it needs
+        for _, leaf in lora_lib.lora_leaves(pipe.unet_lora):
+            leaf["up"].mul_(2)
+    pipe.invalidate_merged_cache()
+    assert len(graphs) == 0
+    d = pipe("photo", guidance_scale=3.0, **kw)
+    assert len(graphs) == 1 and not torch.equal(c, d)
+    assert torch.equal(d, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
+
+
+def _train_setup(pipe, ti=False, accum=1, use_8bit=False):
+    """(step function, maker of equal fresh train states, batches) on the
+    small pipeline's modules; with ``ti`` the token embedding trains
+    (constrained, rows 5-7), else a UNet LoRA."""
+    import numpy as np
+
+    from diffusion_finetuning_tpu_torch.models.schedulers import DDPMScheduler
+    from diffusion_finetuning_tpu_torch.training import optim, train_step as ts
+
+    name = "ti_embeddings" if ti else "unet_lora"
+    opt = optim.multi_group_optimizer({name: optim.ParamGroup(lr=1e-3, schedule="cosine",
+                                                              warmup_steps=2)},
+                                      grad_accum_steps=accum, max_grad_norm=0.5,
+                                      use_8bit=use_8bit)
+    step = ts.build_train_step(
+        unet=pipe.unet, text_encoder=pipe.text_encoder, vae=pipe.vae, scheduler=DDPMScheduler(),
+        optimizer=opt, partition=ts.TrainablePartition(unet_lora=not ti, ti=ti),
+        ti_lr_schedule=optim.lr_schedule("constant", 5e-3) if ti else None,
+        grad_accum_steps=accum)
+    emb = pipe.text_encoder.text_model.embeddings.token_embedding.weight.detach().float()
+    rows = torch.zeros(emb.shape[0], dtype=torch.bool)
+    rows[5:8] = True
+
+    def state():
+        if ti:
+            return ts.init_train_state(opt, ti_embeddings=emb, index_updates=rows)
+        return ts.init_train_state(opt, unet_lora=_small_lora(pipe.unet_config, 8))
+
+    rng = np.random.default_rng(0)
+    batches = [{"pixel_values": rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8),
+                "input_ids": rng.integers(0, 300, (1, 77)).astype(np.int32)}
+               for _ in range(6)]
+    for b in batches:
+        b["input_ids"][0, :3] = [5, 6, 7]
+    return step, state, batches
+
+
+def _assert_states_equal(a, b):
+    from diffusion_finetuning_tpu_torch.training.train_step import carried_tensors
+
+    assert a["step"] == b["step"]
+    for x, y in zip(carried_tensors(a), carried_tensors(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spd", [1, 3])
+@pytest.mark.parametrize("case", ["unet_lora", "ti_accum2", "unet_lora_8bit"])
+def test_train_step_graphs_equal_eager(small_pipe, switches, spd, case):
+    """6 steps through jit_train_step (spd 1) or two multi_step(3) graphs
+    against 6 eager steps from an equal state with equal generators: the
+    losses, the parameters, the moments and the counts bit for bit."""
+    from diffusion_finetuning_tpu_torch.training import train_step as ts
+
+    step, state, batches = _train_setup(small_pipe, ti=case.startswith("ti"),
+                                        accum=2 if "accum2" in case else 1,
+                                        use_8bit=case.endswith("8bit"))
+    eager, graphed = state(), state()
+    ge, gg = (torch.Generator(device="cuda").manual_seed(9) for _ in range(2))
+    want = [step(eager, b, ge)[1]["loss"] for b in batches]
+    if spd == 1:
+        fn = ts.jit_train_step(step)
+        got = [fn(graphed, b, gg)[1]["loss"] for b in batches]
+    else:
+        fn = ts.multi_step(step, spd)
+        got = [loss for i in range(0, 6, spd) for loss in
+               fn(graphed, ts.stack_batches(batches[i:i + spd]), gg)[1]["loss"]]
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    _assert_states_equal(graphed, eager)
+    assert graphed["step"] == 6 and int(graphed["device_step"]) == 6
+
+
+@pytest.mark.cuda
+def test_fused_dispatcher_on_the_card_equals_eager(small_pipe):
+    """FusedDispatcher(spd=2).drive over 5 steps (groups 2, 2 staged by
+    prepare, then a one-off tail of 1) against 5 eager steps."""
+    from diffusion_finetuning_tpu_torch.training import train_step as ts
+
+    step, state, batches = _train_setup(small_pipe)
+    eager, graphed = state(), state()
+    ge, gg = (torch.Generator(device="cuda").manual_seed(4) for _ in range(2))
+    want = torch.stack([step(eager, b, ge)[1]["loss"] for b in batches[:5]])
+    disp = ts.FusedDispatcher(step, spd=2)
+    got = [losses for _, losses, _, _ in disp.drive(
+        graphed, gg, lambda gs: batches[gs:min(gs + 2, 5)], 5)]
+    assert torch.equal(torch.cat(got), want)
+    _assert_states_equal(graphed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_8bit", [False, True], ids=["fp32", "8bit"])
+def test_optimizer_step_replay_equals_eager(card, use_8bit):
+    """The optimiser step alone (clip, accumulation 2, a gated group and a
+    runtime LR scale), captured once and replayed for 4 steps, against 4
+    eager steps on equal parameters and gradients."""
+    from diffusion_finetuning_tpu_torch.graph import Graphs
+    from diffusion_finetuning_tpu_torch.training import optim
+
+    groups = {"a": optim.ParamGroup(lr=1e-2, schedule="linear", warmup_steps=1, total_steps=8),
+              "b": optim.ParamGroup(lr=5e-3, lr_gate=optim.StepGate(1))}
+    opt = optim.multi_group_optimizer(groups, grad_accum_steps=2, max_grad_norm=1.0,
+                                      use_8bit=use_8bit, runtime_lr_scale=True)
+    g = torch.Generator(device=card).manual_seed(2)
+
+    def make():
+        gg = torch.Generator(device=card).manual_seed(1)
+        params = {"a": {"x": torch.randn((300, 7), generator=gg, device=card)},
+                  "b": torch.randn((5, 3), generator=gg, device=card)}
+        for t in optim.trainable_tensors(params):
+            t.requires_grad_(True)
+            t.grad = torch.zeros_like(t)
+        return params, opt.init(params)
+
+    (pe, se), (pg, sg) = make(), make()
+    optim.set_lr_scale(se, "a", 0.5)
+    optim.set_lr_scale(sg, "a", 0.5)
+    grads = [[torch.randn(t.shape, generator=g, device=card) for t in optim.trainable_tensors(pe)]
+             for _ in range(4)]
+    graphs, entry = Graphs(card), None
+    for gs in grads:
+        for t, gr in zip(optim.trainable_tensors(pe), gs):
+            t.grad.copy_(gr)
+        opt.step(se)
+        for t, gr in zip(optim.trainable_tensors(pg), gs):
+            t.grad.copy_(gr)
+        if entry is None:
+            snap = [t.detach().clone() for t in sg.params() + sg.tensors()]
+
+            def restore():
+                opt.step(sg)
+                torch._foreach_copy_(sg.params() + sg.tensors(), snap)
+
+            with torch.no_grad():
+                entry = graphs.capture("opt", lambda: opt.step(sg), restore)
+        entry.replay()
+    for x, y in zip(se.params() + se.tensors(), sg.params() + sg.tensors()):
+        assert torch.equal(x, y)
+    assert int(sg.count) == 2
+
+
+@pytest.mark.cuda
+def test_capture_allocates_no_counters_or_tap_major_copies(card):
+    """Inside a capture a new arrival-counter buffer or a tap-major weight
+    copy is refused (the warm-up makes them); with a warm-up the same calls
+    capture."""
+    from diffusion_finetuning_tpu_torch.graph import GraphError, Graphs
+    from diffusion_finetuning_tpu_torch.ops import _grid
+
+    graphs = Graphs(card)
+    stream = graphs.stream.cuda_stream
+    with pytest.raises(GraphError, match="arrival counters"):
+        graphs.capture("counters", lambda: _grid.arrival_counters(card, stream, 64),
+                       warmup=lambda: None)
+    graphs.capture("counters, warmed", lambda: _grid.arrival_counters(card, stream, 64))
+    w = torch.randn((64, 64, 3, 3), device=card, dtype=torch.bfloat16)
+    with pytest.raises(GraphError, match="tap-major"):
+        graphs.capture("tap major", lambda: tconv.tap_major(w), warmup=lambda: None)
+    before = tconv.tap_major_copies
+    graphs.capture("tap major, warmed", lambda: tconv.tap_major(w))
+    assert tconv.tap_major_copies == before + 1  # the warm-up's copy, none in the capture
+
+
+@pytest.mark.cuda
+def test_graphs_drop_the_oldest_beyond_the_bound(card, monkeypatch):
+    """An owner keeps at most MAX_GRAPHS graphs, dropping the oldest; the
+    graphs kept still replay."""
+    from diffusion_finetuning_tpu_torch import graph
+
+    monkeypatch.setattr(graph, "MAX_GRAPHS", 2)
+    graphs = graph.Graphs(card)
+    x = torch.arange(4.0, device=card)
+    outs = [graphs.run(k, lambda static, k=k: static["x"] * k, {"x": x}).clone()
+            for k in (1, 2, 3)]
+    assert list(graphs.graphs) == [2, 3]
+    assert torch.equal(outs[2], x * 3)
+    assert torch.equal(graphs.run(2, None, {"x": x + 1}), (x + 1) * 2)
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_runs_nothing_eagerly(small_pipe):
+    """A step that reads the device on the host cannot be captured: the
+    first graphed call raises GraphError naming the key, the state is as it
+    was (the warm-up's step undone, none run in its place), and the next
+    eager step still runs."""
+    from diffusion_finetuning_tpu_torch.graph import GraphError
+    from diffusion_finetuning_tpu_torch.training import train_step as ts
+
+    step, state, batches = _train_setup(small_pipe)
+
+    def syncing_step(st, batch, generator=None, draws=None):
+        st, m = step(st, batch, generator, draws)
+        float(m["loss"])  # a host read: not permitted while capturing
+        return st, m
+
+    syncing_step.draws = step.draws
+    s = state()
+    before = [t.clone() for t in ts.carried_tensors(s)]
+    with pytest.raises(GraphError, match="capture of CUDA graph"):
+        ts.jit_train_step(syncing_step)(s, batches[0], torch.Generator(device="cuda"))
+    assert s["step"] == 0
+    for x, y in zip(ts.carried_tensors(s), before):
+        assert torch.equal(x, y)
+    s, m = step(s, batches[0], torch.Generator(device="cuda").manual_seed(0))
+    assert s["step"] == 1 and bool(torch.isfinite(m["loss"]))

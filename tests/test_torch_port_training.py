@@ -28,28 +28,21 @@ import numpy as np
 import pytest
 import torch
 
-from diffusion_finetuning_tpu import lora as jlora
-from diffusion_finetuning_tpu.models import clip_text as jclip
 from diffusion_finetuning_tpu.models import schedulers as jsched
-from diffusion_finetuning_tpu.models import unet as junet
-from diffusion_finetuning_tpu.models import vae as jvae
 from diffusion_finetuning_tpu.training import latent_cache as jcache
 from diffusion_finetuning_tpu.training import loss as jloss
 from diffusion_finetuning_tpu.training import optim as jopt
 from diffusion_finetuning_tpu.training import train_step as jtrain
 
 from diffusion_finetuning_tpu_torch import lora as tlora
-from diffusion_finetuning_tpu_torch.models import clip_text as tclip
 from diffusion_finetuning_tpu_torch.models import schedulers as tsched
-from diffusion_finetuning_tpu_torch.models import unet as tunet
-from diffusion_finetuning_tpu_torch.models import vae as tvae
 from diffusion_finetuning_tpu_torch.models import weights
 from diffusion_finetuning_tpu_torch.training import latent_cache as tcache
 from diffusion_finetuning_tpu_torch.training import loss as tloss
 from diffusion_finetuning_tpu_torch.training import optim as topt
 from diffusion_finetuning_tpu_torch.training import train_step as ttrain
 
-from tests.torch_port_fixtures import numpy_lora_tree, tiny_params, to_jax
+from tests.torch_port_fixtures import training_models, to_jax
 
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -60,26 +53,7 @@ LATENT = (8, 8, 4)  # the tiny VAE's latent grid for 16x16 pixels
 
 @pytest.fixture(scope="module")
 def models():
-    """JAX modules + numpy params, and the port's frozen fp32 CPU modules
-    holding the same weights."""
-    ucfg, vcfg, tcfg = junet.UNetConfig.tiny(), jvae.VAEConfig.tiny(), jclip.CLIPTextConfig.tiny()
-    up, vp, cp = tiny_params()
-    jax_side = dict(unet=junet.UNet2DConditionModel(ucfg), vae=jvae.AutoencoderKL(vcfg),
-                    text_encoder=jclip.CLIPTextModel(tcfg), unet_params=to_jax(up),
-                    vae_params=to_jax(vp), text_params=to_jax(cp))
-    port = dict(
-        unet=weights.load_module(tunet.UNet2DConditionModel, tunet.UNetConfig.tiny(),
-                                 weights.unet_state_dict(up, ucfg), torch.float32, "cpu"),
-        vae=weights.load_module(tvae.AutoencoderKL, tvae.VAEConfig.tiny(),
-                                weights.vae_state_dict(vp, vcfg), torch.float32, "cpu"),
-        text_encoder=weights.load_module(tclip.CLIPTextModel, tclip.CLIPTextConfig.tiny(),
-                                         weights.text_state_dict(cp, tcfg), torch.float32,
-                                         "cpu"))
-    unet_targets = jlora.filter_targets(junet.unet_lora_targets(ucfg),
-                                        jlora.DEFAULT_TARGET_REPLACE)
-    trees = dict(unet=numpy_lora_tree(unet_targets, rank=2, seed=0),
-                 text=numpy_lora_tree(jclip.text_encoder_lora_targets(tcfg), rank=2, seed=1))
-    return jax_side, port, trees
+    return training_models()
 
 
 def _flat(tree):

@@ -60,3 +60,38 @@ def numpy_lora_tree(targets, rank=2, seed=0, scale=0.7, amp=0.3):
 
 def to_jax(tree):
     return jax.tree_util.tree_map(jnp.asarray, tree)
+
+
+def training_models():
+    """JAX modules + numpy params, the port's frozen fp32 CPU modules
+    holding the same weights, and numpy UNet and text LoRA trees (rank 2,
+    non-zero up): the training tests' models."""
+    import torch
+
+    from diffusion_finetuning_tpu import lora as jlora
+    from diffusion_finetuning_tpu.models import clip_text as jclip
+    from diffusion_finetuning_tpu.models import unet as junet
+    from diffusion_finetuning_tpu.models import vae as jvae
+    from diffusion_finetuning_tpu_torch.models import clip_text as tclip
+    from diffusion_finetuning_tpu_torch.models import unet as tunet
+    from diffusion_finetuning_tpu_torch.models import vae as tvae
+    from diffusion_finetuning_tpu_torch.models import weights
+
+    ucfg, vcfg, tcfg = junet.UNetConfig.tiny(), jvae.VAEConfig.tiny(), jclip.CLIPTextConfig.tiny()
+    up, vp, cp = tiny_params()
+    jax_side = dict(unet=junet.UNet2DConditionModel(ucfg), vae=jvae.AutoencoderKL(vcfg),
+                    text_encoder=jclip.CLIPTextModel(tcfg), unet_params=to_jax(up),
+                    vae_params=to_jax(vp), text_params=to_jax(cp))
+    port = dict(
+        unet=weights.load_module(tunet.UNet2DConditionModel, tunet.UNetConfig.tiny(),
+                                 weights.unet_state_dict(up, ucfg), torch.float32, "cpu"),
+        vae=weights.load_module(tvae.AutoencoderKL, tvae.VAEConfig.tiny(),
+                                weights.vae_state_dict(vp, vcfg), torch.float32, "cpu"),
+        text_encoder=weights.load_module(tclip.CLIPTextModel, tclip.CLIPTextConfig.tiny(),
+                                         weights.text_state_dict(cp, tcfg), torch.float32,
+                                         "cpu"))
+    unet_targets = jlora.filter_targets(junet.unet_lora_targets(ucfg),
+                                        jlora.DEFAULT_TARGET_REPLACE)
+    trees = dict(unet=numpy_lora_tree(unet_targets, rank=2, seed=0),
+                 text=numpy_lora_tree(jclip.text_encoder_lora_targets(tcfg), rank=2, seed=1))
+    return jax_side, port, trees
