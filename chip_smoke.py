@@ -61,14 +61,28 @@ Phases, each fatal on failure:
      LoRA masters, moments and counts from equal states and generators);
      the launch counters, set to 0 just before a path's first graphed call,
      must read twice its launches (the warm-up and the capture) and no
-     more after 10 replays, and one replay traced with torch.profiler must
+     more after GRAPH_REPEATS replays, and one replay traced with torch.profiler must
      run them on the device.  Printed for both: wall ms (median and range
-     of 10 calls; of 5 eager requests), requests or steps a second,
+     of GRAPH_REPEATS calls; of EAGER_REQUESTS eager requests), requests or steps a second,
      device-busy ms and kernels of one traced call, idle share (1 - busy /
      median wall), peak memory, tap-major copies the graph holds; for the
      graph its first call (warm-up, capture, replay).  ``--profile DIR``
      also writes the kernel tables of one graphed dynamic-LoRA image and
-     one graphed train step.
+     one graphed train step;
+  8. the serving entry point: the pipe written as a diffusers directory in
+     bf16 (``save_pretrained``) and read back (``from_pretrained``), every
+     tensor equal; adapter A (UNet and text rank-4 LoRA, one TI token) in
+     one safetensors and adapter B as a ``.pt`` triple, read back bit for
+     bit (B's pairs as fp16); ``patch_pipe`` A, then B, then
+     ``tune_lora_scale_pipe`` at one request key (512^2, 30 steps, "dpm"):
+     one graph captured, each image equal to the eager one, the merge and
+     buffer-copy ms of each swap, memory not grown by a merged set; then
+     ``GenerationServer(max_batch=4)`` with A merged and B dynamic (K2):
+     bursts of 12 requests from 4 threads (adapters None, A, B with "dpm",
+     "euler_a", "ddim") until one captures no graph, the launch counters,
+     set to 0 just before each burst, equal to what its newly captured
+     graphs launch (warm-up and capture), every image within PIPE_MEAN_ABS
+     of its lone batch-1 run; requests a second and latency p50/p95.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -1782,6 +1796,382 @@ def phase_graphed(pipe, ucfg, lora_cpu, lora_dev, profile_dir=None):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+SERVE_STEPS = 30
+SERVE_SCHEDULERS = ("dpm", "euler_a", "ddim")  # the server's default first
+SERVE_MAX_BATCH = 4
+SERVE_REQUESTS = 12
+SERVE_THREADS = 4
+# bursts run until one captures no graph (its requests/s is the warm rate):
+# which batch sizes a burst forms depends on the threads' interleaving
+SERVE_BURSTS = 4
+TEXT_LORA_PER_ENCODE = 48  # 12 CLIP layers x (k, v, q, out) through K2 when dynamic
+TOKEN_A, TOKEN_B = "<sks-a>", "<sks-b>"
+
+
+def random_text_lora(tcfg, seed):
+    """A rank-4 text-encoder LoRA tree (bf16, CPU) with a non-zero up."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.models.clip_text import text_encoder_lora_targets
+
+    g = torch.Generator().manual_seed(seed)
+    tree = lora_lib.inject_trainable_lora(text_encoder_lora_targets(tcfg), g, r=LORA_RANK,
+                                          dtype=torch.bfloat16)
+    for _, leaf in lora_lib.lora_leaves(tree):
+        leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * LORA_UP_STD).bfloat16()
+    return tree
+
+
+def phase_model_dir(pipe, tmp):
+    """The pipe written with ``save_pretrained`` in bf16 and read back with
+    ``from_pretrained``: every tensor equal.  Returns the loaded pipe."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models.hf_export import save_pretrained
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    d = os.path.join(tmp, "sd15")
+    t0 = time.perf_counter()
+    save_pretrained(pipe, d, dtype=torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+    t0 = time.perf_counter()
+    loaded = StableDiffusionPipeline.from_pretrained(d, dtype=torch.bfloat16, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n = 0
+    for name in ("unet", "vae", "text_encoder"):
+        a, b = getattr(pipe, name).state_dict(), getattr(loaded, name).state_dict()
+        if a.keys() != b.keys():
+            fail(f"from_pretrained's {name} has other tensors than the pipe's")
+        for k, v in a.items():
+            n += 1
+            if not torch.equal(v, b[k]):
+                fail(f"from_pretrained's {name}.{k} differs from the pipe's")
+    if (loaded.unet_config, loaded.vae_config, loaded.scheduler_config) != (
+            pipe.unet_config, pipe.vae_config, pipe.scheduler_config):
+        fail("from_pretrained read other configs than the pipe's")
+    log(f"model dir: save_pretrained bf16 {size / 2**30:.3f} GiB in {write_s:.2f} s, "
+        f"from_pretrained {load_s:.2f} s; {n} tensors equal")
+    return loaded, {"bytes": size, "write_s": write_s, "load_s": load_s, "tensors": n}
+
+
+def phase_lora_files(pipe, ucfg, tcfg, tmp):
+    """Adapter A, a UNet and text-encoder rank-4 LoRA and one TI token in
+    one safetensors (``save_safeloras_with_embeds``), and adapter B, a
+    ``.pt`` triple (``save_all(safe_form=False)``), read back: the
+    safetensors bit-equal, the ``.pt`` lists equal to the fp16-rounded
+    trees, B's embed in fp32."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+
+    ut = pipe.lora_targets("unet", lora_lib.DEFAULT_TARGET_REPLACE)
+    tt = pipe.lora_targets("text_encoder", lora_lib.TEXT_ENCODER_DEFAULT_TARGET_REPLACE)
+    g = torch.Generator().manual_seed(SEED + 60)
+    dim = tcfg.hidden_size
+    trees = {"A": (random_lora(ucfg, SEED + 61), random_text_lora(tcfg, SEED + 62),
+                   {TOKEN_A: (torch.randn(dim, generator=g) * 0.02).bfloat16()}),
+             "B": (random_lora(ucfg, SEED + 63), random_text_lora(tcfg, SEED + 64),
+                   {TOKEN_B: torch.randn(dim, generator=g) * 0.02})}
+    paths = {"A": os.path.join(tmp, "adapter_a.safetensors"),
+             "B": os.path.join(tmp, "adapter_b.pt")}
+    ua, ta, ea = trees["A"]
+    lora_lib.save_safeloras_with_embeds(
+        {"unet": (ua, ut, lora_lib.DEFAULT_TARGET_REPLACE),
+         "text_encoder": (ta, tt, lora_lib.TEXT_ENCODER_DEFAULT_TARGET_REPLACE)}, ea, paths["A"])
+    ub, tb, eb = trees["B"]
+    lora_lib.save_all(ub, tb, ut, tt, eb, paths["B"], safe_form=False)
+
+    tensors, meta = safetensors_io.read_safetensors(paths["A"])
+    loras = safetensors_io.parse_safeloras(tensors, meta)
+    for name, tree, targets in (("unet", ua, ut), ("text_encoder", ta, tt)):
+        flat, ranks, _ = loras[name]
+        if set(ranks) != {LORA_RANK} or not all(
+                torch.equal(a, b) for a, b in zip(flat, lora_lib.lora_tree_to_flat(tree, targets))):
+            fail(f"adapter A's {name} pairs do not read back bit for bit")
+    if not torch.equal(safetensors_io.parse_safeloras_embeds(tensors, meta)[TOKEN_A], ea[TOKEN_A]):
+        fail("adapter A's TI embed does not read back bit for bit")
+    for path, tree, targets in ((paths["B"], ub, ut),
+                                (lora_lib._text_lora_path(paths["B"]), tb, tt)):
+        got = torch.load(path, weights_only=True)
+        want = lora_lib.lora_tree_to_flat(tree, targets)
+        if not all(a.dtype == torch.float16 and torch.equal(a, b.half())
+                   for a, b in zip(got, want)) or len(got) != len(want):
+            fail(f"{path} does not hold the fp16-rounded pairs")
+    ti = torch.load(lora_lib._ti_lora_path(paths["B"]), weights_only=True)
+    if not torch.equal(ti[TOKEN_B], eb[TOKEN_B].float()):
+        fail("adapter B's TI embed does not read back")
+    sizes = {k: os.path.getsize(p) for k, p in paths.items()}
+    log(f"LoRA files: A {sizes['A']} bytes (safetensors, {len(tensors)} tensors), "
+        f"B {sizes['B']} bytes (.pt) + text encoder + TI side-cars; read back equal")
+    return paths
+
+
+def _param_copy(pipe):
+    """Resolve the installed trees (merged where they changed) and copy
+    them into the request graphs' static buffers, each part timed on the
+    host clock around work ending in a synchronize: (merge ms, copy ms,
+    bytes copied); the copy is None before the buffers exist."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import param_signature
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = pipe._generation_params()
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    sig, flat = param_signature(params)
+    bufs = None if pipe._graphs is None else pipe._graphs.params.get(sig)
+    if bufs is None:
+        return merge_ms, None, 0
+    t0 = time.perf_counter()
+    copied = bufs.fill(flat)
+    torch.cuda.synchronize()
+    return merge_ms, (time.perf_counter() - t0) * 1e3, copied
+
+
+def phase_swaps(pipe, paths):
+    """``patch_pipe`` with A, then B, then ``tune_lora_scale_pipe`` at one
+    request key (512^2, 30 steps, "dpm", batch 1): one graph captured, each
+    image equal to the eager request, and the memory after each swap not
+    grown by a merged set: neither what stays allocated nor the peak from
+    the swap through its request (merge, copy and replay), which must stay
+    under the first swap's peak (that of the capture) plus half a set, and
+    within half a set of what was allocated before the swap (the superseded
+    set is freed before the next is built)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import patch_pipe, tune_lora_scale_pipe
+
+    pipe.cuda_graphs, pipe.materialize_lora = True, True
+    kw = dict(num_inference_steps=SERVE_STEPS, height=IMAGE, width=IMAGE, scheduler="dpm",
+              guidance_scale=GUIDANCE, seed=1, output_type="device")
+    prompt = f"a photo of {TOKEN_A} person"
+    swaps = [("patch A", lambda: patch_pipe(pipe, paths["A"], patch_text=True, patch_ti=True)),
+             ("patch B", lambda: patch_pipe(pipe, paths["B"], patch_text=True, patch_ti=True)),
+             ("tune 0.6", lambda: tune_lora_scale_pipe(pipe, 0.6))]
+    rows, images = [], []
+    for label, swap in swaps:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        swap()
+        torch.cuda.synchronize()
+        install_ms = (time.perf_counter() - t0) * 1e3
+        merge_ms, copy_ms, copied = _param_copy(pipe)
+        t0 = time.perf_counter()
+        img = pipe(prompt, **kw)
+        torch.cuda.synchronize()
+        request_ms = (time.perf_counter() - t0) * 1e3
+        peak, allocated = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        pipe.cuda_graphs = False
+        eager = pipe(prompt, **kw)
+        pipe.cuda_graphs = True
+        equal = torch.equal(img, eager)
+        rows.append(dict(swap=label, install_ms=install_ms, merge_ms=merge_ms, copy_ms=copy_ms,
+                         copied_bytes=copied, request_ms=request_ms, peak_bytes=peak,
+                         before_bytes=before, allocated_bytes=allocated, graphs=len(pipe._graphs.graphs),
+                         equal=equal))
+        images.append(img)
+        copy = "buffers made by the capture" if copy_ms is None else (
+            f"copy {copy_ms:.3f} ms ({copied / 2**30:.3f} GiB)")
+        log(f"swap {label}: install {install_ms:.1f} ms, merge {merge_ms:.1f} ms, {copy}; "
+            f"request {request_ms:.1f} ms; peak {peak / 2**30:.3f} GiB, allocated "
+            f"{allocated / 2**30:.3f} GiB; graphs {rows[-1]['graphs']}; equal to eager {equal}")
+        if not equal:
+            fail(f"the graphed request after {label} differs from the eager one")
+    merged = sum(w.numel() * w.element_size() for w in pipe._generation_params()[0].values())
+    if {r["graphs"] for r in rows} != {1}:
+        fail(f"the swaps captured {rows[-1]['graphs']} graphs, want 1")
+    if any(torch.equal(a, b) for a, b in zip(images, images[1:])):
+        fail("a swap left the image unchanged")
+    grown = max(r["allocated_bytes"] for r in rows[1:]) - rows[1]["allocated_bytes"]
+    peak_over = max(r["peak_bytes"] for r in rows[1:]) - rows[0]["peak_bytes"]
+    held = max(r["peak_bytes"] - r["before_bytes"] for r in rows[1:])
+    log(f"merged set {merged / 2**30:.3f} GiB; allocated grew {grown / 2**30:.3f} GiB over "
+        f"the swaps after the first; their peak is {peak_over / 2**30:.3f} GiB over the "
+        f"first swap's and at most {held / 2**30:.3f} GiB over what was allocated before "
+        "each")
+    if grown >= merged // 2:
+        fail("the memory grew by a merged set per swap")
+    if peak_over >= merged // 2 or held >= merged // 2:
+        fail("a swap's peak held a second merged set")
+    pipe.unet_lora = pipe.text_encoder_lora = None
+    pipe.text_params = {}
+    return rows, merged
+
+
+def _burst(server, requests):
+    """``requests`` [(prompt, seed, scheduler, adapter)] from SERVE_THREADS
+    threads released together, request i from thread i % SERVE_THREADS;
+    returns (images in request order, latency s each from its submit to its
+    future's resolution, wall s of the burst)."""
+    import threading
+
+    out, lat = [None] * len(requests), [None] * len(requests)
+    start = threading.Barrier(SERVE_THREADS + 1)
+
+    def client(t):
+        start.wait()
+        mine = []
+        for i, (p, s, sch, a) in enumerate(requests):
+            if i % SERVE_THREADS != t:
+                continue
+            t0 = time.perf_counter()
+            fut = server.submit(p, steps=SERVE_STEPS, height=IMAGE, width=IMAGE,
+                                guidance_scale=GUIDANCE, scheduler=sch, seed=s, adapter=a)
+            fut.add_done_callback(
+                lambda f, i=i, t0=t0: lat.__setitem__(i, time.perf_counter() - t0))
+            mine.append((i, fut))
+        for i, fut in mine:
+            out[i] = fut.result(timeout=600)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(SERVE_THREADS)]
+    for th in threads:
+        th.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(timeout=900)
+    wall = time.perf_counter() - t0
+    for _ in range(100):  # the last done callbacks may still be running
+        if all(x is not None for x in lat):
+            break
+        time.sleep(0.01)
+    if any(th.is_alive() for th in threads) or any(o is None for o in out + lat):
+        fail("a served request did not come back")
+    return out, lat, wall
+
+
+def _graph_launches(keys, per_step):
+    """The wrapper launches of capturing the request graphs ``keys``:
+    twice (warm-up and capture) each UNet step's K1 calls, and K2's where
+    the UNet LoRA is dynamic, plus the text encoder's K2 calls where its
+    LoRA is."""
+    total = want_counts()
+    for key in keys:
+        steps, sig = key[1], key[7]
+        parts = {k[0][0] for k in sig}
+        total["flash_attention_fwd"] += 2 * per_step["flash_attention_fwd"] * steps
+        total["lora_dense"] += 2 * (per_step["lora_dense"] * steps * (1 in parts)
+                                    + TEXT_LORA_PER_ENCODE * (3 in parts))
+    return total
+
+
+def _key_label(key):
+    """The scheduler, batch and LoRA route of a request graph's key."""
+    parts = {k[0][0] for k in key[7]}
+    lora = "dynamic" if 1 in parts else "merged" if 0 in parts else "no LoRA"
+    return f"{key[4]} b{key[5]} {lora}"
+
+
+def phase_server(pipe, paths, per_step):
+    """``GenerationServer(pipe, max_batch=4)`` with A (merged) and B
+    (dynamic: K2) registered: bursts of 12 requests from 4 threads
+    (adapters None, A, B with "dpm", "euler_a", "ddim"; 512^2, 30 steps,
+    CFG 7.5, distinct seeds), the first capturing the graphs it needs, until
+    one captures none (at most SERVE_BURSTS).  The
+    launch counters, set to 0 just before each burst, must read what the
+    burst's new graphs capture (replays run no wrapper); every image is
+    within PIPE_MEAN_ABS of the same request alone at batch 1."""
+    import numpy as np
+    import torch
+
+    from diffusion_finetuning_tpu_torch.serving import GenerationServer
+
+    server = GenerationServer(pipe, max_batch=SERVE_MAX_BATCH)
+    server.register_adapter("A", paths["A"])
+    server.register_adapter("B", paths["B"], materialize=False)
+    adapters = (None, "A", "B")
+    prompts = {None: "a photo of sks person", "A": f"a photo of {TOKEN_A}",
+               "B": f"a portrait of {TOKEN_B}"}
+    rows, launched = [], {}
+    try:
+        for burst in range(1, SERVE_BURSTS + 1):
+            requests = [(prompts[adapters[i % 3]], 100 * burst + i, SERVE_SCHEDULERS[i % 3],
+                         adapters[i % 3]) for i in range(SERVE_REQUESTS)]
+            before = set(pipe._graphs.graphs) if pipe._graphs is not None else set()
+            torch.cuda.synchronize()
+            reset_counts()
+            images, lat, wall = _burst(server, requests)
+            torch.cuda.synchronize()
+            got = counts()
+            new = [k for k in pipe._graphs.graphs if k not in before]
+            want = _graph_launches(new, per_step)
+            launched[f"server_burst{burst}"] = got
+            arrays = [np.asarray(im) for im in images]
+            diffs = []
+            for (p, s, sch, a), img in zip(requests, arrays):
+                alone = pipe(p, seed=s, num_inference_steps=SERVE_STEPS, height=IMAGE,
+                             width=IMAGE, guidance_scale=GUIDANCE, scheduler=sch,
+                             adapter_params=server._adapter_params(a), output_type="uint8")[0]
+                diffs.append(float(np.abs(img.astype(np.float32) - alone).mean()) / 255)
+            lat_s = sorted(lat)
+            row = dict(burst=burst, requests=len(requests), wall_s=wall,
+                       requests_per_s=len(requests) / wall,
+                       latency_p50_s=lat_s[len(lat_s) // 2],
+                       latency_p95_s=lat_s[min(len(lat_s) - 1, int(0.95 * len(lat_s)))],
+                       graphs_captured=len(new),
+                       capture_s={_key_label(k): pipe._graphs.graphs[k].capture_s
+                                  for k in new},
+                       batches=sorted(k[5] for k in new), launches=got, want=want,
+                       max_mean_abs_diff=max(diffs))
+            rows.append(row)
+            log(f"server burst {burst}: {len(requests)} requests in {wall:.2f} s, "
+                f"{row['requests_per_s']:.3f} requests/s, latency p50 "
+                f"{row['latency_p50_s']:.3f} s p95 {row['latency_p95_s']:.3f} s; "
+                f"{len(new)} graphs captured (warm-up + capture s: "
+                f"{ {k: round(v, 2) for k, v in row['capture_s'].items()} }); launches {got} "
+                f"(want {want}); vs alone at batch 1: max mean |diff| {max(diffs):.3e} "
+                f"(limit {PIPE_MEAN_ABS})")
+            if got != want:
+                fail(f"server burst {burst} launched {got}, want {want}")
+            if not max(diffs) <= PIPE_MEAN_ABS:
+                fail(f"a served image differs from its lone run by {max(diffs):.3e}")
+            if not all(a.shape == (IMAGE, IMAGE, 3) and a.std() > 0 for a in arrays):
+                fail("a served image is constant or misshapen")
+            if burst > 1 and not new:
+                break  # a warm burst: every graph it needs was captured before
+        if not any(_key_label(k).endswith("dynamic") for k in pipe._graphs.graphs):
+            fail("no server graph ran adapter B's dynamic LoRA")
+    finally:
+        server.close()
+    return launched, rows
+
+
+def phase_serving_entry(pipe, ucfg, tcfg, per_step):
+    """Phase 8: a model directory and LoRA/TI files in, swaps without a
+    capture, per-request adapters and schedulers out of the server."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.time()
+        loaded, model_dir = phase_model_dir(pipe, tmp)
+        paths = phase_lora_files(loaded, ucfg, tcfg, tmp)
+        log(f"phase 8 files: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        swaps, merged = phase_swaps(loaded, paths)
+        log(f"phase 8 swaps: {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches, server = phase_server(loaded, paths, per_step)
+        log(f"phase 8 server: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, {"model_dir": model_dir, "swaps": swaps, "merged_set_bytes": merged,
+                      "server": server}
+
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
@@ -1879,13 +2269,17 @@ def main():
     graphed_launches, graphed = phase_graphed(pipe, ucfg, lora_cpu, lora_dev,
                                               profile_dir=args.profile)
     log(f"phase 7: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    entry_launches, entry = phase_serving_entry(pipe, ucfg, tcfg, want_counts(
+        flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP))
+    log(f"phase 8: {time.time() - t0:.1f} s")
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
-                    "graphed": graphed}))
+                    "graphed": graphed, "serving_entry": entry}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
-        graphed=graphed_launches))))
+        graphed=graphed_launches, **entry_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,13 +12,17 @@ diagonal) and an fp32 softmax, as in the JAX package (:94-97, :156).
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..lora import LoraTarget
 from .layers import ACT2FN, LoRALinear
+
+
+# the token table's name in the text encoder's state dict
+TOKEN_EMBEDDING = "text_model.embeddings.token_embedding.weight"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,3 +158,24 @@ def text_encoder_lora_targets(config: CLIPTextConfig) -> List[LoraTarget]:
     return [LoraTarget((f"layers_{i}", "self_attn", proj), h, h, "CLIPAttention")
             for i in range(config.num_hidden_layers)
             for proj in ("k_proj", "v_proj", "q_proj", "out_proj")]
+
+
+def resize_token_embeddings(params: Dict[str, torch.Tensor], new_size: int,
+                            generator: Optional[torch.Generator] = None
+                            ) -> Dict[str, torch.Tensor]:
+    """Grow the token table of a text state dict (or of a dict of overrides
+    holding it, :data:`TOKEN_EMBEDDING`) to ``new_size`` rows (JAX
+    ``models/clip_text.py:187``; reference cli_lora_pti.py:70-107).  New
+    rows are zeros, or N(0, 0.02) drawn from ``generator`` on its device in
+    the table's dtype.  Returns a new dict (the same one if nothing grows)."""
+    emb = params[TOKEN_EMBEDDING]
+    old_size, dim = emb.shape
+    if new_size <= old_size:
+        return params
+    shape = (new_size - old_size, dim)
+    if generator is not None:
+        new_rows = 0.02 * torch.randn(shape, generator=generator, device=generator.device,
+                                      dtype=emb.dtype)
+    else:
+        new_rows = torch.zeros(shape, dtype=emb.dtype)
+    return {**params, TOKEN_EMBEDDING: torch.cat([emb, new_rows.to(emb.device)])}

@@ -208,6 +208,25 @@ def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torc
     return w9
 
 
+def refresh_tap_major(weight: torch.Tensor) -> None:
+    """After an in-place write to ``weight``, rewrite its cached tap-major
+    copies in place (the same tensors, which a CUDA graph may read) and mark
+    them current; a weight with no cached copy is left alone."""
+    global tap_major_copies
+    o, c = weight.shape[:2]
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        key = (id(weight), dtype)
+        hit = _TAP_MAJOR.get(key)
+        if hit is None or hit[0]() is not weight:
+            continue
+        tap_major_copies += 1
+        # a copy made inside a request's inference mode is an inference
+        # tensor, written in place only there
+        with torch.inference_mode(hit[2].is_inference()):
+            hit[2].copy_(weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, o, c))
+        _TAP_MAJOR[key] = (hit[0], weight._version, hit[2])
+
+
 _FNS = {}
 
 

@@ -20,6 +20,9 @@ in bf16 all three repeat bit for bit, and dQ is the same whatever the q
 splits (it is summed over the KV tiles in their order).
 """
 
+import threading
+
+import numpy as np
 import pytest
 import torch
 
@@ -572,13 +575,13 @@ SMALL_UNET = dict(sample_size=16, block_out_channels=(64, 128), layers_per_block
                   up_block_types=("UpBlock2D", "CrossAttnUpBlock2D"))
 
 
-def _small_lora(ucfg, seed, device="cpu"):
+def _small_lora(ucfg, seed, device="cpu", replace=None):
     from diffusion_finetuning_tpu_torch import lora as lora_lib
     from diffusion_finetuning_tpu_torch.models.unet import unet_all_lora_targets
 
     g = torch.Generator().manual_seed(seed)
     targets = lora_lib.filter_targets(unet_all_lora_targets(ucfg),
-                                      lora_lib.DEFAULT_TARGET_REPLACE)
+                                      replace or lora_lib.DEFAULT_TARGET_REPLACE)
     tree = lora_lib.inject_trainable_lora(targets, g, r=4, dtype=torch.bfloat16)
     for _, leaf in lora_lib.lora_leaves(tree):
         leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * 0.05).bfloat16()
@@ -669,6 +672,7 @@ def test_txt2img_graph_equals_eager(small_pipe, switches, materialize):
     pipe = small_pipe
     pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 4, "cuda"), materialize
     pipe.invalidate_merged_cache()
+    pipe._graphs = None  # a fresh set of graphs: the counts below are this test's
     kw = dict(height=32, width=32, num_inference_steps=4, output_type="device")
     for prompt, seed in (("photo of sks", 1), (["photo", "sks photo"], [2, 3]),
                          ("photo of sks", 5)):
@@ -688,6 +692,7 @@ def test_img2img_graph_equals_eager(small_pipe, switches):
     pipe = small_pipe
     pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 5, "cuda"), False
     pipe.invalidate_merged_cache()
+    pipe._graphs = None  # a fresh set of graphs: the counts below are this test's
     image = np.random.default_rng(0).integers(0, 256, (32, 32, 3), dtype=np.uint8)
     for seed in (1, 2):
         kw = dict(strength=0.6, num_inference_steps=10, seed=seed, output_type="device")
@@ -700,12 +705,17 @@ def test_img2img_graph_equals_eager(small_pipe, switches):
 @pytest.mark.cuda
 def test_pipeline_graph_cache_keys(small_pipe):
     """A new guidance scale replays the same graph (and changes the image);
-    a swapped LoRA tree and invalidate_merged_cache capture anew, and the
-    new images equal the eager ones (no stale weights)."""
+    so do a swapped LoRA tree (its merged weights copied into the graph's
+    buffers) and, after an in-place edit, invalidate_merged_cache (the next
+    replay copies afresh); every image equals the eager one (no stale
+    weights).  Dynamic: the same, another graph."""
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+
     pipe = small_pipe
     pipe.materialize_lora = True
     pipe.unet_lora = _small_lora(pipe.unet_config, 6, "cuda")
     pipe.invalidate_merged_cache()
+    pipe._graphs = None
     kw = dict(height=32, width=32, num_inference_steps=3, seed=0, output_type="device")
     a = pipe("photo", guidance_scale=7.5, **kw)
     b = pipe("photo", guidance_scale=3.0, **kw)
@@ -714,18 +724,164 @@ def test_pipeline_graph_cache_keys(small_pipe):
     assert torch.equal(b, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
     pipe.unet_lora = _small_lora(pipe.unet_config, 7, "cuda")
     c = pipe("photo", guidance_scale=3.0, **kw)
-    assert len(graphs) == 2 and not torch.equal(b, c)
+    assert len(graphs) == 1 and not torch.equal(b, c)
     assert torch.equal(c, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
-    from diffusion_finetuning_tpu_torch import lora as lora_lib
-
     with torch.no_grad():  # an in-place edit, then the invalidation it needs
         for _, leaf in lora_lib.lora_leaves(pipe.unet_lora):
             leaf["up"].mul_(2)
     pipe.invalidate_merged_cache()
-    assert len(graphs) == 0
     d = pipe("photo", guidance_scale=3.0, **kw)
     assert len(graphs) == 1 and not torch.equal(c, d)
     assert torch.equal(d, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
+    assert [e.replays for e in graphs.values()] == [4]
+    pipe.materialize_lora = False
+    e = pipe("photo", guidance_scale=3.0, **kw)
+    assert len(graphs) == 2
+    assert torch.equal(e, _eager(pipe, lambda: pipe("photo", guidance_scale=3.0, **kw)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("materialize,conv", [(True, False), (False, False), (True, True)],
+                         ids=["merged", "dynamic", "merged_conv_switched"])
+def test_lora_swaps_and_retunes_replay_one_graph(small_pipe, monkeypatch, materialize, conv):
+    """Three trees installed in turn, then tune_lora_scale_pipe twice, at
+    one request key: one graph captured, each image equal to the eager one
+    for its tree, and the memory allocated after each swap's request does
+    not grow by a merged set (the graphs hold their buffers only).  Nor does
+    a later swap hold two sets: its peak, from the swap through its request,
+    stays within half a set of the memory allocated before it plus what a
+    merge needs beside its result (the superseded set is freed before the
+    next is built; measured here as one merge alone, since at 32^2 the
+    capture holds less than that workspace).  With a
+    LoRA on the resnet convs too and K5 switched on, the graph reads the
+    merged conv weights' tap-major copies, rewritten with each refill."""
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import tune_lora_scale_pipe
+
+    pipe = small_pipe
+    pipe.materialize_lora = materialize
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", conv)
+    replace = lora_lib.UNET_EXTENDED_TARGET_REPLACE if conv else None
+    pipe.invalidate_merged_cache()
+    pipe._graphs = None
+    kw = dict(height=32, width=32, num_inference_steps=3, seed=1, output_type="device")
+    trees = [_small_lora(pipe.unet_config, s, "cuda", replace) for s in (11, 12, 13)]
+    swaps = [lambda t=t: setattr(pipe, "unet_lora", t) for t in trees]
+    swaps += [lambda a=a: tune_lora_scale_pipe(pipe, a) for a in (0.5, 2.0)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        lora_lib.materialize_lora_tree(pipe.unet, trees[0])
+    merge_peak = torch.cuda.max_memory_allocated() - base  # the set and its workspace
+    allocated, before, peaks, images = [], [], [], []
+    for swap in swaps:
+        torch.cuda.synchronize()
+        before.append(torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        swap()
+        got = pipe("photo of sks", **kw)
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+        peaks.append(torch.cuda.max_memory_allocated())
+        assert torch.equal(got, _eager(pipe, lambda: pipe("photo of sks", **kw)))
+        images.append(got)
+    assert len(pipe._graphs.graphs) == 1
+    assert all(not torch.equal(x, y) for x, y in zip(images, images[1:]))
+    merged = sum(w.numel() * w.element_size() for w in pipe._generation_params()[0].values())
+    lora = sum(t.numel() * t.element_size() for t in _leaves_of(pipe.unet_lora))
+    step = merged if materialize else lora
+    assert max(allocated[1:]) - allocated[1] < step // 2, (allocated, step)
+    workspace = max(merge_peak - step, 0) if materialize else 0
+    held = [p - b for p, b in zip(peaks[1:], before[1:])]
+    assert max(held) < workspace + step // 2, (held, workspace, step)
+
+
+def _leaves_of(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves_of(v)
+        else:
+            yield v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["pndm", "dpm", "euler", "euler_a", "lms",
+                                       "euler_a:karras"])
+def test_graphed_request_per_scheduler_equals_eager(small_pipe, scheduler):
+    """A txt2img request (5 steps, batch 2, dynamic LoRA) with each of the
+    new samplers through its graph, twice (seeds, and so Euler-ancestral's
+    noise, change between them), equal to the eager request bit for bit."""
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 14, "cuda"), False
+    pipe.invalidate_merged_cache()
+    pipe._graphs = None
+    for seed in ([1, 2], [3, 4]):
+        kw = dict(height=32, width=32, num_inference_steps=5, seed=seed, scheduler=scheduler,
+                  output_type="device")
+        got = pipe(["photo", "photo of sks"], **kw)
+        want = _eager(pipe, lambda: pipe(["photo", "photo of sks"], **kw))
+        assert torch.equal(got, want)
+    assert [e.replays for e in pipe._graphs.graphs.values()] == [2]
+
+
+@pytest.mark.cuda
+def test_register_adapter_while_the_server_captures(small_pipe, tmp_path):
+    """Adapters registered from a file by client threads while the server's
+    worker captures its first graphs: nothing fails, and every image equals
+    its adapter's lone request on the pipe (same seed, batch 1)."""
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.serving import GenerationServer
+
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = None, True
+    pipe.invalidate_merged_cache()
+    pipe._graphs = None
+    targets = pipe.lora_targets("unet", lora_lib.DEFAULT_TARGET_REPLACE)
+    paths = []
+    for s in range(3):
+        paths.append(str(tmp_path / f"a{s}.safetensors"))
+        lora_lib.save_all(_small_lora(pipe.unet_config, 20 + s), None, targets, [], None,
+                          paths[-1])
+    server = GenerationServer(pipe, max_batch=2, max_wait_ms=5)
+    kw = dict(height=32, width=32, steps=4, scheduler="dpm")
+    futs = [server.submit("photo", seed=s, **kw) for s in range(2)]
+    errors = []
+
+    def register(i):
+        try:
+            server.register_adapter(f"a{i}", paths[i], materialize=bool(i % 2))
+        except Exception as e:  # recorded, then asserted on below
+            errors.append(e)
+
+    threads = [threading.Thread(target=register, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not errors and not any(t.is_alive() for t in threads)
+    futs += [server.submit("photo", seed=5, adapter=f"a{i}", **kw) for i in range(3)]
+    images = [np.asarray(f.result(timeout=300)) for f in futs]
+    server.close()
+    for i, img in enumerate(images[2:]):
+        ap = server._adapters[f"a{i}"]
+        want = pipe("photo", seed=5, height=32, width=32, num_inference_steps=4,
+                    scheduler="dpm", output_type="uint8",
+                    adapter_params=pipe.adapter_generation_params(
+                        ap["unet_lora"], materialize=ap["materialize"]))[0]
+        np.testing.assert_array_equal(img, want)
+    assert not np.array_equal(images[2], images[3])
+
+
+@pytest.mark.cuda
+def test_bf16_safetensors_read_straight_to_the_card(card, tmp_path):
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+
+    w = torch.randn((64, 32), device=card).bfloat16()
+    safetensors_io.write_safetensors({"w": w, "b": w[0].float()}, str(tmp_path / "x.st"))
+    got, _ = safetensors_io.read_safetensors(str(tmp_path / "x.st"), device=card)
+    assert got["w"].device.type == "cuda" and got["w"].dtype == torch.bfloat16
+    assert torch.equal(got["w"], w) and torch.equal(got["b"], w[0].float())
 
 
 def _train_setup(pipe, ti=False, accum=1, use_8bit=False):

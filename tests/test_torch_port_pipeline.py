@@ -274,6 +274,43 @@ def test_merged_weights_are_cached_for_tap_major(pipes):
         tpipe.unet_lora = None
 
 
+def test_superseded_merged_set_is_freed_before_the_next_is_built(pipes, monkeypatch):
+    """A swap never holds two merged sets: the installed slot's superseded
+    set, and the adapter LRU's eldest, are gone when the merge of their
+    successor starts (weak references to them are dead inside it)."""
+    import weakref
+
+    from diffusion_finetuning_tpu_torch.pipelines import pipeline as tpipeline
+
+    _, tpipe = pipes
+    targets = tpipe.lora_targets("unet", jlora.DEFAULT_TARGET_REPLACE)
+    trees = [weights.lora_tree_to_torch(numpy_lora_tree(targets, seed=20 + i))
+             for i in range(3)]
+    merge = tlora.materialize_lora_tree
+    held, refs = [], []
+
+    def watched(model, lora):
+        held.append([r() is not None for r in refs])
+        return merge(model, lora)
+
+    monkeypatch.setattr(tlora, "materialize_lora_tree", watched)
+    monkeypatch.setattr(tpipeline, "MERGED_LORA_CACHE_SIZE", 1)
+    tpipe.materialize_lora = True
+    try:
+        tpipe.unet_lora = trees[0]
+        refs = [weakref.ref(w) for w in tpipe._generation_params()[0].values()]
+        tpipe.unet_lora = tlora.tune_lora_scale(trees[0], 0.5)
+        tpipe._generation_params()
+        tpipe.unet_lora = None
+        refs = [weakref.ref(w) for w in tpipe.adapter_generation_params(trees[1])[0].values()]
+        tpipe.adapter_generation_params(trees[2])
+        assert len(held) == 4 and not any(any(h) for h in held), held
+        assert len(tpipe._merged_cache) == 1
+    finally:
+        tpipe.unet_lora = None
+        tpipe.invalidate_merged_cache()
+
+
 def test_entry_points_default_to_cuda():
     """Without CUDA and without device="cpu" the pipeline, the train-state
     set-up and the latent cache refuse to start."""
