@@ -62,7 +62,8 @@ Phases, each fatal on failure:
      the launch counters, set to 0 just before a path's first graphed call,
      must read twice its launches (the warm-up and the capture) and no
      more after GRAPH_REPEATS replays, and one replay traced with torch.profiler must
-     run them on the device.  Printed for both: wall ms (median and range
+     run them on the device (traced again, up to TRACE_ATTEMPTS times, where
+     a trace lost records and saw fewer).  Printed for both: wall ms (median and range
      of GRAPH_REPEATS calls; of EAGER_REQUESTS eager requests), requests or steps a second,
      device-busy ms and kernels of one traced call, idle share (1 - busy /
      median wall), peak memory, tap-major copies the graph holds; for the
@@ -82,7 +83,25 @@ Phases, each fatal on failure:
      "euler_a", "ddim") until one captures no graph, the launch counters,
      set to 0 just before each burst, equal to what its newly captured
      graphs launch (warm-up and capture), every image within PIPE_MEAN_ABS
-     of its lone batch-1 run; requests a second and latency p50/p95.
+     of its lone batch-1 run; requests a second and latency p50/p95;
+  9. the trainers, from phase 8's bf16 directory and 4 seeded 512^2
+     images, each run through its entry point on the card: ``cli_lora_pti.train``
+     (8 inversion steps with gradient accumulation 2, then 8 tuning steps
+     with the text LoRA and continued inversion; rank 4, saves every 4 steps,
+     4 steps a CUDA graph), then the returned pipe serving one graphed
+     request with ``<s1> <s2>`` (and one without the LoRA, which must
+     differ); ``train_lora_dreambooth.main`` with prior preservation (2 class
+     images synthesised through graphed requests at 10 steps), the text LoRA
+     and full-state checkpoints, then a second run resumed from the step-4
+     checkpoint (restored state bit-equal to the saved one, "Resumed at step
+     4", step 8 reached); ``train_lora_w_ti.main`` for 8 steps.  Fatal
+     unless every loss is finite, the checkpoint and output files read back,
+     the inversion leaves every frozen embedding row bit-equal, the LoRA
+     moved, and the launch counts are exact: a TI step 32 K1 and 31 K3 (the
+     first transformer block's attn1 needs no gradient), a LoRA step 32 K1,
+     32 K3 and 192 K2, twice a graph's steps at its warm-up and capture,
+     none at its replays.  Printed: each phase's first dispatch s, steps a
+     second after it, peak memory, checkpoint save and restore ms.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -92,11 +111,14 @@ are the kernels JSON line, the card's ``name, power.limit`` line and
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1587,8 +1609,8 @@ def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
     graphed call warms up, captures and replays: the launch counters, set to
     0 just before it, must read twice ``per_call`` (warm-up and capture)
     after it and again after the timed replays.  Then walls, peak memory and
-    one profiled call of each; the profiled replay must run ``per_call`` of
-    the port's kernels on the device."""
+    one profiled call of each; a traced replay must run ``per_call`` of
+    the port's kernels on the device (``profile_replay``)."""
     import torch
 
     from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
@@ -1615,7 +1637,7 @@ def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
     g_peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     prof_e = profile_step(eager, f"{label}_eager", None, cpu=False, warm=False)
-    prof_g = profile_step(graphed, f"{label}_graphed", profile_dir, cpu=False)
+    prof_g = profile_replay(graphed, f"{label}_graphed", profile_dir, per_call)
     want2 = {k: 2 * n for k, n in per_call.items()}
     e_med, g_med = spread(e_walls)["median"], spread(g_walls)["median"]
     # idle share: 1 - busy / the untraced median wall (tracing slows the
@@ -1653,9 +1675,33 @@ def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
     if captured != want2 or replayed != want2:
         fail(f"the graphed {label} launched {captured} at capture and {replayed} after the "
              f"replays, want {want2} both")
-    if prof_g["launches"] != per_call:
-        fail(f"a replay of the graphed {label} ran {prof_g['launches']}, want {per_call}")
     return row
+
+
+TRACE_ATTEMPTS = 3
+
+
+def profile_replay(fn, label, out_dir, per_call):
+    """``profile_step`` of one graphed call, which must run ``per_call`` of
+    the port's kernels on the device.  A trace can lose activity records
+    (on the H100 one trace of a 512^2 txt2img replay saw 61,888 of its
+    62,307 device kernels, and 1,599 of its 1,600 K1 launches), and a lost
+    record can only lower a count: so the call is traced again, at most
+    TRACE_ATTEMPTS times, until one trace sees exactly ``per_call``.  Fatal
+    if a trace sees more of any kernel, or if none sees all of them."""
+    seen = []
+    for attempt in range(TRACE_ATTEMPTS):
+        prof = profile_step(fn, label, out_dir, cpu=False, warm=attempt == 0)
+        seen.append((prof["kernels"], prof["launches"]))
+        if any(prof["launches"][k] > n for k, n in per_call.items()):
+            fail(f"a replay of the graphed {label} ran {prof['launches']}, want {per_call}")
+        if prof["launches"] == per_call:
+            if attempt:
+                log(f"  traces of {label} before the complete one saw (device kernels, "
+                    f"the port's launches) {seen[:-1]}: records lost, traced again")
+            return prof
+    fail(f"no trace of a replay of the graphed {label} saw {per_call}: (device kernels, the "
+         f"port's launches) of each {seen}")
 
 
 def phase_graphed_serving(pipe, lora_dev, per_step, profile_dir=None):
@@ -2148,28 +2194,440 @@ def phase_server(pipe, paths, per_step):
     return launched, rows
 
 
-def phase_serving_entry(pipe, ucfg, tcfg, per_step):
+def phase_serving_entry(pipe, ucfg, tcfg, per_step, tmp):
     """Phase 8: a model directory and LoRA/TI files in, swaps without a
-    capture, per-request adapters and schedulers out of the server."""
-    import shutil
-    import tempfile
-
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        t0 = time.time()
-        loaded, model_dir = phase_model_dir(pipe, tmp)
-        paths = phase_lora_files(loaded, ucfg, tcfg, tmp)
-        log(f"phase 8 files: {time.time() - t0:.1f} s")
-        t0 = time.time()
-        swaps, merged = phase_swaps(loaded, paths)
-        log(f"phase 8 swaps: {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches, server = phase_server(loaded, paths, per_step)
-        log(f"phase 8 server: {time.time() - t0:.1f} s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    capture, per-request adapters and schedulers out of the server.  The
+    directory stays in ``tmp`` (phase 9 trains from it)."""
+    t0 = time.time()
+    loaded, model_dir = phase_model_dir(pipe, tmp)
+    paths = phase_lora_files(loaded, ucfg, tcfg, tmp)
+    log(f"phase 8 files: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    swaps, merged = phase_swaps(loaded, paths)
+    log(f"phase 8 swaps: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches, server = phase_server(loaded, paths, per_step)
+    log(f"phase 8 server: {time.time() - t0:.1f} s")
     return launches, {"model_dir": model_dir, "swaps": swaps, "merged_set_bytes": merged,
                       "server": server}
+
+
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+TRAIN_IMAGES = 4
+TI_STEPS = 8           # inversion steps (gradient accumulation 2: 4 updates)
+TUNE_STEPS = 8
+TRAINER_SPD = 4        # divides TRAINER_SAVE: one capture serves a phase
+TRAINER_SAVE = 4
+DB_STEPS = 8
+WTI_STEPS = 8
+CLASS_IMAGES = 2
+CLASS_STEPS = 10
+PTI_SERVE_STEPS = 20
+
+
+def trainer_step_launches():
+    """Wrapper launches of one train step of each trainer phase, from the
+    code: every UNet attention call runs K1 forward (FLASH_PER_STEP).  K3
+    runs where autograd built a flash node, i.e. where q, k or v needs a
+    gradient: with a LoRA every call; in the TI phase (no LoRA, the
+    gradient reaches the text only through the cross-attention K/V) every
+    call but the first transformer block's attn1, whose input depends on
+    the latents and the timestep alone.  K2 runs on every LoRA'd projection:
+    the UNet's (LORA_PER_STEP) and, with the text LoRA, CLIP's
+    (TEXT_LORA_PER_ENCODE)."""
+    ti = want_counts(flash_attention_fwd=FLASH_PER_STEP,
+                     flash_attention_bwd=FLASH_PER_STEP - 1)
+    lora = want_counts(flash_attention_fwd=FLASH_PER_STEP, flash_attention_bwd=FLASH_PER_STEP,
+                       lora_dense=LORA_PER_STEP + TEXT_LORA_PER_ENCODE)
+    return ti, lora
+
+
+def captured(per_step, steps, graphs=1):
+    """Launches of capturing ``graphs`` graphs of ``steps`` steps each: the
+    warm-up and the capture run the steps' wrappers; replays run none."""
+    return {k: 2 * n * steps * graphs for k, n in per_step.items()}
+
+
+def add_counts(*dicts):
+    out = want_counts()
+    for d in dicts:
+        for k, n in d.items():
+            out[k] += n
+    return out
+
+
+def train_images(folder, seed, n):
+    """``n`` seeded 512^2 PNGs: smooth colour fields with noise."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:IMAGE, 0:IMAGE] / IMAGE
+    for i in range(n):
+        base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy - i), xx * yy], -1)
+        px = (base * 0.35 + 0.5 + rng.normal(0, 0.08, base.shape)) * 255
+        Image.fromarray(np.clip(px, 0, 255).astype(np.uint8)).save(
+            os.path.join(folder, f"a photo of sks_{i}.png"))
+
+
+def check_phase_log(entry, label, want):
+    """A trainer phase's dispatch summary: finite losses, the launches
+    ``want``; prints its first dispatch s, steps/s after it, peak memory."""
+    import numpy as np
+
+    losses = np.asarray(entry["losses"])
+    peak = "n/a" if entry["peak_bytes"] is None else f"{entry['peak_bytes'] / 2**30:.2f}"
+    sps = entry["steps_per_s"]
+    rate = "no replay" if sps is None else f"{sps:.3f} steps/s ({1e3 / sps:.1f} ms a step)"
+    log(f"{label}: {entry['steps']} steps in {entry['wall_s']:.2f} s, first dispatch "
+        f"(captures) {entry['first_dispatch_s']:.2f} s, then {rate}, "
+        f"peak memory {peak} GiB; launches {entry['launches']} "
+        f"(want {want}); losses {np.round(losses, 4).tolist()}")
+    if not (losses.size == entry["steps"] and np.isfinite(losses).all()):
+        fail(f"{label}: a loss is not finite")
+    if entry["launches"] != want:
+        fail(f"{label} launched {entry['launches']}, want {want}")
+    return {k: entry[k] for k in ("steps", "wall_s", "first_dispatch_s", "steps_per_s",
+                                  "peak_bytes", "launches")}
+
+
+class _Tee:
+    """stdout that is also kept, to read what a trainer printed."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def phase_pti(model_dir, tmp):
+    """``cli_lora_pti.train`` at 512^2 in bf16: 8 inversion steps
+    (gradient accumulation 2) and 8 tuning steps with the text LoRA and
+    continued inversion, rank 4, saves every 4 steps, 4 steps a graph."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import cli_lora_pti
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+
+    out = os.path.join(tmp, "pti")
+    ti_step, lora_step = trainer_step_launches()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pipe = cli_lora_pti.train(
+        instance_data_dir=os.path.join(tmp, "instance"), pretrained_model_name_or_path=model_dir,
+        output_dir=out, use_template="object", placeholder_tokens="<s1>|<s2>",
+        initializer_tokens="<rand-0.017>|<zero>", seed=SEED, resolution=IMAGE,
+        train_batch_size=1, max_train_steps_ti=TI_STEPS, max_train_steps_tuning=TUNE_STEPS,
+        gradient_accumulation_steps=2, train_text_encoder=True, continue_inversion=True,
+        lora_rank=LORA_RANK, save_steps=TRAINER_SAVE, steps_per_dispatch=TRAINER_SPD,
+        mixed_precision="bf16")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    inv, tune = pipe.train_log
+    row = {"wall_s": wall, "ti_step_launches": ti_step,
+           "inversion": check_phase_log(inv, "PTI inversion",
+                                        captured(ti_step, TRAINER_SPD)),
+           "tuning": check_phase_log(tune, "PTI tuning", captured(lora_step, TRAINER_SPD))}
+    want = add_counts(captured(ti_step, TRAINER_SPD), captured(lora_step, TRAINER_SPD))
+    if got != want:
+        fail(f"PTI launched {got}, want {want}")
+    if inv["frozen_rows_changed"] != 0:
+        fail(f"PTI inversion changed {inv['frozen_rows_changed']} frozen embedding rows")
+    files = sorted(os.listdir(out))
+    want_files = sorted([f"step_inv_{s}.safetensors" for s in range(4, TI_STEPS + 1, 4)]
+                        + [f"step_{s}.safetensors" for s in range(4, TUNE_STEPS + 1, 4)])
+    if files != want_files:
+        fail(f"PTI wrote {files}, want {want_files}")
+    for name in files:
+        tensors, meta = safetensors_io.read_safetensors(os.path.join(out, name))
+        loras = lora_lib.parse_safeloras(tensors, meta)
+        embeds = lora_lib.parse_safeloras_embeds(tensors, meta)
+        want_loras = set() if name.startswith("step_inv") else {"unet", "text_encoder"}
+        if set(loras) != want_loras or set(embeds) != {"<s1>", "<s2>"} or not all(
+                torch.isfinite(t.float()).all() for t in tensors.values()):
+            fail(f"PTI checkpoint {name} holds {sorted(loras)} and {sorted(embeds)}")
+    moved = max(v for vals in lora_lib.inspect_lora(pipe.unet_lora).values() for v in vals)
+    text_moved = max(v for vals in lora_lib.inspect_lora(pipe.text_encoder_lora).values()
+                     for v in vals)
+    if not (moved > 0 and text_moved > 0):
+        fail("PTI's LoRA did not move")
+    row.update(files=files, unet_lora_moved=moved, text_lora_moved=text_moved)
+    log(f"PTI: {wall:.1f} s; frozen rows bit-equal after inversion; checkpoints {files} parse; "
+        f"LoRA moved (max mean |up down|: UNet {moved:.3e}, text {text_moved:.3e})")
+    return pipe, got, row
+
+
+def phase_pti_serving(pipe):
+    """The returned PTI pipe serves one graphed 512^2 request with the
+    learned tokens and LoRA, and the same request without the LoRA: finite,
+    and different."""
+    import numpy as np
+    import torch
+
+    prompt = "a photo of <s1> <s2>"
+    args = dict(seed=SEED, num_inference_steps=PTI_SERVE_STEPS, height=IMAGE, width=IMAGE,
+                guidance_scale=GUIDANCE, output_type="uint8")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with_lora = pipe(prompt, **args)[0]
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = pipe(prompt, **args)[0]
+    replay_s = time.perf_counter() - t0
+    unet_lora, text_lora = pipe.unet_lora, pipe.text_encoder_lora
+    pipe.unet_lora = pipe.text_encoder_lora = None
+    without = pipe(prompt, **args)[0]
+    pipe.unet_lora, pipe.text_encoder_lora = unet_lora, text_lora
+    torch.cuda.synchronize()
+    got = counts()
+    want = captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), PTI_SERVE_STEPS, graphs=2)
+    diff = float(np.abs(with_lora.astype(np.float32) - without).mean()) / 255
+    log(f"PTI pipe serving: first request (capture) {first_s:.2f} s, replay {replay_s:.3f} s; "
+        f"mean |diff| against no LoRA {diff:.4f}; launches {got} (want {want})")
+    if got != want:
+        fail(f"the PTI pipe's requests launched {got}, want {want}")
+    if not (with_lora.shape == (IMAGE, IMAGE, 3) and np.array_equal(with_lora, again)):
+        fail("the PTI pipe's replay differs from its first request")
+    if not diff > 0:
+        fail("the learned LoRA and tokens change nothing in the PTI pipe's image")
+    return got, {"first_s": first_s, "replay_s": replay_s, "mean_abs_diff_vs_no_lora": diff}
+
+
+def dreambooth_args(model_dir, tmp, out):
+    return [
+        "--pretrained_model_name_or_path", model_dir,
+        "--instance_data_dir", os.path.join(tmp, "instance"),
+        "--instance_prompt", "a photo of sks person", "--with_prior_preservation",
+        "--class_data_dir", os.path.join(tmp, "class"), "--class_prompt", "a photo of person",
+        "--num_class_images", str(CLASS_IMAGES), "--sample_batch_size", str(CLASS_IMAGES),
+        "--class_image_inference_steps", str(CLASS_STEPS), "--output_dir", out,
+        "--resolution", str(IMAGE), "--train_batch_size", "1",
+        "--max_train_steps", str(DB_STEPS), "--save_steps", str(TRAINER_SAVE),
+        "--steps_per_dispatch", str(TRAINER_SPD), "--train_text_encoder",
+        "--learning_rate", "1e-4", "--learning_rate_text", "5e-5", "--lr_warmup_steps", "0",
+        "--lora_rank", str(LORA_RANK), "--mixed_precision", "bf16", "--seed", str(SEED),
+        "--output_format", "both",
+        "--full_state_checkpoint_dir", os.path.join(tmp, "dreambooth_state")]
+
+
+def phase_dreambooth(model_dir, tmp):
+    """``train_lora_dreambooth.main`` at 512^2 in bf16 with prior
+    preservation (2 class images synthesised at 10 steps), the text LoRA
+    and full-state checkpoints; then a second run from the step-4
+    checkpoint, which must restore the saved state bit for bit and reach
+    step 8; the .pt and safetensors outputs read back."""
+    import contextlib
+    import shutil
+
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+    from diffusion_finetuning_tpu_torch.models.clip_text import text_encoder_lora_targets
+    from diffusion_finetuning_tpu_torch.models.unet import unet_lora_targets
+    from diffusion_finetuning_tpu_torch.training import checkpoint as ckpt_lib
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_dreambooth as db
+
+    _, lora_step = trainer_step_launches()
+    out = os.path.join(tmp, "dreambooth")
+    saved, restored = {}, {}
+    real_save, real_restore = ckpt_lib.save_train_state, ckpt_lib.restore_train_state
+
+    def save(ckpt_dir, state, step=None, keep=3):  # keeps what step 4 held
+        if step == TRAINER_SAVE:
+            saved.update({k: t.detach().clone()
+                          for k, t in ckpt_lib.named_tensors(state).items()})
+        return real_save(ckpt_dir, state, step=step, keep=keep)
+
+    def restore(path, target):
+        out_state = real_restore(path, target)
+        restored.update({k: t.detach().clone()
+                         for k, t in ckpt_lib.named_tensors(out_state).items()})
+        return out_state
+
+    ckpt_lib.save_train_state, ckpt_lib.restore_train_state = save, restore
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        first = db.main(db.parse_args(dreambooth_args(model_dir, tmp, out)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got_first = counts()
+        state_dir = os.path.join(tmp, "dreambooth_state")
+        shutil.rmtree(os.path.join(state_dir, f"step_{DB_STEPS}"))  # stopped after step 4
+        tee = _Tee()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            second = db.main(db.parse_args(dreambooth_args(model_dir, tmp, out + "_resumed")))
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        got_second = counts()
+    finally:
+        ckpt_lib.save_train_state, ckpt_lib.restore_train_state = real_save, real_restore
+
+    class_files = sorted(os.listdir(os.path.join(tmp, "class")))
+    synth = captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), CLASS_STEPS)
+    row = {"wall_s": wall, "resume_wall_s": resume_wall, "class_images": class_files,
+           "train": check_phase_log(first["log"]["dispatch"], "DreamBooth",
+                                    captured(lora_step, TRAINER_SPD)),
+           "resumed": check_phase_log(second["log"]["dispatch"], "DreamBooth resumed",
+                                      captured(lora_step, TRAINER_SPD)),
+           "save_ms": first["log"]["save_ms"], "restore_ms": second["log"]["restore_ms"]}
+    want_first = add_counts(synth, captured(lora_step, TRAINER_SPD))
+    if got_first != want_first:
+        fail(f"DreamBooth launched {got_first}, want {want_first} (class images + training)")
+    if got_second != captured(lora_step, TRAINER_SPD):
+        fail(f"the resumed DreamBooth run launched {got_second}")
+    if len(class_files) != CLASS_IMAGES:
+        fail(f"DreamBooth synthesised {class_files}")
+    if "Resumed at step 4" not in tee.text() or second["log"]["resumed_at"] != TRAINER_SAVE:
+        fail("the second DreamBooth run did not report 'Resumed at step 4'")
+    if first["step"] != DB_STEPS or second["step"] != DB_STEPS:
+        fail(f"DreamBooth reached steps {first['step']} and {second['step']}")
+    if not saved or saved.keys() != restored.keys() or not all(
+            saved[k].dtype == restored[k].dtype and torch.equal(saved[k], restored[k])
+            for k in saved):
+        fail("the restored DreamBooth state differs from the one saved at step 4")
+
+    from diffusion_finetuning_tpu_torch.models import hf_loading
+
+    ucfg = hf_loading.unet_config_from_hf(hf_loading.read_json(
+        os.path.join(model_dir, "unet", "config.json")))
+    tcfg = hf_loading.clip_config_from_hf(hf_loading.read_json(
+        os.path.join(model_dir, "text_encoder", "config.json")))
+    ut = lora_lib.filter_targets(unet_lora_targets(ucfg), lora_lib.DEFAULT_TARGET_REPLACE)
+    tt = text_encoder_lora_targets(tcfg)
+    params = second["params"]
+    for name, tree, targets in (("lora_weight.pt", params["unet_lora"], ut),
+                                ("lora_weight.text_encoder.pt", params["text_lora"], tt)):
+        loaded = lora_lib.monkeypatch_lora(os.path.join(out + "_resumed", name), targets)
+        for a, b in zip(lora_lib.lora_tree_to_flat(loaded, targets),
+                        lora_lib.lora_tree_to_flat(tree, targets)):
+            if not torch.equal(a, b.detach().cpu().half().float()):
+                fail(f"DreamBooth's {name} does not read back as the fp16-rounded LoRA")
+    tensors, meta = safetensors_io.read_safetensors(
+        os.path.join(out + "_resumed", "lora_weight.safetensors"))
+    loras = lora_lib.parse_safeloras(tensors, meta)
+    if set(loras) != {"unet", "text_encoder"}:
+        fail(f"DreamBooth's safetensors holds {sorted(loras)}")
+    for name, tree, targets in (("unet", params["unet_lora"], ut),
+                                ("text_encoder", params["text_lora"], tt)):
+        flat, ranks, _ = loras[name]
+        if set(ranks) != {LORA_RANK} or not all(
+                torch.equal(a, b.detach().cpu()) for a, b in zip(
+                    flat, lora_lib.lora_tree_to_flat(tree, targets))):
+            fail(f"DreamBooth's safetensors {name} pairs differ from the trained LoRA")
+    log(f"DreamBooth: {wall:.1f} s (class images {class_files}); resumed run {resume_wall:.1f} s "
+        f"from step 4, restored state bit-equal ({len(saved)} tensors), full-state save ms "
+        f"{[round(x, 1) for x in row['save_ms']]}, restore ms {row['restore_ms']:.1f}; "
+        f".pt and safetensors outputs read back")
+    return add_counts(got_first, got_second), row
+
+
+def phase_w_ti(model_dir, tmp):
+    """``train_lora_w_ti.main`` at 512^2 in bf16: 8 steps at 4 a graph
+    (the LoRA unfrozen at step 2, inside the first graph), saves at 4 and 8;
+    its .pt, .ti.pt and safetensors files read back."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_w_ti as wti
+
+    _, lora_step = trainer_step_launches()
+    out = os.path.join(tmp, "w_ti")
+    args = wti.parse_args([
+        "--pretrained_model_name_or_path", model_dir,
+        "--instance_data_dir", os.path.join(tmp, "instance"), "--placeholder_token", "<krk>",
+        "--initializer_token", "person", "--output_dir", out, "--resolution", str(IMAGE),
+        "--train_batch_size", "1", "--max_train_steps", str(WTI_STEPS),
+        "--save_steps", str(TRAINER_SAVE), "--steps_per_dispatch", str(TRAINER_SPD),
+        "--unfreeze_lora_step", "2", "--lr_warmup_steps", "0", "--lora_rank", str(LORA_RANK),
+        "--mixed_precision", "bf16", "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = wti.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    row = {"wall_s": wall, "train": check_phase_log(state["log"]["dispatch"], "w_ti",
+                                                    captured(lora_step, TRAINER_SPD))}
+    if got != captured(lora_step, TRAINER_SPD):
+        fail(f"w_ti launched {got}")
+    files = sorted(os.listdir(out))
+    want = {"lora_weight.pt", "lora_weight.text_encoder.pt", "lora_weight.ti.pt",
+            "lora_weight.safetensors"}
+    periodic = [f for f in files if f.startswith("lora_weight_e")
+                and f.endswith((f"_s{WTI_STEPS}.pt", f"_s{WTI_STEPS}.text_encoder.pt",
+                                f"_s{WTI_STEPS}.ti.pt"))]
+    if not want <= set(files) or len(periodic) != 3:
+        fail(f"w_ti wrote {files}, want {sorted(want)} and the step-{WTI_STEPS} saves")
+    ti = torch.load(os.path.join(out, "lora_weight.ti.pt"), weights_only=True)
+    tensors, meta = safetensors_io.read_safetensors(os.path.join(out, "lora_weight.safetensors"))
+    embeds = lora_lib.parse_safeloras_embeds(tensors, meta)
+    if not (set(ti) == {"<krk>"} == set(embeds) and torch.equal(ti["<krk>"], embeds["<krk>"])
+            and set(lora_lib.parse_safeloras(tensors, meta)) == {"unet", "text_encoder"}):
+        fail("w_ti's .ti.pt and safetensors do not read back")
+    for name in ("lora_weight.pt", "lora_weight.text_encoder.pt"):
+        flat = torch.load(os.path.join(out, name), weights_only=True)
+        if not flat or not all(t.dtype == torch.float16 and torch.isfinite(t).all()
+                               for t in flat):
+            fail(f"w_ti's {name} is not a finite fp16 flat list")
+    log(f"w_ti: {wall:.1f} s; files {files} read back")
+    return got, row
+
+
+def phase_trainers(model_dir, tmp):
+    """Phase 9: the trainers on the card at SD1.5 width and 512^2, from
+    phase 8's bf16 model directory."""
+    import gc
+
+    import torch
+
+    train_images(os.path.join(tmp, "instance"), SEED + 90, TRAIN_IMAGES)
+    from diffusion_finetuning_tpu_torch.data import native_loader
+
+    log("phase 9 images decode through " + (
+        "the native loader" if native_loader.available()
+        else f"PIL (the native loader did not build: {native_loader.unavailable_reason})"))
+    launches, rows = {}, {}
+    t0 = time.time()
+    pipe, launches["pti"], rows["pti"] = phase_pti(model_dir, tmp)
+    launches["pti_serving"], rows["pti_serving"] = phase_pti_serving(pipe)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 PTI: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["dreambooth"], rows["dreambooth"] = phase_dreambooth(model_dir, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 DreamBooth: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["w_ti"], rows["w_ti"] = phase_w_ti(model_dir, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 w_ti: {time.time() - t0:.1f} s")
+    return launches, rows
 
 
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
@@ -2269,17 +2727,29 @@ def main():
     graphed_launches, graphed = phase_graphed(pipe, ucfg, lora_cpu, lora_dev,
                                               profile_dir=args.profile)
     log(f"phase 7: {time.time() - t0:.1f} s")
-    t0 = time.time()
-    entry_launches, entry = phase_serving_entry(pipe, ucfg, tcfg, want_counts(
-        flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP))
-    log(f"phase 8: {time.time() - t0:.1f} s")
+    pipe.release_graphs()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.time()
+        entry_launches, entry = phase_serving_entry(pipe, ucfg, tcfg, want_counts(
+            flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP), tmp)
+        log(f"phase 8: {time.time() - t0:.1f} s")
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        trainer_launches, trainers = phase_trainers(os.path.join(tmp, "sd15"), tmp)
+        log(f"phase 9: {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
-                    "graphed": graphed, "serving_entry": entry}))
+                    "graphed": graphed, "serving_entry": entry, "trainers": trainers}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
-        graphed=graphed_launches, **entry_launches))))
+        graphed=graphed_launches, **entry_launches,
+        **{f"trainer_{k}": v for k, v in trainer_launches.items()}))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,7 @@ __all__ = [
     "filter_targets",
     "module_name",
     "inject_trainable_lora",
+    "lora_targets_from_module",
     "lora_leaves",
     "attached",
     "materialize_lora_tree",
@@ -135,12 +136,23 @@ def module_name(path: Sequence[str], prefix: str = "") -> str:
 
 
 def inject_trainable_lora(targets: Sequence[LoraTarget],
-                          generator: torch.Generator, r: int = 4,
+                          generator: Optional[torch.Generator], r: int = 4,
+                          loras: Optional["FlatLora"] = None,
                           scale: float = 1.0, dtype: torch.dtype = torch.float32,
                           device=None) -> Dict[str, Any]:
     """A fresh LoRA tree for ``targets``: ``down ~ N(0, 1) / r`` and
     ``up = 0`` (reference lora.py:46-47), drawn from ``generator`` in target
-    order, on ``device`` (default: the generator's device)."""
+    order, on ``device`` (default: the generator's device).
+
+    ``loras`` warm-starts the tree instead (JAX :283-327, reference
+    lora.py:150-151, 175-177): a ``.pt`` flat interleaved list or a list of
+    tensors, through :func:`flat_to_lora_tree` (length and shape checks,
+    conv pairs in either layout); nothing is drawn then."""
+    if loras is not None:
+        if device is None and generator is not None:
+            device = generator.device
+        return flat_to_lora_tree(_load_flat(loras), targets, scale=scale, dtype=dtype,
+                                 device=device)
     if device is None:
         device = generator.device
     tree: Dict[str, Any] = {}
@@ -159,6 +171,64 @@ def inject_trainable_lora(targets: Sequence[LoraTarget],
                 "scale": torch.tensor(scale, dtype=torch.float32, device=device)}
         tree = tree_set(tree, t.path, leaf)
     return tree
+
+
+def _jax_path(name: str, prefix: str = "") -> Path:
+    """The inverse of :func:`module_name`: a module name of the port (under
+    ``prefix``) as the JAX module path (``down_blocks.0.attentions.0`` ->
+    ``down_blocks_0_attentions_0``, ``to_out.0`` -> ``to_out``)."""
+    if prefix and name.startswith(prefix):
+        name = name[len(prefix):]
+    parts: List[str] = []
+    for seg in name.split("."):
+        if parts and seg.isdigit():
+            if parts[-1] != "to_out":
+                parts[-1] += f"_{seg}"
+        elif parts and seg in ("attentions", "resnets", "downsamplers", "upsamplers"):
+            parts[-1] += f"_{seg}"
+        else:
+            parts.append(seg)
+    return tuple(parts)
+
+
+def lora_targets_from_module(module: nn.Module, *,
+                             target_replace_module: Set[str] = DEFAULT_TARGET_REPLACE,
+                             include_conv: bool = False) -> List[LoraTarget]:
+    """Targets of an ``nn.Module`` by ancestor class name (JAX :138-216, the
+    reference's ``_find_modules``, lora.py:61-134): every ``nn.Linear``
+    (and, with ``include_conv``, ``nn.Conv2d``) that is a module whose class
+    name is in ``target_replace_module`` or a descendant of one, in
+    ancestor-major preorder of ``named_modules()``.  A layer under two
+    matched ancestors comes once, for the first ancestor that reaches it
+    (the reference's skip-already-injected rule, lora.py:98-104).  Paths are
+    JAX paths (:func:`_jax_path`, under the module's ``lora_prefix``), so the
+    targets drive the whole target-based API (inject, merge, save, load)."""
+    prefix = getattr(module, "lora_prefix", "")
+    modules = list(module.named_modules())
+    replace = set(target_replace_module)
+    targets: List[LoraTarget] = []
+    seen: Set[str] = set()
+    for aname, amod in modules:
+        ancestor = type(amod).__name__
+        if ancestor not in replace:
+            continue
+        for name, m in modules:
+            if name in seen or not (name == aname or name.startswith(aname + ".")
+                                    or not aname):
+                continue
+            is_dense = isinstance(m, nn.Linear)
+            is_conv = include_conv and isinstance(m, nn.Conv2d)
+            if not (is_dense or is_conv):
+                continue
+            seen.add(name)
+            if is_dense:
+                targets.append(LoraTarget(_jax_path(name, prefix), m.in_features,
+                                          m.out_features, ancestor))
+            else:
+                targets.append(LoraTarget(_jax_path(name, prefix), m.in_channels,
+                                          m.out_channels, ancestor,
+                                          kernel_size=tuple(m.kernel_size)))
+    return targets
 
 
 def _is_leaf(node) -> bool:

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import conv3x3 as conv3x3_op
-from ..ops import flash_attention
+from ..ops import attention, flash_attention
 from ..ops.lora_matmul import lora_dense
 
 # route LoRAConv2d's 3x3 convs to ops.conv3x3 (tests and chip_smoke.py set it)
@@ -38,9 +38,10 @@ CONV_KERNEL = bool(int(os.environ.get("DFT_CONV_PALLAS", "0")))
 
 def kernel_switches() -> tuple:
     """The two opt-in kernel switches as they stand (K5 for the resnet
-    convs, K4's heads a CTA): part of every CUDA graph's key, since a graph
-    holds the kernels chosen when it was captured."""
-    return CONV_KERNEL, flash_attention.DEFAULT_HEAD_PACK
+    convs, K4's heads a CTA) and the attention router's switches: part of
+    every CUDA graph's key, since a graph holds the kernels chosen when it
+    was captured."""
+    return CONV_KERNEL, flash_attention.DEFAULT_HEAD_PACK, attention.routing()
 
 
 class _LoRAMixin:

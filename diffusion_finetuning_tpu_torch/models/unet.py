@@ -288,7 +288,10 @@ class UNet2DConditionModel(nn.Module):
         self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chans[0], temb_dim)
 
+        # registered in diffusers' order (down, up, then mid), so that
+        # named_modules() walks the blocks in the canonical LoRA order
         self.down_blocks = nn.ModuleList()
+        self.up_blocks = nn.ModuleList()
         skip_chs = [chans[0]]
         prev = chans[0]
         for i, (btype, ch) in enumerate(zip(cfg.down_block_types, chans)):
@@ -308,7 +311,6 @@ class UNet2DConditionModel(nn.Module):
             [transformer(mid, cfg.heads_for_block(len(chans) - 1))])
 
         rev = list(reversed(chans))
-        self.up_blocks = nn.ModuleList()
         for i, btype in enumerate(cfg.up_block_types):
             ch, prev_ch = rev[i], rev[max(i - 1, 0)]
             n = cfg.layers_per_block + 1

@@ -62,6 +62,7 @@ img2img with the other samplers come in later slices.
 from __future__ import annotations
 
 import collections
+import gc
 import os
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -292,6 +293,17 @@ class StableDiffusionPipeline:
             self._merged_cache.clear()
             self._graphs = None
         return self
+
+    def release_graphs(self) -> None:
+        """Drop the request graphs and their memory pool (a trainer that has
+        synthesised its class images needs the memory for training); the
+        next request captures afresh."""
+        with self._swap_lock:
+            self._graphs = None
+        if self.device.type == "cuda":
+            gc.collect()
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
 
     # -- LoRA materialization ----------------------------------------------
     def invalidate_merged_cache(self) -> None:

@@ -1088,3 +1088,165 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(small_pipe):
         assert torch.equal(x, y)
     s, m = step(s, batches[0], torch.Generator(device="cuda").manual_seed(0))
     assert s["step"] == 1 and bool(torch.isfinite(m["loss"]))
+
+
+# ---------------------------------------------------------------------------
+# the trainers (cli_lora_pti, training/checkpoint.py, xformers_utils)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def small_model_dir(tmp_path_factory):
+    """A bf16 diffusers directory of the small pipeline's configs (fresh
+    weights from fixed seeds) and 4 instance images of 32^2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    from PIL import Image
+
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+    from diffusion_finetuning_tpu_torch.models.hf_export import save_pretrained
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    cfgs = (UNetConfig(**SMALL_UNET), VAEConfig.tiny(), CLIPTextConfig.tiny())
+    sds = []
+    for i, (cls, cfg) in enumerate(zip((UNet2DConditionModel, AutoencoderKL, CLIPTextModel),
+                                       cfgs)):
+        torch.manual_seed(10 + i)
+        sds.append(cls(cfg).state_dict())
+    pipe = StableDiffusionPipeline(cfgs[0], sds[0], cfgs[1], sds[1], cfgs[2], sds[2],
+                                   CLIPTokenizer.tiny(["photo", "of", "sks"]), device="cpu")
+    root = tmp_path_factory.mktemp("small_model")
+    save_pretrained(pipe, str(root / "model"), dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    (root / "inst").mkdir()
+    for i in range(4):
+        Image.fromarray(rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)).save(
+            root / "inst" / f"a photo of sks_{i}.png")
+    return root
+
+
+@pytest.mark.cuda
+def test_pti_graphed_spd2_equals_spd1(small_model_dir):
+    """``cli_lora_pti.train`` in bf16 on the card (4 inversion steps with
+    accumulation 2, 4 tuning steps with the text LoRA and continued
+    inversion) at 2 steps a graph and at 1: the losses, LoRA trees and
+    token table bit for bit, the checkpoints' bytes equal, and the frozen
+    rows untouched by the inversion."""
+    from diffusion_finetuning_tpu_torch import cli_lora_pti
+    from diffusion_finetuning_tpu_torch.training.trainer_util import token_table
+
+    runs = []
+    for spd in (1, 2):
+        out = small_model_dir / f"pti_spd{spd}"
+        pipe = cli_lora_pti.train(
+            instance_data_dir=str(small_model_dir / "inst"),
+            pretrained_model_name_or_path=str(small_model_dir / "model"), output_dir=str(out),
+            use_template="object", placeholder_tokens="<s1>|<s2>",
+            initializer_tokens="<rand-0.017>|<zero>", seed=3, resolution=32,
+            max_train_steps_ti=4, max_train_steps_tuning=4, gradient_accumulation_steps=2,
+            save_steps=2, lora_rank=4, train_text_encoder=True, continue_inversion=True,
+            mixed_precision="bf16", steps_per_dispatch=spd, device="cuda")
+        runs.append((pipe, out))
+    (a, out_a), (b, out_b) = runs
+    for la, lb in zip(a.train_log, b.train_log):
+        assert np.array_equal(la["losses"], lb["losses"]) and np.isfinite(la["losses"]).all()
+        assert la["launches"]["flash_attention_fwd"] > 0
+        assert la["launches"]["flash_attention_bwd"] > 0
+    assert a.train_log[0]["frozen_rows_changed"] == 0
+    assert b.train_log[1]["launches"]["lora_dense"] > 0
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+
+    for ta, tb in ((a.unet_lora, b.unet_lora), (a.text_encoder_lora, b.text_encoder_lora)):
+        for (pa, x), (pb, y) in zip(lora_lib.lora_leaves(ta), lora_lib.lora_leaves(tb)):
+            assert pa == pb and torch.equal(x["up"], y["up"])
+            assert torch.equal(x["down"], y["down"])
+    assert torch.equal(token_table(a), token_table(b))
+    names = sorted(p.name for p in out_a.iterdir())
+    assert names == sorted(p.name for p in out_b.iterdir()) and len(names) == 4
+    for name in names:
+        assert (out_a / name).read_bytes() == (out_b / name).read_bytes()
+
+
+@pytest.mark.cuda
+def test_checkpoint_restored_into_a_captured_state_replays_without_capture(small_pipe,
+                                                                          tmp_path):
+    """A train step captured with jit_train_step; the state saved after 2
+    steps, 2 more steps, the checkpoint restored in place: the state equals
+    the saved one bit for bit, and the same 2 steps again (the same draws)
+    replay the graph (no new capture) to the same losses and state."""
+    from diffusion_finetuning_tpu_torch.training import checkpoint as ckpt
+    from diffusion_finetuning_tpu_torch.training import train_step as ts
+
+    step, state, batches = _train_setup(small_pipe, ti=True, accum=2)
+    st = state()
+    fn = ts.jit_train_step(step)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for b in batches[:2]:
+        fn(st, b, g)
+    path = ckpt.save_train_state(str(tmp_path), st)
+    saved = {k: t.clone() for k, t in ckpt.named_tensors(st).items()}
+    graphs = next(iter(step._dft_graphs.values())).graphs
+    captured = len(graphs)
+    draws = [step.draws(b, torch.Generator(device="cuda").manual_seed(7 + i))
+             for i, b in enumerate(batches[2:4])]
+    first = [fn(st, b, draws=d)[1]["loss"] for b, d in zip(batches[2:4], draws)]
+    after = [t.clone() for t in ts.carried_tensors(st)]
+    ckpt.restore_train_state(path, st)
+    assert st["step"] == 2
+    for k, t in ckpt.named_tensors(st).items():
+        assert torch.equal(t, saved[k]), k
+    again = [fn(st, b, draws=d)[1]["loss"] for b, d in zip(batches[2:4], draws)]
+    assert len(graphs) == captured
+    assert torch.equal(torch.stack(first), torch.stack(again))
+    assert all(torch.equal(x, y) for x, y in zip(after, ts.carried_tensors(st)))
+
+
+@pytest.mark.cuda
+def test_flash_backwards_probe_on_the_card(card):
+    """xformers_utils.test_flash_backwards runs K1 and K3 at each SD1.5 head
+    dim and holds them against the plain versions; the UNet-config walk
+    keeps every head dim on the kernels."""
+    from diffusion_finetuning_tpu_torch import xformers_utils
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+
+    xformers_utils.test_flash_backwards.cache_clear()
+    before = (tfa.launches, tfa.bwd_launches)
+    assert all(xformers_utils.test_flash_backwards(d) for d in (40, 80, 160))
+    assert tfa.launches - before[0] == 3 and tfa.bwd_launches - before[1] == 3
+    try:
+        assert xformers_utils.set_use_memory_efficient_attention_xformers(UNetConfig.sd15())
+        assert tatt.routing() == (True, ())
+    finally:
+        tatt.clear_flash_overrides()
+        tatt.set_flash_enabled(True)
+
+
+@pytest.mark.cuda
+def test_flash_probe_failure_raises_on_the_card(card, monkeypatch):
+    """A probe that fails on the card raises with its head dim instead of
+    turning the kernel off, and the router refuses to send a card call to
+    plain_attention."""
+    from diffusion_finetuning_tpu_torch import xformers_utils
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+
+    real = tatt.flash_attention
+    monkeypatch.setattr(tatt, "flash_attention",
+                        lambda q, k, v, heads, scale=None: real(q, k, v, heads, scale) * 2)
+    xformers_utils.test_flash_backwards.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="head dim 40"):
+            xformers_utils.set_use_memory_efficient_attention_xformers(UNetConfig.sd15())
+        assert tatt.routing() == (True, ())
+    finally:
+        xformers_utils.test_flash_backwards.cache_clear()
+    monkeypatch.setattr(tatt, "flash_attention", real)
+    q = torch.randn((1, 64, 80), device="cuda", dtype=torch.bfloat16)
+    try:
+        tatt.set_flash_override(seq_len_q=64, head_dim=40, enabled=False)
+        with pytest.raises(RuntimeError, match="seq_len_q=64, head_dim=40"):
+            tatt.attention(q, q, q, heads=2)
+    finally:
+        tatt.clear_flash_overrides()

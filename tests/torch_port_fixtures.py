@@ -95,3 +95,134 @@ def training_models():
     trees = dict(unet=numpy_lora_tree(unet_targets, rank=2, seed=0),
                  text=numpy_lora_tree(jclip.text_encoder_lora_targets(tcfg), rank=2, seed=1))
     return jax_side, port, trees
+
+
+# ---------------------------------------------------------------------------
+# the trainer tests (test_torch_port_trainers.py, test_torch_port_dreambooth.py)
+# ---------------------------------------------------------------------------
+
+TRAINER_LATENT = (8, 8, 4)  # the tiny VAE's latent grid for 16x16 pixels
+# parameters within 2% of their group's LR for each update taken: AdamW's
+# g / (|g| + eps) turns the gradients' relative differences of ~1e-5 into up
+# to ~1e-3 of an update where |g| is within a few orders of eps, and a
+# gradient element that cancels to near zero can differ more (the PTI
+# UNet LoRA's worst element after two updates: 1.2% of them)
+TRAINER_ATOL = 2e-2
+
+
+def trainer_dirs(tmp_path_factory):
+    """A diffusers directory of the port's tiny pipe (torch's default
+    initialisation under a seed, fp32: no JAX init to trace and compile),
+    2 instance and 2 class images: the trainer tests' inputs."""
+    import torch
+    from PIL import Image
+
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models import clip_text as tclip
+    from diffusion_finetuning_tpu_torch.models import hf_export
+    from diffusion_finetuning_tpu_torch.models import unet as tunet
+    from diffusion_finetuning_tpu_torch.models import vae as tvae
+    from diffusion_finetuning_tpu_torch.models.schedulers import SchedulerConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    root = tmp_path_factory.mktemp("port_trainers")
+    model = str(root / "model")
+    cfgs = (tunet.UNetConfig.tiny(), tvae.VAEConfig.tiny(), tclip.CLIPTextConfig.tiny())
+    sds = []
+    for i, (cls, cfg) in enumerate(zip((tunet.UNet2DConditionModel, tvae.AutoencoderKL,
+                                        tclip.CLIPTextModel), cfgs)):
+        torch.manual_seed(i)
+        sds.append(cls(cfg).state_dict())
+    pipe = StableDiffusionPipeline(cfgs[0], sds[0], cfgs[1], sds[1], cfgs[2], sds[2],
+                                   CLIPTokenizer.tiny(["photo", "of", "sks"]), SchedulerConfig(),
+                                   dtype=torch.float32, device="cpu")
+    hf_export.save_pretrained(pipe, model)
+    rng = np.random.default_rng(0)
+    for sub, name in (("inst", "a photo of sks_{}.png"), ("cls", "class_{}.png")):
+        (root / sub).mkdir()
+        for i in range(2):
+            arr = (rng.random((16, 16, 3)) * 255).astype(np.uint8)
+            Image.fromarray(arr).save(root / sub / name.format(i))
+    return {"root": root, "model": model, "inst": str(root / "inst"),
+            "cls": str(root / "cls")}
+
+
+def trainer_draws(key, batch, t_max):
+    """loss_step's draws for ``key``, as the JAX function makes them."""
+    r_sample, r_noise, r_t = jax.random.split(key, 3)
+    shape = (batch,) + TRAINER_LATENT
+    return {"sample": np.array(jax.random.normal(r_sample, shape, jnp.float32)),
+            "noise": np.array(jax.random.normal(r_noise, shape, jnp.float32)),
+            "timesteps": np.array(jax.random.randint(r_t, (batch,), 0, t_max))}
+
+
+def step_keys(rng, n):
+    """The per-step keys of JAX's ``FusedDispatcher.drive`` at spd 1."""
+    keys = []
+    for _ in range(n):
+        rng, key = jax.random.split(rng)
+        keys.append(key)
+    return keys
+
+
+def recording_dispatcher(losses):
+    """JAX's FusedDispatcher, recording each dispatch's losses."""
+
+    from diffusion_finetuning_tpu.training import train_step as jtrain
+
+    class Recording(jtrain.FusedDispatcher):
+        def drive(self, *args, **kwargs):
+            for out in super().drive(*args, **kwargs):
+                losses.append(np.asarray(out[1]))
+                yield out
+
+    return Recording
+
+
+def given_draws_dispatcher(phase_draws):
+    """The port's FusedDispatcher, each drive (one per phase) handed the
+    next phase's draws."""
+    from diffusion_finetuning_tpu_torch.training import train_step as ttrain
+
+    phases = iter(phase_draws)
+
+    class Given(ttrain.FusedDispatcher):
+        def drive(self, state, rng, take_group, total_steps, start_step=0, draws=None):
+            yield from super().drive(state, rng, take_group, total_steps, start_step,
+                                     draws=next(phases))
+
+    return Given
+
+
+def flat_lora(tree, targets):
+    """A LoRA tree of either package as its flat fp32 numpy list."""
+    import torch
+
+    from diffusion_finetuning_tpu import lora as jlora
+
+    def host(node):
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        return node.detach().numpy() if isinstance(node, torch.Tensor) else node
+
+    return [np.asarray(a, np.float32) for a in jlora.lora_tree_to_flat(host(tree), targets)]
+
+
+def assert_params_close(got, want, lr, updates):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=TRAINER_ATOL * lr * updates)
+
+
+def assert_same_safetensors(got_path, want_path, lr, updates):
+    """Two safetensors files: the same tensor names and metadata, the values
+    within :func:`assert_params_close`."""
+    from diffusion_finetuning_tpu.io import safetensors_io
+
+    got, gmeta = safetensors_io.read_safetensors(got_path)
+    want, wmeta = safetensors_io.read_safetensors(want_path)
+    assert sorted(got) == sorted(want) and gmeta == wmeta
+    assert_params_close([np.asarray(got[k], np.float32) for k in sorted(want)],
+                        [np.asarray(want[k], np.float32) for k in sorted(want)], lr, updates)
+
+
