@@ -9,7 +9,9 @@ Phases, each fatal on failure:
      one process per source, all at once;
   2. kernels against their plain PyTorch versions on the card, bf16, at every
      shape the SD1.5 512^2 main paths give them (the flash backward at the
-     training shapes, BH = 8): error, kernel time, plain-version time, one
+     training shapes, BH = 8; the flash forward in fp32 too, the FMA kernel
+     that fp32 pipes such as ``visualize_training_progress`` run, with its
+     own launch counter and its own row): error, kernel time, plain-version time, one
      PyTorch library call's time (SDPA's backward alone for the flash
      backward), and the bound; the flash forward's q tile and the flash
      backward's q splits (whose dQ, dK and dV must repeat bit for bit, and
@@ -101,7 +103,22 @@ Phases, each fatal on failure:
      first transformer block's attn1 needs no gradient), a LoRA step 32 K1,
      32 K3 and 192 K2, twice a graph's steps at its warm-up and capture,
      none at its replays.  Printed: each phase's first dispatch s, steps a
-     second after it, peak memory, checkpoint save and restore ms.
+     second after it, peak memory, checkpoint save and restore ms;
+ 10. the rest of one card's surface, from phase 8's directory and adapters:
+     img2img at 512^2, strength 0.75, 20 steps (15 UNet steps, PNDM 16),
+     batch 1, adapter B dynamic (K1, K2), with the "dpm", "pndm", "euler",
+     "euler_a", "lms" and "lms:karras" samplers, each graphed request equal
+     to its eager twin bit for bit, launches twice a call at the capture and
+     none at the replays (printed: first-call s, graphed and eager ms, peak
+     memory); "lms" and "euler_a" at 128^2 against the CPU in fp32 (same
+     draws); ``lora_add`` ``upl`` of B into the directory (fp32, each merged
+     weight equal to ``weight_apply_lora``), ``upl-ckpt-v2`` (an fp16 .ckpt
+     read back with ``torch.load(weights_only=True)``) and ``lpl`` of A's
+     and B's ``.pt`` pairs; ``lora_distill`` at rank 4 with its SVDs on the
+     card, each pair before the clamp within DISTILL_REL_FRO of 0.8 x B's up
+     down; the ``run_img2img`` (bf16) and ``visualize_training_progress``
+     (fp32, as in JAX: K1's fp32 kernel) scripts with exact launches.
+     Printed: seconds and bytes of each tool.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -245,6 +262,12 @@ PEAK_BYTES = 3.35e12
 # tolerances (bf16 kernel vs the plain version on the same bf16 inputs:
 # rounding of p / h to bf16 and of the output flips at ulp boundaries)
 FLASH_TOL = {"max_abs": 2e-2, "rel_l2": 1e-2, "lse_abs": 1e-3}
+# fp32 flash forward (FMA kernel) vs the plain version in fp32: both sum in
+# fp32, the kernel with ex2.approx (2 ulp) and a different order, so they
+# differ by a few fp32 roundings of O (|O| < 1) and of lse (|lse| < 20);
+# a lost or doubled KV tile moves O by 1e-2 or more
+FLASH_F32_TOL = {"max_abs": 1e-4, "rel_l2": 1e-5, "lse_abs": 1e-4}
+PEAK_F32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 # dQ/dK/dV: max |err| relative to the largest reference value, and rel L2
 # (dS rounds to bf16 from sums taken in another order)
 FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
@@ -442,7 +465,8 @@ def phase_kernels():
             f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash attention kernel disagrees at {row['shape']}")
-    # fp32 inputs take the FMA kernel: check it once
+    # a ragged fp32 shape (d 40, Sq 200), and K4's fp32 path (the same FMA kernel,
+    # G heads in turn) equal to K1's
     q, k, v = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77))
     with torch.inference_mode():
         o, lse = fa._fwd_cuda(q, k, v, 0.2)
@@ -456,11 +480,60 @@ def phase_kernels():
     if not (torch.equal(o4, o) and torch.equal(lse4, lse)):
         fail("fp32 packed flash attention kernel differs from the unpacked one")
     results["flash_attention_fwd"] = rows
+    results["flash_attention_fwd_fp32"] = flash_fp32_rows(gen, flush, iters)
     results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters, rows)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
     results["lora_dense"] = lora_rows(gen, flush, iters)
     return results
+
+
+def flash_fp32_rows(gen, flush, iters):
+    """The fp32 flash forward (K1's FMA kernel, ``flash_fwd_f32_kernel``)
+    at FLASH_SHAPES, BH = 16: an fp32 pipe's 512^2 CFG UNet step, against
+    the plain version in fp32 within FLASH_F32_TOL; bound at the card's fp32
+    rate outside the tensor cores."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    log(f"limits, fp32 kernel vs plain version: flash {FLASH_F32_TOL}")
+    rows = []
+    for sq, skv, d, count in FLASH_SHAPES:
+        q, k, v = (torch.randn((FLASH_BH, s, d), generator=gen, device="cuda")
+                   for s in (sq, skv, skv))
+        scale = d ** -0.5
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, scale, head_pack=1)
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
+            torch.cuda.synchronize()
+            mx, rel = errors(o, o_ref)
+            lse_err = float((lse - lse_ref).abs().max())
+            ok = (mx <= FLASH_F32_TOL["max_abs"] and rel <= FLASH_F32_TOL["rel_l2"]
+                  and lse_err <= FLASH_F32_TOL["lse_abs"] and bool(torch.isfinite(o).all()))
+            ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale), iters, flush)
+            plain_ms = cuda_time(lambda: fa.flash_attention_plain(q, k, v, scale),
+                                 3, flush, hide_host=False)
+            q4, k4, v4 = (t.reshape(2, 8, -1, d) for t in (q, k, v))
+            lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                               iters, flush)
+        flops = 4 * FLASH_BH * sq * skv * d
+        nbytes = 4 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq
+        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        by = "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        row = dict(shape=[FLASH_BH, sq, skv, d], per_step=count, max_abs_err=mx,
+                   rel_l2=rel, lse_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, bound_by=by)
+        rows.append(row)
+        log(f"flash fp32 BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+            f"max_abs={mx:.3e} rel_l2={rel:.3e} lse={lse_err:.2e} ms={ms:.4f} "
+            f"plain={plain_ms:.3f} sdpa={lib_ms:.4f} bound={bound:.4f} ({by}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fp32 flash attention kernel disagrees at {row['shape']}")
+        del q, k, v, o, o_ref, lse, lse_ref
+    return rows
 
 
 def lora_rows(gen, flush, iters):
@@ -894,6 +967,7 @@ def build_pipe(ucfg, vcfg, tcfg, sds, dtype, device):
 COUNTERS = {
     "flash_attention_fwd": ("flash_attention", "launches"),
     "flash_attention_fwd_packed": ("flash_attention", "packed_launches"),
+    "flash_attention_fwd_fp32": ("flash_attention", "fp32_launches"),
     "flash_attention_bwd": ("flash_attention", "bwd_launches"),
     "lora_dense": ("lora_matmul", "launches"),
     "conv3x3": ("conv3x3", "launches"),
@@ -1007,6 +1081,7 @@ def phase_unet_step(pipe, unet_sd, lora_cpu, lora_dev, profile_dir=None):
 
 KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match wins
     ("flash_attention_fwd_packed (ours)", ("flash_fwd_bf16_packed",)),
+    ("flash_attention_fwd_fp32 (ours)", ("flash_fwd_f32",)),
     ("flash_attention_fwd (ours)", ("flash_fwd",)),
     ("flash_attention_bwd (ours)", ("flash_bwd",)),
     ("lora_dense (ours)", ("lora_dense",)),
@@ -1022,6 +1097,7 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
 # device kernel -> the launch counter of its wrapper, and the kernels one
 # launch runs (K3: its dK/dV kernel and its dQ kernel); first match wins
 DEVICE_KERNELS = (("flash_fwd_bf16_packed", "flash_attention_fwd_packed", 1),
+                  ("flash_fwd_f32", "flash_attention_fwd_fp32", 1),
                   ("flash_fwd", "flash_attention_fwd", 1),
                   ("flash_bwd_dq", None, 0),
                   ("flash_bwd", "flash_attention_bwd", 1),
@@ -2630,6 +2706,441 @@ def phase_trainers(model_dir, tmp):
     return launches, rows
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+SAMPLER_STEPS = 20          # strength 0.75: 15 UNet steps (PNDM's grid of 21: 16)
+SAMPLER_STRENGTH = 0.75
+IMG2IMG_SAMPLERS = ("dpm", "pndm", "euler", "euler_a", "lms", "lms:karras")
+SAMPLER_REPLAYS = 2
+SAMPLER_REF = ("lms", "euler_a")  # a stateful and an ancestral sampler against the CPU
+SAMPLER_REF_STEPS = 4       # strength 0.75: t_start 1, 3 UNet steps
+MERGE_ALPHA = 0.8
+DISTILL_RANK = 4
+# ||U Vh - alpha up down||_F / ||alpha up down||_F of each distilled pair
+# before the clamp: the delta is read back as (W + alpha up down) - W in fp32,
+# off by an fp32 rounding of |W| (|W| / |delta| about 10 here: ~1e-6), and
+# the SVD of a rank-4 matrix adds fp32 error of the same order; 100x margin.
+# The clamp at the signed 0.99 quantile then cuts the largest entries (and,
+# by the sign the solver chose, can cut more): its error is reported only.
+DISTILL_REL_FRO = 1e-4
+VIS_STEPS = 10
+
+
+def img2img_unet_steps(scheduler, steps, strength):
+    """UNet calls of an img2img request, from the code: the sampler's grid
+    from its txt2img scheduler, started at ``img2img_start``."""
+    from diffusion_finetuning_tpu_torch.models.schedulers import (SchedulerConfig,
+                                                                  txt2img_scheduler)
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import img2img_start
+
+    grid = len(txt2img_scheduler(scheduler, SchedulerConfig()).timesteps(steps))
+    return grid - img2img_start(grid, strength)
+
+
+def dir_bytes(path):
+    if os.path.isfile(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_img2img_samplers(pipe):
+    """img2img at 512^2, strength 0.75, 20 steps, batch 1, adapter B dynamic
+    (UNet and text LoRA through K2), with each sampler of IMG2IMG_SAMPLERS:
+    a first graphed request (warm-up, capture, replay), SAMPLER_REPLAYS
+    replays, then the last one's eager twin, which must equal it bit for
+    bit.  Launches, with the counters set to 0 just before the graphed
+    requests and read just after: twice a call's (warm-up and capture), none
+    at the replays; the eager request's: one call's."""
+    import numpy as np
+    import torch
+
+    pipe.cuda_graphs = True
+    image = init_image(IMAGE)
+    prompt = f"a portrait of {TOKEN_B}"
+    rows, total = [], want_counts()
+    for sch in IMG2IMG_SAMPLERS:
+        n = img2img_unet_steps(sch, SAMPLER_STEPS, SAMPLER_STRENGTH)
+        per_call = want_counts(flash_attention_fwd=FLASH_PER_STEP * n,
+                               lora_dense=LORA_PER_STEP * n + TEXT_LORA_PER_ENCODE)
+        kw = dict(strength=SAMPLER_STRENGTH, num_inference_steps=SAMPLER_STEPS,
+                  guidance_scale=GUIDANCE, scheduler=sch, output_type="device")
+        graphs_before = 0 if pipe._graphs is None else len(pipe._graphs.graphs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        pipe.img2img(prompt, image, seed=1, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        walls = []
+        for i in range(SAMPLER_REPLAYS):
+            t0 = time.perf_counter()
+            out = pipe.img2img(prompt, image, seed=2 + i, **kw)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        pipe.cuda_graphs = False
+        reset_counts()
+        t0 = time.perf_counter()
+        eager = pipe.img2img(prompt, image, seed=1 + SAMPLER_REPLAYS, **kw)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        eager_counts = counts()
+        pipe.cuda_graphs = True
+        want = {k: 2 * v for k, v in per_call.items()}
+        captured_now = len(pipe._graphs.graphs) - graphs_before
+        equal = torch.equal(out, eager)
+        row = dict(scheduler=sch, unet_steps=n, first_call_s=first_s,
+                   graphed_ms=sorted(walls)[len(walls) // 2], graphed_ms_all=walls,
+                   eager_ms=eager_ms, peak_bytes=peak, launches=got, eager_launches=eager_counts,
+                   graphs_captured=captured_now, equal_to_eager=equal)
+        rows.append(row)
+        log(f"img2img {sch}: {n} UNet steps; first call (warm-up + capture + replay) "
+            f"{first_s:.2f} s, graphed {row['graphed_ms']:.1f} ms (of {[round(w, 1) for w in walls]}), "
+            f"eager {eager_ms:.1f} ms; peak {peak / 2**30:.2f} GiB; launches {got} (want {want}), "
+            f"eager {eager_counts}; equal to eager {equal}")
+        if got != want or eager_counts != per_call:
+            fail(f"img2img {sch} launched {got} graphed and {eager_counts} eager, want {want} "
+                 f"and {per_call}")
+        if captured_now != 1:
+            fail(f"img2img {sch} captured {captured_now} graphs, want 1")
+        if not equal:
+            fail(f"the graphed img2img {sch} request differs from the eager one")
+        arr = out.cpu().numpy()
+        if arr.shape != (1, IMAGE, IMAGE, 3) or not arr.std() > 0:
+            fail(f"img2img {sch} gave {arr.shape} with std {arr.std()}")
+        for k, v in got.items():
+            total[k] += v
+    pipe.release_graphs()
+    return total, rows
+
+
+def phase_sampler_reference(pipe, cpu_pipe):
+    """A stateful and an ancestral sampler (SAMPLER_REF) at 128^2, strength
+    0.75, 4 steps, adapter B dynamic: the card in bf16 against the CPU in
+    fp32 with the same draws (Euler-ancestral's per-step noise among them)."""
+    import numpy as np
+
+    side = REF_IMAGE // pipe.vae_scale_factor
+    prompts = [f"a portrait of {TOKEN_B}", "photo of sks person"]
+    pipe.cuda_graphs = False
+    rows = {}
+    for sch in SAMPLER_REF:
+        n = img2img_unet_steps(sch, SAMPLER_REF_STEPS, SAMPLER_STRENGTH)
+        rng = np.random.default_rng(SEED + 100)
+        draws = {"sample": rng.standard_normal((1, side, side, 4)).astype(np.float32),
+                 "noise": rng.standard_normal((2, side, side, 4)).astype(np.float32),
+                 "ancestral": rng.standard_normal((n, 2, side, side, 4)).astype(np.float32)}
+        kw = dict(strength=SAMPLER_STRENGTH, num_inference_steps=SAMPLER_REF_STEPS,
+                  guidance_scale=GUIDANCE, scheduler=sch, draws=draws, output_type="np")
+        got = pipe.img2img(prompts, init_image(REF_IMAGE), **kw)
+        t0 = time.time()
+        want = cpu_pipe.img2img(prompts, init_image(REF_IMAGE), **kw)
+        diff = np.abs(got - want)
+        rows[sch] = {"mean_abs_diff": float(diff.mean()), "max_abs_diff": float(diff.max())}
+        log(f"img2img {sch} 128^2 x{SAMPLER_REF_STEPS} steps ({n} UNet), card bf16 vs CPU fp32: "
+            f"mean |diff| {diff.mean():.3e} (limit {PIPE_MEAN_ABS}), max {diff.max():.3e}, "
+            f"image std {got.std():.3e}; CPU reference {time.time() - t0:.1f} s")
+        if got.shape != (2, REF_IMAGE, REF_IMAGE, 3) or not diff.mean() <= PIPE_MEAN_ABS:
+            fail(f"img2img {sch} on the card disagrees with the CPU fp32 reference")
+        if not got.std() > 1e-3:
+            fail(f"img2img {sch} images are constant")
+    pipe.cuda_graphs = True
+    return rows
+
+
+def pt_pair_of_safetensors(path, out):
+    """Adapter A's UNet and text LoRA as the ``.pt`` pair ``lpl`` reads
+    (fp16, as the reference's ``.pt`` saves)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+
+    tensors, meta = safetensors_io.read_safetensors(path)
+    loras = safetensors_io.parse_safeloras(tensors, meta)
+    for name, p in (("unet", out), ("text_encoder", lora_lib._text_lora_path(out))):
+        torch.save([t.half().clone() for t in loras[name][0]], p)
+
+
+def phase_lora_add(model_dir, paths, tmp):
+    """``lora_add`` at SD1.5 width on the card: ``upl`` of adapter B (UNet
+    and text, alpha MERGE_ALPHA) into phase 8's directory, written fp32,
+    each merged weight equal to ``weight_apply_lora`` on the card over the
+    directory's weights;
+    ``upl-ckpt-v2`` to an fp16 ``.ckpt`` that ``torch.load(weights_only=True)``
+    reads, its UNet the fp16 of the ``upl`` one; ``lpl`` of A's and B's
+    ``.pt`` pairs."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import cli_lora_add
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.models import hf_loading
+    from diffusion_finetuning_tpu_torch.models.clip_text import (CLIPTextModel,
+                                                                 text_encoder_lora_targets)
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel, unet_lora_targets
+    from diffusion_finetuning_tpu_torch.to_ckpt_v2 import convert_unet_state_dict
+
+    rows = {}
+    upl_dir = os.path.join(tmp, "upl")
+    t0 = time.perf_counter()
+    cli_lora_add.add(model_dir, paths["B"], upl_dir, alpha=MERGE_ALPHA, mode="upl",
+                     with_text_lora=True)
+    torch.cuda.synchronize()
+    rows["upl"] = {"s": time.perf_counter() - t0, "bytes": dir_bytes(upl_dir)}
+    changed = {}
+    for sub, cls, targets, replace, path in (
+            ("unet", UNet2DConditionModel, unet_lora_targets(hf_loading.unet_config_from_hf(
+                hf_loading.read_json(os.path.join(model_dir, "unet", "config.json")))),
+             lora_lib.DEFAULT_TARGET_REPLACE, paths["B"]),
+            ("text_encoder", CLIPTextModel, text_encoder_lora_targets(
+                hf_loading.clip_config_from_hf(hf_loading.read_json(
+                    os.path.join(model_dir, "text_encoder", "config.json")))),
+             lora_lib.TEXT_ENCODER_DEFAULT_TARGET_REPLACE, lora_lib._text_lora_path(paths["B"]))):
+        base = {k: v.to("cuda", torch.float32) for k, v in
+                hf_loading.load_model_dir_state_dict(os.path.join(model_dir, sub)).items()}
+        want = lora_lib.weight_apply_lora(base, path, lora_lib.filter_targets(targets, replace),
+                                          alpha=MERGE_ALPHA, prefix=cls.lora_prefix)
+        got = hf_loading.load_model_dir_state_dict(os.path.join(upl_dir, sub))
+        bad = [k for k in want if got[k].dtype != torch.float32
+               or not torch.equal(got[k].cuda(), want[k])]
+        if bad or got.keys() != want.keys():
+            fail(f"upl's {sub} differs from weight_apply_lora at {bad[:3]}")
+        changed[sub] = sum(not torch.equal(want[k], v) for k, v in base.items())
+        if sub == "unet":
+            unet_fp16 = {k: v.half() for k, v in convert_unet_state_dict(got).items()}
+        del base, want, got
+    want_changed = {"unet": LORA_PER_STEP, "text_encoder": TEXT_LORA_PER_ENCODE}
+    if changed != want_changed:
+        fail(f"upl changed {changed} weights, want {want_changed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(tmp, "merged.ckpt")
+    t0 = time.perf_counter()
+    cli_lora_add.add(model_dir, paths["B"], ckpt, alpha=MERGE_ALPHA, mode="upl-ckpt-v2",
+                     with_text_lora=True)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd = torch.load(ckpt, weights_only=True)["state_dict"]
+    read_s = time.perf_counter() - t0
+    floats = [v for v in sd.values() if v.is_floating_point()]
+    bad = [k for k, v in unet_fp16.items() if not torch.equal(sd["model.diffusion_model." + k], v)]
+    rows["upl_ckpt_v2"] = {"s": ckpt_s, "bytes": os.path.getsize(ckpt), "keys": len(sd),
+                           "read_s": read_s}
+    if os.path.exists(ckpt + ".tmp") or not floats or any(v.dtype != torch.float16
+                                                          for v in floats):
+        fail("upl-ckpt-v2 left its temporary directory or wrote non-fp16 floats")
+    if bad:
+        fail(f"the .ckpt's UNet is not the fp16 of upl's at {bad[:3]}")
+    del sd
+
+    a_pt, out = os.path.join(tmp, "adapter_a.pt"), os.path.join(tmp, "lpl.pt")
+    pt_pair_of_safetensors(paths["A"], a_pt)
+    t0 = time.perf_counter()
+    cli_lora_add.add(a_pt, paths["B"], out, alpha=0.5, mode="lpl", with_text_lora=True)
+    lpl_s = time.perf_counter() - t0
+    n = 0
+    files = [(a_pt, paths["B"], out)]
+    files.append(tuple(lora_lib._text_lora_path(f) for f in files[0]))
+    for pa, pb, po in files:
+        la, lb, lo = (torch.load(x, weights_only=True) for x in (pa, pb, po))
+        if len(lo) != len(la) or not all(
+                o.dtype == torch.float16 and torch.equal(o, (0.5 * a.float() + 0.5 * b.float()).half())
+                for o, a, b in zip(lo, la, lb)):
+            fail(f"lpl's {po} is not the fp32 interpolation of {pa} and {pb}")
+        n += len(lo)
+    rows["lpl"] = {"s": lpl_s, "bytes": dir_bytes(out) + dir_bytes(lora_lib._text_lora_path(out)),
+                   "tensors": n}
+    log(f"lora_add: upl {rows['upl']['s']:.1f} s ({rows['upl']['bytes'] / 2**30:.3f} GiB fp32; "
+        f"{changed['unet']} UNet and {changed['text_encoder']} text weights merged, each equal "
+        f"to weight_apply_lora); upl-ckpt-v2 {ckpt_s:.1f} s ({rows['upl_ckpt_v2']['bytes'] / 2**30:.3f} "
+        f"GiB fp16, {rows['upl_ckpt_v2']['keys']} keys, read back in "
+        f"{read_s:.1f} s, UNet = fp16 of upl's); lpl {lpl_s:.2f} s ({n} tensors, "
+        f"{rows['lpl']['bytes']} bytes)")
+    return upl_dir, rows
+
+
+def phase_distill(model_dir, upl_dir, paths, tmp):
+    """``lora_distill`` at rank 4 between phase 8's directory and the fp32
+    ``upl`` one, its SVDs on the card.  Each pair before the clamp must give
+    MERGE_ALPHA x adapter B's up down within DISTILL_REL_FRO (relative
+    Frobenius); the file holds the clamped pairs exactly."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import cli_svd
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+
+    seen = []
+    real = cli_svd.clamp_pair
+
+    def spy(U, Vh, q):
+        out = real(U, Vh, q)
+        seen.append((U, Vh) + out)
+        return out
+
+    save = os.path.join(tmp, "distilled.pt")
+    cli_svd.clamp_pair = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli_svd.svd_distill(upl_dir, model_dir, rank=DISTILL_RANK, save_path=save)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        cli_svd.clamp_pair = real
+    files = [torch.load(p, weights_only=True) for p in (save, lora_lib._text_lora_path(save))]
+    wants = [torch.load(p, weights_only=True) for p in (paths["B"],
+                                                        lora_lib._text_lora_path(paths["B"]))]
+    saved = files[0] + files[1]
+    want_flat = wants[0] + wants[1]
+    if len(seen) != len(want_flat) // 2 or len(saved) != len(want_flat):
+        fail(f"lora_distill made {len(seen)} pairs, want {len(want_flat) // 2}")
+    rel, rel_clamped = [], []
+    for i, (U, Vh, Uc, Vc) in enumerate(seen):
+        if not (U.is_cuda and U.shape[1] == DISTILL_RANK):
+            fail("lora_distill's SVDs did not run on the card at the rank asked for")
+        want = MERGE_ALPHA * (want_flat[2 * i].cuda().float() @ want_flat[2 * i + 1].cuda().float())
+        rel.append(float((U @ Vh - want).norm() / want.norm()))
+        rel_clamped.append(float((Uc @ Vc - want).norm() / want.norm()))
+        if not (torch.equal(saved[2 * i], Uc.cpu()) and torch.equal(saved[2 * i + 1], Vc.cpu())):
+            fail(f"lora_distill's file differs from its clamped pair {i}")
+    row = {"s": wall, "pairs": len(seen), "max_rel_fro": max(rel),
+           "max_rel_fro_clamped": max(rel_clamped),
+           "median_rel_fro_clamped": sorted(rel_clamped)[len(rel_clamped) // 2],
+           "bytes": dir_bytes(save) + dir_bytes(lora_lib._text_lora_path(save))}
+    log(f"lora_distill: {len(seen)} rank-{DISTILL_RANK} pairs on the card in {wall:.1f} s; "
+        f"before the clamp max relative Frobenius error {max(rel):.3e} (limit {DISTILL_REL_FRO}); "
+        f"after the 0.99-quantile clamp max {max(rel_clamped):.3e}, median "
+        f"{row['median_rel_fro_clamped']:.3e}; files {row['bytes']} bytes")
+    if not max(rel) <= DISTILL_REL_FRO:
+        fail(f"lora_distill's pairs miss adapter B's delta by {max(rel):.3e}")
+    return row
+
+
+def phase_scripts(model_dir, paths, tmp):
+    """``run_img2img`` (adapter A merged, "dpm", 512^2, 20 steps) and
+    ``visualize_training_progress`` (adapters A and B merged, 10 DDIM steps
+    each, fp32 as in JAX: K1's fp32 kernel, no bf16 K1) through their
+    ``run`` functions.  Launches, counters set to 0 just before each: twice
+    a captured graph's (warm-up and capture), none at replays; the swap from
+    A to B captures nothing."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from diffusion_finetuning_tpu_torch.pipelines import pipeline as pipeline_mod
+    from diffusion_finetuning_tpu_torch.scripts import run_img2img, visualize_training_progress
+
+    rows, launches = {}, {}
+    init = os.path.join(tmp, "init.png")
+    Image.fromarray(init_image(IMAGE)).save(init)
+    out = os.path.join(tmp, "img2img.png")
+    n = img2img_unet_steps("dpm", SAMPLER_STEPS, SAMPLER_STRENGTH)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    run_img2img.run(model_dir, paths["A"], init, out, prompt=f"a photo of {TOKEN_A}",
+                    strength=SAMPLER_STRENGTH, steps=SAMPLER_STEPS, scheduler="dpm", seed=SEED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["run_img2img"] = got = counts()
+    want = want_counts(flash_attention_fwd=2 * FLASH_PER_STEP * n)
+    img = np.asarray(Image.open(out))
+    rows["run_img2img"] = {"s": wall, "unet_steps": n, "launches": got}
+    log(f"run_img2img: {wall:.2f} s (load, patch A, capture, one request); launches {got} "
+        f"(want {want})")
+    if got != want:
+        fail(f"run_img2img launched {got}, want {want}")
+    if img.shape != (IMAGE, IMAGE, 3) or not img.std() > 0:
+        fail(f"run_img2img wrote {img.shape} with std {img.std()}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    made = []
+    real = pipeline_mod.StableDiffusionPipeline.from_pretrained
+
+    def keep(*a, **kw):
+        made.append(real(*a, **kw))
+        return made[-1]
+
+    grid = os.path.join(tmp, "progress.png")
+    pipeline_mod.StableDiffusionPipeline.from_pretrained = keep
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        visualize_training_progress.run(model_dir, [paths["A"], paths["B"]], grid,
+                                        prompt="a photo of sks person", steps=VIS_STEPS,
+                                        seed=SEED)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_mod.StableDiffusionPipeline.from_pretrained = real
+    launches["visualize_progress"] = got = counts()
+    graphs = len(made[0]._graphs.graphs)
+    want = want_counts(flash_attention_fwd_fp32=2 * FLASH_PER_STEP * VIS_STEPS * graphs)
+    arr = np.asarray(Image.open(grid))
+    rows["visualize_progress"] = {"s": wall, "graphs": graphs, "launches": got}
+    log(f"visualize_training_progress: {wall:.2f} s for 2 checkpoints ({graphs} graph "
+        f"captured); launches {got} (want {want})")
+    if got != want or graphs != 1:
+        fail(f"visualize_training_progress launched {got} over {graphs} graphs, want {want} "
+             "over 1")
+    if arr.shape != (IMAGE, 2 * IMAGE, 3) or np.array_equal(arr[:, :IMAGE], arr[:, IMAGE:]):
+        fail("visualize_training_progress's grid is misshapen or its two images equal")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def phase_rest_of_card(model_dir, tmp):
+    """Phase 10: img2img with every sampler, the LoRA tools and the notebook
+    scripts on the card, from phase 8's directory and adapters."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import (StableDiffusionPipeline,
+                                                                   patch_pipe)
+
+    paths = {"A": os.path.join(tmp, "adapter_a.safetensors"),
+             "B": os.path.join(tmp, "adapter_b.pt")}
+    rows, launches = {}, {}
+    t0 = time.time()
+    pipe = StableDiffusionPipeline.from_pretrained(model_dir, dtype=torch.bfloat16, device="cuda")
+    patch_pipe(pipe, paths["B"], patch_text=True, patch_ti=True)
+    pipe.materialize_lora = False
+    launches["img2img_samplers"], rows["img2img_samplers"] = phase_img2img_samplers(pipe)
+    log(f"phase 10 samplers: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cpu_pipe = StableDiffusionPipeline.from_pretrained(model_dir, device="cpu")
+    patch_pipe(cpu_pipe, paths["B"], patch_text=True, patch_ti=True)
+    cpu_pipe.materialize_lora = False
+    rows["sampler_reference"] = phase_sampler_reference(pipe, cpu_pipe)
+    del pipe, cpu_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10 sampler reference: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    upl_dir, rows["lora_add"] = phase_lora_add(model_dir, paths, tmp)
+    log(f"phase 10 lora_add: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    rows["lora_distill"] = phase_distill(model_dir, upl_dir, paths, tmp)
+    shutil.rmtree(upl_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10 lora_distill: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    script_launches, rows["scripts"] = phase_scripts(model_dir, paths, tmp)
+    launches.update(script_launches)
+    log(f"phase 10 scripts: {time.time() - t0:.1f} s")
+    return launches, rows
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
@@ -2637,6 +3148,9 @@ KERNEL_META = {
     "flash_attention_fwd_packed": (
         "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
         "diffusion_finetuning_tpu/ops/flash_attention.py:178", "unet_step"),
+    "flash_attention_fwd_fp32": (
+        "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
+        "diffusion_finetuning_tpu/ops/flash_attention.py:87", "unet_step"),
     "flash_attention_bwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd.cu",
                             "diffusion_finetuning_tpu/ops/flash_attention.py:285", "train_step"),
     "lora_dense": ("cuda", "diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
@@ -2740,16 +3254,22 @@ def main():
         t0 = time.time()
         trainer_launches, trainers = phase_trainers(os.path.join(tmp, "sd15"), tmp)
         log(f"phase 9: {time.time() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        rest_launches, rest = phase_rest_of_card(os.path.join(tmp, "sd15"), tmp)
+        log(f"phase 10: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
-                    "graphed": graphed, "serving_entry": entry, "trainers": trainers}))
+                    "graphed": graphed, "serving_entry": entry, "trainers": trainers,
+                    "rest_of_card": rest}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
         graphed=graphed_launches, **entry_launches,
-        **{f"trainer_{k}": v for k, v in trainer_launches.items()}))))
+        **{f"trainer_{k}": v for k, v in trainer_launches.items()}, **rest_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

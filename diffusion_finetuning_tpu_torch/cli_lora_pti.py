@@ -183,7 +183,7 @@ def train(
     back bit-identical)."""
     check_tensor_parallel(tensor_parallel)
     dev = resolve_device(device)
-    del num_class_images, sample_batch_size, wandb_log_prompt_cnt
+    del num_class_images, sample_batch_size
     if log_wandb:
         import wandb
 
@@ -203,6 +203,7 @@ def train(
         initializer_tokens = initializer_tokens.split("|")
     assert len(initializer_tokens) == len(placeholder_tokens), (
         "Unequal Initializer token for Placeholder tokens.")
+    class_token = "".join(initializer_tokens)
 
     if placeholder_token_at_data is not None:
         tok, pat = placeholder_token_at_data.split("|")
@@ -253,6 +254,36 @@ def train(
     generator = torch.Generator(device=dev).manual_seed(seed)
     init_generator = torch.Generator().manual_seed(seed)
     pipe.train_log = []
+
+    preped_clip = None
+    if log_wandb:
+        try:
+            from .utils.eval import prepare_clip_model_sets
+
+            preped_clip = prepare_clip_model_sets()
+        except Exception as e:  # offline environments: log loss only (JAX :303-310)
+            print(f"wandb eval: CLIP models unavailable ({e}); logging loss only")
+
+    def evaluate(table):
+        """CLIP alignment of 50-step images with the inversion's current
+        ``table`` as a text override of the pipe (JAX :409-430); the pipe's
+        own overrides come back afterwards."""
+        from PIL import Image
+
+        from .utils.eval import evaluate_pipe
+
+        own = pipe.text_params
+        pipe.text_params = {**own, TOKEN_EMBEDDING: table.detach().to(pipe.dtype)}
+        try:
+            images = [Image.open(os.path.join(instance_data_dir, f))
+                      for f in sorted(os.listdir(instance_data_dir))
+                      if f.endswith((".png", ".jpg"))]
+            return evaluate_pipe(pipe, target_images=images, class_token=class_token,
+                                 learnt_token="".join(placeholder_tokens),
+                                 n_test=wandb_log_prompt_cnt, n_step=50,
+                                 clip_model_sets=preped_clip)
+        finally:
+            pipe.text_params = own
 
     def run_phase(partition, optimizer, num_steps, save_name, t_mutliplier, ti_sched, label,
                   accum=1, unet_lora=None, text_lora=None):
@@ -308,6 +339,8 @@ def train(
 
                     wandb.log({"loss": float(loss_sum) / save_steps})
                     loss_sum = 0.0
+                    if preped_clip is not None:
+                        wandb.log(evaluate(params["ti_embeddings"]))
                 if partition.unet_lora:
                     print("LORA Unet Moved", _mean_moved(params["unet_lora"]))
                 if partition.text_lora:

@@ -1,8 +1,10 @@
 """Noise schedulers (port of the JAX ``models/schedulers.py``): the config,
 DDPM (the training forward process and its ancestral step), DDIM (the
-pipeline's default sampler), and the txt2img samplers PNDM, DPM-Solver++
-(2M), Euler, Euler-ancestral and LMS, the sigma-space three optionally on
-the Karras rho-7 grid.
+pipeline's default sampler; stochastic with ``eta > 0``), and the samplers
+PNDM, DPM-Solver++ (2M), Euler, Euler-ancestral and LMS, the sigma-space
+three optionally on the Karras rho-7 grid.  :func:`txt2img_scheduler` and
+:func:`img2img_scheduler` pick one by name; :func:`restart_on_tail` restarts
+img2img's on the grid's tail.
 
 Tables are fp32 as in the JAX package, and a step's coefficients are
 computed in fp32 (0-d CPU tensors, usable with samples on any device), so a
@@ -15,6 +17,7 @@ and the history a list, and each branch the JAX step takes with
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -124,8 +127,8 @@ class DDPMScheduler:
 
 
 class DDIMScheduler:
-    """Deterministic (eta = 0) DDIM sampling over a strided timestep grid, as
-    the pipeline runs it; stochastic DDIM (eta > 0) comes with a caller."""
+    """DDIM sampling over a strided timestep grid: deterministic (eta = 0),
+    as the pipeline runs it, or stochastic (JAX :158-197)."""
 
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         self.config = config
@@ -143,8 +146,13 @@ class DDIMScheduler:
         return torch.from_numpy(ts.copy())
 
     def step(self, model_output: torch.Tensor, timestep: int, sample: torch.Tensor,
-             num_inference_steps: int) -> torch.Tensor:
-        """One deterministic (eta = 0) DDIM step from ``timestep``."""
+             num_inference_steps: int, eta: float = 0.0,
+             noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One DDIM step from ``timestep``.  With ``eta > 0`` the step adds
+        ``sigma * noise``, ``sigma = eta sqrt((1 - a_prev) / (1 - a_t) (1 -
+        a_t / a_prev))``, and the direction term shrinks to ``sqrt(1 -
+        a_prev - sigma^2) eps``.  JAX draws that noise from ``rng``; here it
+        is given, shaped like ``sample``, and required when ``eta > 0``."""
         t = int(timestep)
         prev_t = t - self.num_train_timesteps // num_inference_steps
         a_t = self.alphas_cumprod[t]
@@ -162,7 +170,14 @@ class DDIMScheduler:
             raise ValueError(self.config.prediction_type)
         if self.config.clip_sample:
             x0 = x0.clamp(-1.0, 1.0)
-        prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
+        if eta > 0.0:
+            if noise is None:
+                raise ValueError("DDIM with eta > 0 needs its noise")
+            sigma = eta * torch.sqrt((1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev))
+            prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev - sigma ** 2) * eps
+            prev = prev + sigma * noise.to(sample.dtype)
+        else:
+            prev = torch.sqrt(a_prev) * x0 + torch.sqrt(1.0 - a_prev) * eps
         return prev.to(sample.dtype)
 
 
@@ -462,3 +477,48 @@ def txt2img_scheduler(scheduler: str, config: SchedulerConfig):
     if base in SIGMA_SAMPLERS:
         return SIGMA_SAMPLERS[base](config, karras=karras)
     raise ValueError(f"unknown scheduler {scheduler}")
+
+
+def img2img_scheduler(scheduler: str, config: SchedulerConfig):
+    """The sampler an img2img request names, on its whole grid, with the
+    errors of JAX's ``_build_img2img_fn`` (pipeline :808-865);
+    :func:`restart_on_tail` then restarts it where the request starts."""
+    base, _, variant = scheduler.partition(":")
+    karras = variant == "karras"
+    if variant and not karras:
+        raise ValueError(f"unknown scheduler variant {scheduler!r}")
+    sigma_space = base in SIGMA_SAMPLERS
+    if karras and not sigma_space:
+        raise ValueError(f"{base} does not support the karras grid")
+    if base == "ddim":
+        return DDIMScheduler(config)
+    if base == "pndm":
+        return PNDMScheduler(config)
+    if base == "dpm":
+        return DPMSolverMultistepScheduler(config)
+    if sigma_space:
+        return SIGMA_SAMPLERS[base](config, karras=karras)
+    raise ValueError("img2img supports ddim / pndm / dpm / euler / euler_a / lms "
+                     f"(got {scheduler!r})")
+
+
+def restart_on_tail(sampler, num_steps: int, start: int):
+    """``sampler`` restarted at step ``start`` of its ``num_steps`` grid, as
+    JAX's img2img restarts it (pipeline :788-865): its grid methods answer
+    the tail ``[start:]`` of that grid whatever step count they are asked
+    for, and its state starts fresh there.  DDIM and PNDM run the tail as it
+    is (PNDM's counter ramps from 0, diffusers' counter-based PLMS
+    warm-up); DPM-Solver++ solves afresh on the sub-grid (its per-n tables
+    sliced); the sigma-space samplers start on the sliced sigmas, the
+    k-diffusion convention (LMS's history ramps from scratch, the first
+    sigma the start's), rather than pretending the skipped steps ran."""
+    if isinstance(sampler, DPMSolverMultistepScheduler):
+        grids = ("_timesteps_np",)
+    elif isinstance(sampler, EulerDiscreteScheduler):
+        grids = ("_sigmas_np", "timesteps")
+    else:
+        return sampler
+    full = copy.copy(sampler)  # keeps the class's grid methods
+    for name in grids:
+        setattr(sampler, name, lambda _n, grid=getattr(full, name): grid(num_steps)[start:])
+    return sampler

@@ -51,10 +51,12 @@ from . import _build, _grid
 LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
-# kernel launches so far, forward (K1), packed forward (K4) and backward
-# (K3); chip_smoke.py resets and reads them
+# kernel launches so far: the bf16 forward (K1), the bf16 packed forward
+# (K4), the fp32 forward (K1's and K4's FMA kernel) and the backward (K3);
+# chip_smoke.py resets and reads them
 launches = 0
 packed_launches = 0
+fp32_launches = 0
 bwd_launches = 0
 
 # heads per CTA of the forward (JAX DEFAULT_HEAD_PACK, :69); 1 = K1 only
@@ -291,7 +293,7 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
     """K1 (``head_pack`` 1) or K4 (``head_pack`` heads per CTA, dividing BH)
     on (BH, S, D) tensors; ``q_tile`` (64 or 128 q rows a CTA) defaults to
     :func:`fwd_q_tile` for K1 and :func:`packed_q_tile` for K4."""
-    global launches, packed_launches
+    global launches, packed_launches, fp32_launches
     _check_qkv(q, k, v)
     if not scale > 0:  # the kernel takes row maxima before scaling
         raise ValueError(f"the flash forward kernel takes a positive scale, got {scale}")
@@ -311,7 +313,9 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
                 q_tile or (fwd_q_tile(bh, sq) if head_pack == 1
                            else packed_q_tile(bh, head_pack, sq)), stream)
     _build.check(rc, "flash_attention")
-    if head_pack == 1:
+    if q.dtype == torch.float32:
+        fp32_launches += 1
+    elif head_pack == 1:
         launches += 1
     else:
         packed_launches += 1

@@ -10,9 +10,10 @@ DDIM (the default), PNDM, DPM-Solver++(2M), and Euler, Euler-ancestral or
 LMS in sigma space (latents scaled by ``init_noise_sigma``, the UNet fed
 ``scale_model_input``; ``:karras`` for the rho-7 grid).
 :meth:`~StableDiffusionPipeline.img2img` (JAX :945, ``_build_img2img_fn``
-:808) starts the DDIM loop part-way: VAE encode of the init image, a
+:808) starts any of those samplers part-way: VAE encode of the init image, a
 posterior sample times 0.18215 for every prompt, forward noising to the
-first used timestep, then the DDIM steps from there.  On the card the
+first used timestep (sigma-space samplers: to its sigma), then the sampler
+restarted on the grid's tail (``schedulers.restart_on_tail``).  On the card the
 UNet's attention calls go through the flash-attention kernels, with a
 dynamic LoRA its LoRA projections through the fused LoRA kernel, and with
 ``DFT_CONV_PALLAS`` its resnet 3x3 convs through the fused conv.
@@ -35,7 +36,8 @@ kernel switches.  The first request of a key captures its graph, later
 ones copy their inputs into its static buffers and replay it: the token
 ids (from pinned host memory), the initial latents and Euler-ancestral's
 per-step noise (drawn per seed on the device), img2img's init image and
-draws, and the guidance scale, a 0-d device tensor.  ``cuda_graphs =
+draws (Euler-ancestral's noise among them), and the guidance scale, a 0-d
+device tensor.  ``cuda_graphs =
 False`` runs requests eagerly on the card, the reference the graphs are
 held against; on the CPU they always run eagerly.
 
@@ -55,8 +57,8 @@ overrides a TI file makes (the grown token table under
 ``clip_text.TOKEN_EMBEDDING``), where the JAX pipeline holds the whole
 text parameter tree.  Public layouts are the JAX package's: ``latents``
 (B, h, w, 4), images (B, H, W, 3), img2img's init image (H, W, 3).  The
-model modules run NCHW.  Multi-device sharding (``shard_over``) and
-img2img with the other samplers come in later slices.
+model modules run NCHW.  Multi-device sharding (``shard_over``) comes in a
+later slice.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ from ..models.clip_text import (TOKEN_EMBEDDING, CLIPTextConfig, CLIPTextModel,
                                 resize_token_embeddings, text_encoder_lora_targets)
 from ..models.layers import kernel_switches
 from ..models.schedulers import (DDIMScheduler, DDPMScheduler, EulerDiscreteScheduler,
-                                 SchedulerConfig, txt2img_scheduler)
+                                 SchedulerConfig, img2img_scheduler, restart_on_tail,
+                                 txt2img_scheduler)
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
 from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
 from ..models.weights import load_module
@@ -568,17 +571,24 @@ class StableDiffusionPipeline:
         images = torch.clamp(images / 2 + 0.5, 0.0, 1.0)
         return torch.round(images * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
 
-    def img2img_draws(self, seed: int, batch: int, latent_hw: Tuple[int, int]) -> Dict:
-        """img2img's two draws from one seeded generator on the device, in
-        the latents' (B, h, w, C) layout: ``sample``, the posterior sample's
-        noise for the one init image (1, h, w, C), and ``noise``, the forward
-        noising's, one per prompt (batch, h, w, C).  The JAX pipeline draws
-        both from ``jax.random.split(PRNGKey(seed))``, which torch cannot
+    def img2img_draws(self, seed: int, batch: int, latent_hw: Tuple[int, int],
+                      noise_steps: int = 0) -> Dict:
+        """img2img's draws from one seeded generator on the device, in the
+        latents' (B, h, w, C) layout: ``sample``, the posterior sample's
+        noise for the one init image (1, h, w, C); ``noise``, the forward
+        noising's, one per prompt (batch, h, w, C); with ``noise_steps``,
+        ``ancestral``, Euler-ancestral's per-step noise (noise_steps, batch,
+        h, w, C).  The JAX pipeline draws them from ``PRNGKey(seed)`` (the
+        ancestral noise from ``fold_in(key, 7)``), which torch cannot
         reproduce; the parity tests hand JAX's draws to :meth:`img2img`."""
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         c = self.unet_config.in_channels
-        return {"sample": torch.randn((1, *latent_hw, c), generator=gen, device=self.device),
-                "noise": torch.randn((batch, *latent_hw, c), generator=gen, device=self.device)}
+        out = {"sample": torch.randn((1, *latent_hw, c), generator=gen, device=self.device),
+               "noise": torch.randn((batch, *latent_hw, c), generator=gen, device=self.device)}
+        if noise_steps:
+            out["ancestral"] = torch.randn((noise_steps, batch, *latent_hw, c), generator=gen,
+                                           device=self.device)
+        return out
 
     @torch.inference_mode()
     def img2img(self, prompt: Union[str, Sequence[str]], init_image,
@@ -587,20 +597,23 @@ class StableDiffusionPipeline:
                 scheduler: str = "ddim", output_type: str = "pil", draws=None,
                 adapter_params: Optional[GenerationParams] = None):
         """SDEdit-style img2img (JAX :945-1031, the reference
-        ``scripts/run_img2img.ipynb`` flow) with the DDIM scheduler.
+        ``scripts/run_img2img.ipynb`` flow).
 
         ``init_image`` (H, W, 3), uint8 or floats in [0, 1], is mapped to
         [-1, 1] and encoded; one posterior sample times 0.18215 serves every
-        prompt, each with its own forward noise to ``ts[t_start]``, where
-        ``t_start = min(len(ts) - 1, round((1 - strength) * len(ts)))``
-        (Python's half-to-even ``round``: strength 0.75 at 50 steps starts
-        at step 12 and runs 38); the CFG loop then runs ``ts[t_start:]``.
-        ``draws`` (see :meth:`img2img_draws`) replaces the seeded draws;
-        ``adapter_params``: see ``__call__``."""
-        if scheduler != "ddim":
-            raise ValueError(
-                f"img2img scheduler {scheduler!r} is not ported yet (only 'ddim'); the "
-                "others are queued in ROADMAP.md Queue A")
+        prompt, each with its own forward noise to ``ts[t_start]`` of the
+        sampler's grid ``ts``, where ``t_start = min(len(ts) - 1, round((1 -
+        strength) * len(ts)))`` (Python's half-to-even ``round``: strength
+        0.75 at 50 DDIM steps starts at step 12 and runs 38); the CFG loop
+        then runs ``ts[t_start:]``.  ``scheduler``: ddim, pndm, dpm, or
+        euler / euler_a / lms with an optional ``:karras`` (see
+        ``schedulers.img2img_scheduler``); the sigma-space ones noise the
+        latents to their start sigma instead.  ``draws`` (see
+        :meth:`img2img_draws`; with ``ancestral`` for euler_a) replaces the
+        seeded draws; ``adapter_params``: see ``__call__``."""
+        # a bad name or variant raises JAX's error (:985-992) before any work
+        sch = img2img_scheduler(scheduler, self.scheduler_config)
+        ancestral = getattr(sch, "stochastic", False)
         prompts = [prompt] if isinstance(prompt, str) else list(prompt)
         negs = ([negative_prompt] * len(prompts) if isinstance(negative_prompt, str)
                 else list(negative_prompt))
@@ -616,42 +629,64 @@ class StableDiffusionPipeline:
         if h % f or w % f:
             raise ValueError(f"init image {h}x{w} is not a multiple of the VAE's factor {f}")
 
-        ts = DDIMScheduler(self.scheduler_config).timesteps(num_inference_steps).tolist()
+        ts = sch.timesteps(num_inference_steps).tolist()  # the whole grid
         t_start = img2img_start(len(ts), strength)
+        used = len(ts) - t_start
+        sch = restart_on_tail(sch, num_inference_steps, t_start)
         if draws is None:
-            draws = self.img2img_draws(seed, b, (h // f, w // f))
+            draws = self.img2img_draws(seed, b, (h // f, w // f), used if ancestral else 0)
 
-        def draw(key):
+        def draw(key, shape):
             d = draws[key]
             d = d if isinstance(d, torch.Tensor) else torch.from_numpy(np.array(d, np.float32))
-            return d.to(self.device, torch.float32).permute(0, 3, 1, 2)
+            if tuple(d.shape) != shape:
+                raise ValueError(f"draws[{key!r}] {tuple(d.shape)} != {shape} (NHWC)")
+            d = d.to(self.device, torch.float32)
+            return d.permute(0, 3, 1, 2) if d.ndim == 4 else d.permute(0, 1, 4, 2, 3)
 
+        c = self.unet_config.in_channels
         params = (adapter_params if adapter_params is not None
                   else self._generation_params())
         ids = self._token_ids(negs + prompts)
         self._check_ids_in_vocab(ids, params[2])
-        inputs = {"ids": self._to_device(ids, torch.long), "image": x, "sample": draw("sample"),
-                  "noise": draw("noise"), "guidance": self._guidance(guidance_scale)}
+        inputs = {"ids": self._to_device(ids, torch.long), "image": x,
+                  "sample": draw("sample", (1, h // f, w // f, c)),
+                  "noise": draw("noise", (b, h // f, w // f, c)),
+                  "guidance": self._guidance(guidance_scale)}
+        if ancestral:
+            if "ancestral" not in draws:
+                raise ValueError(f"{scheduler} img2img needs draws['ancestral']")
+            inputs["ancestral"] = draw("ancestral", (used, b, h // f, w // f, c))
         images = self._generate(
             ("img2img", num_inference_steps, t_start, h, w, scheduler, b),
-            lambda p, inp: self._img2img(p, inp, num_inference_steps, ts[t_start:]),
+            lambda p, inp: self._img2img(p, inp, num_inference_steps, sch, ts[t_start:]),
             inputs, params)
         return self._postprocess(images, output_type)
 
-    def _img2img(self, params, inputs, num_steps: int, ts_used) -> torch.Tensor:
+    def _img2img(self, params, inputs, num_steps: int, sch, ts_used) -> torch.Tensor:
+        """The whole request from its device inputs; ``sch`` is the sampler
+        restarted on its grid's tail ``ts_used``, stateless between calls
+        (its state lives in the loop), so a capture and its warm-up share it."""
         unet_over, unet_lora, text_over, text_lora = params
         context = self._encode(inputs["ids"], text_over, text_lora)
         post = self.vae.encode(inputs["image"])
         latents0 = (post.sample(noise=inputs["sample"]) * SCALING_FACTOR).repeat(
-            inputs["noise"].shape[0], 1, 1, 1)
-        t0 = torch.full((1,), ts_used[0], dtype=torch.long, device=self.device)
+            inputs["noise"].shape[0], 1, 1, 1).float()
         cfg = self.scheduler_config
-        ddpm = self._ddpm.get(cfg)
-        if ddpm is None:
-            ddpm = self._ddpm[cfg] = DDPMScheduler(cfg)
-        x = ddpm.add_noise(latents0.float(), inputs["noise"], t0)
-        return self._decode(self._denoise(x, DDIMScheduler(cfg), ts_used, num_steps, context,
-                                          unet_over, unet_lora, inputs["guidance"]))
+        state = None
+        if isinstance(sch, EulerDiscreteScheduler):  # VE forward noising to the start sigma
+            x = latents0 + sch.init_noise_sigma(num_steps) * inputs["noise"]
+            state = sch.init_state(x, num_steps, noise=inputs.get("ancestral"))
+        else:
+            ddpm = self._ddpm.get(cfg)
+            if ddpm is None:
+                ddpm = self._ddpm[cfg] = DDPMScheduler(cfg)
+            t0 = torch.full((1,), ts_used[0], dtype=torch.long, device=self.device)
+            x = ddpm.add_noise(latents0, inputs["noise"], t0)
+            if not isinstance(sch, DDIMScheduler):
+                state = sch.init_state(x, num_steps)
+        return self._decode(self._denoise(x, sch, ts_used, num_steps, context, unet_over,
+                                          unet_lora, inputs["guidance"], state))
 
     @staticmethod
     def _postprocess(images: torch.Tensor, output_type: str):

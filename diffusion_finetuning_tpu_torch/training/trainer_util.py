@@ -109,6 +109,7 @@ def kernel_launches() -> Dict[str, int]:
 
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_fwd_packed": flash_attention.packed_launches,
+            "flash_attention_fwd_fp32": flash_attention.fp32_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
             "lora_dense": lora_matmul.launches, "conv3x3": conv3x3.launches}
 

@@ -29,6 +29,8 @@ setup(
             "lora_pti = diffusion_finetuning_tpu.cli_lora_pti:main",
             "lora_distill = diffusion_finetuning_tpu.cli_svd:main",
             "lora_pti_torch = diffusion_finetuning_tpu_torch.cli_lora_pti:main",
+            "lora_add_torch = diffusion_finetuning_tpu_torch.cli_lora_add:main",
+            "lora_distill_torch = diffusion_finetuning_tpu_torch.cli_svd:main",
         ],
     },
     install_requires=["jax", "flax", "optax", "numpy", "Pillow"],

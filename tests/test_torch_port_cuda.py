@@ -92,17 +92,22 @@ def test_flash_kernel_fp32_ragged(card):
 
 
 @pytest.mark.cuda
-def test_attention_launches_the_flash_kernel(card):
-    """(B, S, H*D) in, one launch, the same result as plain_attention."""
+@pytest.mark.parametrize("dtype,counter,tol", [(torch.bfloat16, "launches", 2e-2),
+                                               (torch.float32, "fp32_launches", 1e-4)])
+def test_attention_launches_the_flash_kernel(card, dtype, counter, tol):
+    """(B, S, H*D) in, one launch, the same result as plain_attention; bf16
+    runs K1 and fp32 its FMA kernel, each counted on its own counter."""
     g = torch.Generator(device=card).manual_seed(2)
-    q, k, v = (torch.randn((2, s, 8 * 40), generator=g, device=card, dtype=torch.bfloat16)
+    q, k, v = (torch.randn((2, s, 8 * 40), generator=g, device=card, dtype=dtype)
                for s in (256, 77, 77))
-    before = tfa.launches
+    names = ("launches", "fp32_launches")
+    before = {n: getattr(tfa, n) for n in names}
     with torch.inference_mode():
         out = tatt.attention(q, k, v, 8)
         ref = tatt.plain_attention(q, k, v, 8)
-    assert tfa.launches == before + 1
-    assert out.shape == q.shape and _max_err(out, ref) <= 2e-2
+    assert {n: getattr(tfa, n) - before[n] for n in names} == {n: int(n == counter)
+                                                              for n in names}
+    assert out.shape == q.shape and _max_err(out, ref) <= tol
 
 
 def _rel_l2(a, b):
@@ -376,11 +381,14 @@ def test_packed_flash_kernel_equals_k1(card, pack, dtype, sq, skv, d):
     g = torch.Generator(device=card).manual_seed(6)
     q, k, v = (torch.randn((8, s, d), generator=g, device=card, dtype=dtype)
                for s in (sq, skv, skv))
-    before = (tfa.launches, tfa.packed_launches)
+    before = (tfa.launches, tfa.packed_launches, tfa.fp32_launches)
     with torch.inference_mode():
         o1, lse1 = tfa._fwd_cuda(q, k, v, d ** -0.5)
         o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack)
-    assert (tfa.launches, tfa.packed_launches) == (before[0] + 1, before[1] + 1)
+    # bf16: one K1 and one K4 launch; fp32: both run the FMA kernel, counted apart
+    want = (1, 1, 0) if dtype == torch.bfloat16 else (0, 0, 2)
+    assert tuple(n - b for n, b in zip(
+        (tfa.launches, tfa.packed_launches, tfa.fp32_launches), before)) == want
     assert torch.equal(o4, o1) and torch.equal(lse4, lse1)
 
 
@@ -1250,3 +1258,85 @@ def test_flash_probe_failure_raises_on_the_card(card, monkeypatch):
             tatt.attention(q, q, q, heads=2)
     finally:
         tatt.clear_flash_overrides()
+
+
+IMG2IMG_SCHEDULERS = ["ddim", "pndm", "dpm", "euler", "euler_a", "lms", "euler:karras",
+                      "euler_a:karras", "lms:karras"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", IMG2IMG_SCHEDULERS)
+def test_img2img_graph_per_sampler_equals_eager(small_pipe, scheduler):
+    """img2img (6 steps at strength 0.6, batch 2, dynamic LoRA) with each
+    sampler through its graph, twice (the seed, and so the draws, change),
+    equal to the eager request bit for bit; one graph, captured by the
+    first request and replayed by both."""
+    import numpy as np
+
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 15, "cuda"), False
+    pipe.invalidate_merged_cache()
+    pipe._graphs = None
+    image = np.random.default_rng(1).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    for seed in (1, 2):
+        kw = dict(strength=0.6, num_inference_steps=6, seed=seed, scheduler=scheduler,
+                  output_type="device")
+        got = pipe.img2img(["photo", "photo of sks"], image, **kw)
+        want = _eager(pipe, lambda: pipe.img2img(["photo", "photo of sks"], image, **kw))
+        assert got.shape == (2, 32, 32, 3) and torch.equal(got, want)
+    assert [e.replays for e in pipe._graphs.graphs.values()] == [2]
+
+
+@pytest.mark.cuda
+def test_img2img_ancestral_noise_given_equals_seeded(small_pipe):
+    """euler_a img2img with its draws handed in (``img2img_draws`` of the
+    same seed) equals the seeded request, graphed and eager; other draws
+    give another image."""
+    import numpy as np
+
+    pipe = small_pipe
+    pipe.unet_lora = None
+    pipe._graphs = None
+    image = np.random.default_rng(2).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    kw = dict(strength=0.6, num_inference_steps=6, scheduler="euler_a", output_type="device")
+    seeded = pipe.img2img(["photo", "sks"], image, seed=4, **kw)
+    draws = pipe.img2img_draws(4, 2, (16, 16), noise_steps=4)
+    given = pipe.img2img(["photo", "sks"], image, draws=draws, **kw)
+    eager = _eager(pipe, lambda: pipe.img2img(["photo", "sks"], image, draws=draws, **kw))
+    assert torch.equal(seeded, given) and torch.equal(given, eager)
+    other = dict(draws, ancestral=torch.randn_like(draws["ancestral"]))
+    assert not torch.equal(pipe.img2img(["photo", "sks"], image, draws=other, **kw), given)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(320, 768), (1280, 1280), (10240, 1280)])
+def test_svd_pair_on_the_card_matches_the_cpu(card, shape):
+    """``svd_pair`` through cuSOLVER against LAPACK on the CPU, pair by pair
+    after sign alignment, on a fine-tune-like delta (rank 4, separated
+    singular values, a 1e-3 full-rank residue): relative Frobenius 1e-4."""
+    from diffusion_finetuning_tpu_torch.cli_svd import svd_pair
+
+    g = torch.Generator().manual_seed(shape[0])
+    u = torch.linalg.qr(torch.randn(shape[0], 4, generator=g))[0]
+    v = torch.linalg.qr(torch.randn(shape[1], 4, generator=g))[0]
+    delta = (u * torch.tensor([8.0, 4.0, 2.0, 1.0])) @ v.T + 1e-3 * torch.randn(shape, generator=g)
+    cu, cvh = svd_pair(delta.to(card), 4)
+    hu, hvh = svd_pair(delta, 4)
+    assert cu.is_cuda and cvh.is_cuda
+    for j in range(4):
+        sign = torch.sign(torch.dot(cu[:, j].cpu(), hu[:, j]))
+        for got, want in ((cu[:, j].cpu() * sign, hu[:, j]), (cvh[j].cpu() * sign, hvh[j])):
+            assert float((got - want).norm()) <= 1e-4 * float(want.norm())
+
+
+@pytest.mark.cuda
+def test_lora_distill_refuses_to_start_without_a_card(card, monkeypatch, tmp_path):
+    """With the card hidden and no ``device`` given, ``svd_distill`` raises
+    before it reads anything; it never moves its SVDs to the CPU quietly."""
+    from diffusion_finetuning_tpu_torch import cli_svd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_svd.svd_distill(str(tmp_path / "absent"), str(tmp_path / "absent"),
+                            save_path=str(tmp_path / "x.pt"))
+    assert not (tmp_path / "x.pt").exists()

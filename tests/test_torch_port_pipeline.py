@@ -146,7 +146,7 @@ def test_img2img_matches_jax(pipes):
 def test_img2img_seeded_draws_and_start():
     """Without draws the two come from the seed; t_start rounds half to
     even (0.75 at 50 steps: step 12, 38 UNet steps) and stays inside the
-    grid."""
+    grid; an unknown sampler raises JAX's ``_build_img2img_fn`` error."""
     assert [img2img_start(n, s) for n, s in ((50, 0.75), (4, 0.75), (10, 0.0), (10, 1.0))] == [
         12, 1, 9, 0]
     tpipe = _port_pipe()
@@ -158,8 +158,8 @@ def test_img2img_seeded_draws_and_start():
     b = tpipe.img2img("photo", _init_image(), draws=tpipe.img2img_draws(7, 1, (8, 8)), **kw)
     assert a.dtype == np.uint8 and a.shape == (1, 16, 16, 3)
     np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tpipe.img2img("photo", _init_image(), scheduler="euler_a", **kw)
+    with pytest.raises(ValueError, match="img2img supports ddim / pndm / dpm"):
+        tpipe.img2img("photo", _init_image(), scheduler="euler_b", **kw)
 
 
 WIDE_UNET = dict(sample_size=16, block_out_channels=(64, 128), layers_per_block=1,
@@ -348,6 +348,28 @@ def test_chip_smoke_fails_without_a_card():
     assert '"ok"' not in out.stdout and "FAIL" in out.stdout
 
 
+def test_chip_smoke_counts_fp32_flash_launches_in_their_own_row():
+    """The fp32 flash forward (K1's FMA kernel) has a row of its own,
+    replacing the same Pallas kernel as K1: an fp32 path's launches stay off
+    the bf16 K1 row, and the smoke's counters are the trainers' counters."""
+    import chip_smoke
+    from diffusion_finetuning_tpu_torch.training.trainer_util import kernel_launches
+
+    row = dict(max_abs_err=1e-6, ms=1.0, plain_ms=3.0, bound_ms=0.5, bound_by="operations",
+               library_ms=0.7)
+    line = chip_smoke.kernels_line(
+        {"flash_attention_fwd": [dict(row, shape=[1], per_step=32)],
+         "flash_attention_fwd_fp32": [dict(row, shape=[1], per_step=32, ms=5.0)]},
+        {"run_img2img": {"flash_attention_fwd": 960},
+         "visualize_progress": {"flash_attention_fwd_fp32": 640}})
+    bf16, fp32 = line["kernels"]
+    assert (bf16["launches"], fp32["launches"]) == (960, 640)
+    assert fp32["launches_by_path"] == {"run_img2img": 0, "visualize_progress": 640}
+    assert fp32["replaces"] == bf16["replaces"] == "diffusion_finetuning_tpu/ops/flash_attention.py:87"
+    assert (fp32["ms"], fp32["source"]) == (160.0, bf16["source"])
+    assert set(chip_smoke.COUNTERS) == set(kernel_launches())
+
+
 def test_chip_smoke_kernels_line_names_each_kernel_fully():
     """Each kernel of the kernels line carries every key, sums its times
     over one step's calls, counts its launches over the main-path runs, and
@@ -413,7 +435,9 @@ def test_chip_smoke_counts_the_routed_convs():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, and chip_smoke.py, imports in a fresh
-    interpreter without pulling in jax or diffusion_finetuning_tpu(.*)."""
+    interpreter without pulling in jax or diffusion_finetuning_tpu(.*), nor
+    transformers or wandb, which the card's machine lacks (``utils/eval``
+    and the PTI trainer import them inside functions)."""
     code = r"""
 import importlib, pkgutil, runpy, sys
 import diffusion_finetuning_tpu_torch as pkg
@@ -421,8 +445,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")
-bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
-       or m == "diffusion_finetuning_tpu" or m.startswith("diffusion_finetuning_tpu.")]
+bad = [m for m in sys.modules if m.split(".")[0] in (
+    "jax", "diffusion_finetuning_tpu", "transformers", "wandb")]
 assert len(names) >= 15, names
 assert not bad, bad
 print("ok", len(names))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from diffusion_finetuning_tpu.models.clip_text import CLIPTextConfig, CLIPTextModel
 from diffusion_finetuning_tpu.models.unet import UNet2DConditionModel, UNetConfig
@@ -226,3 +227,15 @@ def assert_same_safetensors(got_path, want_path, lr, updates):
                         [np.asarray(want[k], np.float32) for k in sorted(want)], lr, updates)
 
 
+@pytest.fixture
+def small_images(monkeypatch):
+    """The port's requests at 16^2 unless a size is given: ``evaluate_pipe``,
+    ``visualize_progress`` and the merge and GIF scripts ask for the pipe's
+    default 512^2, where the tiny VAE's mid-block attention alone would
+    hold 256^2 x 256^2 scores on the CPU."""
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    real = StableDiffusionPipeline.__call__
+    monkeypatch.setattr(StableDiffusionPipeline, "__call__",
+                        lambda self, *a, **kw: real(self, *a, **{"height": 16, "width": 16,
+                                                                 **kw}))
