@@ -9,11 +9,16 @@ Phases, each fatal on failure:
      one process per source, all at once;
   2. kernels against their plain PyTorch versions on the card, bf16, at every
      shape the SD1.5 512^2 main paths give them (the flash backward at the
-     training shapes, BH = 8; the flash forward in fp32 too, the FMA kernel
-     that fp32 pipes such as ``visualize_training_progress`` run, with its
-     own launch counter and its own row): error, kernel time, plain-version time, one
+     training shapes, BH = 8): error, kernel time, plain-version time, one
      PyTorch library call's time (SDPA's backward alone for the flash
-     backward), and the bound; the flash forward's q tile and the flash
+     backward), and the bound; then each kernel's fp32 variant, which the
+     fp32 pipes (``visualize_training_progress``) and the default fp32
+     trainers run, in a row of its own with its own launch counter, at the
+     same shapes in fp32 against its plain version within its fp32 gate
+     (FLASH_F32_TOL, FLASH_BWD_F32_TOL, LORA_F32_TOL, CONV_F32_TOL),
+     repeating bit for bit, beside one library call in fp32 (TF32 off) and
+     two bounds (``bound_f32``: the split product on the tensor cores, and
+     the fp32 FMA rate); the flash forward's q tile and the flash
      backward's q splits (whose dQ, dK and dV must repeat bit for bit, and
      whose dQ must not change with the splits), each timed beside the
      choices its rule did not make (the other tile; half and twice the
@@ -96,14 +101,19 @@ Phases, each fatal on failure:
      images synthesised through graphed requests at 10 steps), the text LoRA
      and full-state checkpoints, then a second run resumed from the step-4
      checkpoint (restored state bit-equal to the saved one, "Resumed at step
-     4", step 8 reached); ``train_lora_w_ti.main`` for 8 steps.  Fatal
+     4", step 8 reached); ``train_lora_dreambooth.main`` again with no
+     ``--mixed_precision``, the default fp32 trainer (8 steps, the fp32
+     kernels only), then one graphed step of its step function against its
+     eager twin bit for bit, switches off and with the conv switch on (K5's
+     fp32 kernel); ``train_lora_w_ti.main`` for 8 steps.  Fatal
      unless every loss is finite, the checkpoint and output files read back,
      the inversion leaves every frozen embedding row bit-equal, the LoRA
      moved, and the launch counts are exact: a TI step 32 K1 and 31 K3 (the
      first transformer block's attn1 needs no gradient), a LoRA step 32 K1,
-     32 K3 and 192 K2, twice a graph's steps at its warm-up and capture,
-     none at its replays.  Printed: each phase's first dispatch s, steps a
-     second after it, peak memory, checkpoint save and restore ms;
+     32 K3 and 192 K2 (fp32: on the fp32 kernels' counters), twice a graph's
+     steps at its warm-up and capture, none at its replays.  Printed: each
+     phase's first dispatch s, steps a second after it, peak memory,
+     checkpoint save and restore ms;
  10. the rest of one card's surface, from phase 8's directory and adapters:
      img2img at 512^2, strength 0.75, 20 steps (15 UNet steps, PNDM 16),
      batch 1, adapter B dynamic (K1, K2), with the "dpm", "pndm", "euler",
@@ -230,12 +240,12 @@ HEAD_PACK = 2
 K4_PACKS = (2, 4)
 
 
-def unet_conv3x3_calls(ucfg, batch, side, only=None):
+def unet_conv3x3_calls(ucfg, batch, side, only=None, itemsize=2):
     """{(B, C, H, W, O): calls} of the resnet 3x3 convs that one UNet call at
-    ``side``^2 latents sends to the fused conv (the copied JAX predicate,
-    bf16), from the UNet's resnet channel map: the conv1 (C_in -> C_out) and
-    conv2 (C_out -> C_out) of every ResnetBlock2D (of the one named
-    ``only``, if given)."""
+    ``side``^2 latents sends to the fused conv (the copied JAX predicate, at
+    ``itemsize`` bytes an element: bf16 by default), from the UNet's resnet
+    channel map: the conv1 (C_in -> C_out) and conv2 (C_out -> C_out) of
+    every ResnetBlock2D (of the one named ``only``, if given)."""
     from diffusion_finetuning_tpu_torch.models.unet import _resnet_channel_map
     from diffusion_finetuning_tpu_torch.ops.conv3x3 import supported
 
@@ -249,7 +259,8 @@ def unet_conv3x3_calls(ucfg, batch, side, only=None):
                  levels - 1 - int(part[2]) if part[0] == "up" else levels - 1)
         hw = side >> level
         for c in (cin, cout):
-            if supported((batch, hw, hw, c), (3, 3, c, cout), (1, 1), padding=1, itemsize=2):
+            if supported((batch, hw, hw, c), (3, 3, c, cout), (1, 1), padding=1,
+                         itemsize=itemsize):
                 key = (batch, c, hw, hw, cout)
                 calls[key] = calls.get(key, 0) + 1
     return calls
@@ -262,12 +273,24 @@ PEAK_BYTES = 3.35e12
 # tolerances (bf16 kernel vs the plain version on the same bf16 inputs:
 # rounding of p / h to bf16 and of the output flips at ulp boundaries)
 FLASH_TOL = {"max_abs": 2e-2, "rel_l2": 1e-2, "lse_abs": 1e-3}
-# fp32 flash forward (FMA kernel) vs the plain version in fp32: both sum in
-# fp32, the kernel with ex2.approx (2 ulp) and a different order, so they
-# differ by a few fp32 roundings of O (|O| < 1) and of lse (|lse| < 20);
-# a lost or doubled KV tile moves O by 1e-2 or more
+# fp32 flash forward vs the plain version in fp32: both sum fp32 products in
+# fp32 (the kernel's split products drop a 2^-22 term), in a different order,
+# so they differ by a few fp32 roundings of O (|O| < 1) and of lse (|lse| <
+# 20); a lost or doubled KV tile moves O by 1e-2 or more
 FLASH_F32_TOL = {"max_abs": 1e-4, "rel_l2": 1e-5, "lse_abs": 1e-4}
+# fp32 LoRA dense, flash backward (each of dQ, dK, dV) and conv3x3 vs their
+# plain versions in fp32: max |err| within 1e-4 of the largest reference
+# value and rel L2 within 1e-5.  Both sides sum fp32 products in fp32, in
+# another order (and the split products drop a 2^-22 term): a few fp32
+# roundings of K-term sums (K up to 11520), where a lost k-chunk or tile
+# moves the result by 1e-2 or more.  Set on the FMA kernels' first timed run.
+LORA_F32_TOL = {"max_rel": 1e-4, "rel_l2": 1e-5}
+FLASH_BWD_F32_TOL = {"max_rel": 1e-4, "rel_l2": 1e-5}
+CONV_F32_TOL = {"max_rel": 1e-4, "rel_l2": 1e-5}
 PEAK_F32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM dense TF32 on the tensor cores: an fp32 product split into three
+# TF32 products (big*big + big*small + small*big) runs at a third of it
+PEAK_TF32_FLOPS = 494.7e12
 # dQ/dK/dV: max |err| relative to the largest reference value, and rel L2
 # (dS rounds to bf16 from sums taken in another order)
 FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
@@ -465,7 +488,7 @@ def phase_kernels():
             f"bound={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"flash attention kernel disagrees at {row['shape']}")
-    # a ragged fp32 shape (d 40, Sq 200), and K4's fp32 path (the same FMA kernel,
+    # a ragged fp32 shape (d 40, Sq 200), and K4's fp32 path (K1's fp32 kernel,
     # G heads in turn) equal to K1's
     q, k, v = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77))
     with torch.inference_mode():
@@ -480,19 +503,27 @@ def phase_kernels():
     if not (torch.equal(o4, o) and torch.equal(lse4, lse)):
         fail("fp32 packed flash attention kernel differs from the unpacked one")
     results["flash_attention_fwd"] = rows
-    results["flash_attention_fwd_fp32"] = flash_fp32_rows(gen, flush, iters)
     results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters, rows)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
     results["lora_dense"] = lora_rows(gen, flush, iters)
+    results.update(fp32_rows(gen, flush, iters))
     return results
 
 
+def fp32_rows(gen, flush, iters):
+    """The fp32 kernels' rows: K1's forward, K3's pair, K2's and K5's."""
+    return {"flash_attention_fwd_fp32": flash_fp32_rows(gen, flush, iters),
+            "flash_attention_bwd_fp32": flash_bwd_fp32_rows(gen, flush, iters),
+            "lora_dense_fp32": lora_fp32_rows(gen, flush, iters),
+            "conv3x3_fp32": conv3x3_fp32_rows(gen, flush, iters)}
+
+
 def flash_fp32_rows(gen, flush, iters):
-    """The fp32 flash forward (K1's FMA kernel, ``flash_fwd_f32_kernel``)
-    at FLASH_SHAPES, BH = 16: an fp32 pipe's 512^2 CFG UNet step, against
-    the plain version in fp32 within FLASH_F32_TOL; bound at the card's fp32
-    rate outside the tensor cores."""
+    """The fp32 flash forward (``flash_fwd_f32_kernel``) at FLASH_SHAPES,
+    BH = 16: an fp32 pipe's 512^2 CFG UNet step, against the plain version
+    in fp32 within FLASH_F32_TOL, a second run equal bit for bit; bound of
+    the split product (``bound_f32``), the FMA bound in the log."""
     import torch
     import torch.nn.functional as F
 
@@ -506,11 +537,13 @@ def flash_fp32_rows(gen, flush, iters):
         scale = d ** -0.5
         with torch.inference_mode():
             o, lse = fa.flash_fwd(q, k, v, scale, head_pack=1)
+            again = fa.flash_fwd(q, k, v, scale, head_pack=1)
             o_ref, lse_ref = fa.flash_attention_plain(q, k, v, scale)
             torch.cuda.synchronize()
             mx, rel = errors(o, o_ref)
             lse_err = float((lse - lse_ref).abs().max())
-            ok = (mx <= FLASH_F32_TOL["max_abs"] and rel <= FLASH_F32_TOL["rel_l2"]
+            same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+            ok = (same and mx <= FLASH_F32_TOL["max_abs"] and rel <= FLASH_F32_TOL["rel_l2"]
                   and lse_err <= FLASH_F32_TOL["lse_abs"] and bool(torch.isfinite(o).all()))
             ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, scale), iters, flush)
             plain_ms = cuda_time(lambda: fa.flash_attention_plain(q, k, v, scale),
@@ -518,22 +551,218 @@ def flash_fp32_rows(gen, flush, iters):
             q4, k4, v4 = (t.reshape(2, 8, -1, d) for t in (q, k, v))
             lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4),
                                iters, flush)
-        flops = 4 * FLASH_BH * sq * skv * d
-        nbytes = 4 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq
-        bound = max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        by = "operations" if flops / PEAK_F32_FLOPS > nbytes / PEAK_BYTES else "bytes"
+        bound, by, fma = bound_f32(4 * FLASH_BH * sq * skv * d,
+                                   4 * FLASH_BH * (2 * sq + 2 * skv) * d + 4 * FLASH_BH * sq)
         row = dict(shape=[FLASH_BH, sq, skv, d], per_step=count, max_abs_err=mx,
-                   rel_l2=rel, lse_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                   rel_l2=rel, lse_abs_err=lse_err, repeat_equal=same, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                   fma_bound_ms=fma)
         rows.append(row)
         log(f"flash fp32 BH={FLASH_BH} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
-            f"max_abs={mx:.3e} rel_l2={rel:.3e} lse={lse_err:.2e} ms={ms:.4f} "
-            f"plain={plain_ms:.3f} sdpa={lib_ms:.4f} bound={bound:.4f} ({by}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"max_abs={mx:.3e} rel_l2={rel:.3e} lse={lse_err:.2e} repeat equal {same} "
+            f"ms={ms:.4f} plain={plain_ms:.3f} sdpa={lib_ms:.4f} bound={bound:.4f} ({by}; "
+            f"FMA bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"fp32 flash attention kernel disagrees at {row['shape']}")
-        del q, k, v, o, o_ref, lse, lse_ref
+        del q, k, v, o, o_ref, lse, lse_ref, again
+    step_sums(rows, "flash fp32 over a CFG UNet step's calls", "sdpa")
     return rows
+
+
+def rel_errors(out, ref):
+    """(max |err|, max |err| / max |ref|, rel L2)."""
+    mx, rel = errors(out, ref)
+    return mx, mx / max(float(ref.float().abs().max()), 1e-30), rel
+
+
+def f32_ok(errs, tol, *flags):
+    """Every (max |err|, max relative, rel L2) within ``tol`` and every flag
+    true."""
+    return all(flags) and all(r <= tol["max_rel"] and l2 <= tol["rel_l2"]
+                              for _, r, l2 in errs)
+
+
+def flash_bwd_fp32_rows(gen, flush, iters):
+    """K3's fp32 pair (``flash_bwd_f32_kernel`` and
+    ``flash_bwd_dq_f32_kernel``) at FLASH_SHAPES, BH = FLASH_BWD_BH (an fp32
+    train step at batch 1), O and lse from the fp32 forward: dQ, dK and dV
+    against the plain version in fp32 within FLASH_BWD_F32_TOL, all three
+    repeating bit for bit; its time beside the plain version's, SDPA's
+    backward alone in fp32 and both bounds (``bound_f32``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    bh = FLASH_BWD_BH
+    log(f"limits, flash backward fp32 kernel vs plain version: {FLASH_BWD_F32_TOL}")
+    rows = []
+    for sq, skv, d, count in FLASH_SHAPES:
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device=dev)
+                       for s in (sq, skv, skv, sq))
+        scale = d ** -0.5
+        with torch.inference_mode():
+            o, lse = fa.flash_fwd(q, k, v, scale)
+            delta = fa._delta(o, do)
+            got = fa.flash_bwd(q, k, v, o, lse, do, scale)
+            again = fa.flash_bwd(q, k, v, o, lse, do, scale)
+            want = fa.flash_backward_plain(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            errs = [rel_errors(a, b) for a, b in zip(got, want)]
+            ok = f32_ok(errs, FLASH_BWD_F32_TOL, same,
+                        *(bool(torch.isfinite(a).all()) for a in got))
+            ms = cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, scale), iters, flush)
+            plain_ms = cuda_time(lambda: fa.flash_backward_plain(q, k, v, o, lse, do, scale),
+                                 3, flush, hide_host=False)
+        q4, k4, v4 = (t.reshape(1, bh, -1, d).detach().requires_grad_(True) for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4)
+        do4 = do.reshape(1, bh, sq, d)
+        lib_ms = cuda_time(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                       retain_graph=True), iters, flush)
+        bound, by, fma = bound_f32(10 * bh * sq * skv * d,
+                                   4 * bh * (3 * sq + 4 * skv) * d + 8 * bh * sq)
+        row = dict(shape=[bh, sq, skv, d], per_step=count,
+                   max_abs_err=max(e[0] for e in errs), rel_l2=max(e[2] for e in errs),
+                   errors={n: dict(max_abs=e[0], max_rel=e[1], rel_l2=e[2])
+                           for n, e in zip(("dq", "dk", "dv"), errs)},
+                   repeat_equal=same, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound, bound_by=by, fma_bound_ms=fma)
+        rows.append(row)
+        log(f"flash bwd fp32 BH={bh} Sq={sq:5d} Skv={skv:5d} d={d:3d}: "
+            + " ".join(f"{n} max_rel={e[1]:.2e} rel_l2={e[2]:.2e}"
+                       for n, e in zip(("dq", "dk", "dv"), errs))
+            + f" repeat equal {same} ms={ms:.4f} plain={plain_ms:.3f} sdpa_bwd={lib_ms:.4f} "
+            f"bound={bound:.4f} ({by}; FMA bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"fp32 flash attention backward kernel disagrees at {row['shape']}")
+        del q, k, v, do, o, lse, delta, got, again, want, q4, k4, v4, out4
+    step_sums(rows, "flash bwd fp32 over a train step's calls", "sdpa_bwd")
+    return rows
+
+
+def lora_fp32_rows(gen, flush, iters):
+    """K2's fp32 kernel (``lora_dense_f32_kernel``) at every LoRA'd
+    projection of a CFG UNet step and of a train step, rank 4, fp32:
+    against the plain version in fp32 within LORA_F32_TOL, a second run
+    equal bit for bit; its time beside the plain version's, the library
+    route in fp32 (``addmm`` plus the low-rank product), ``F.linear`` alone
+    and both bounds (``bound_f32``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+
+    dev = torch.device("cuda")
+    log(f"limits, lora fp32 kernel vs plain version: {LORA_F32_TOL}")
+    rows = []
+    for batch, shapes in ((2, LORA_SHAPES), (1, LORA_TRAIN_SHAPES)):
+        for m, kdim, n, count in shapes:
+            x = torch.randn((m, kdim), generator=gen, device=dev)
+            w = torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5
+            b = torch.randn((n,), generator=gen, device=dev) * 0.1
+            up = torch.randn((n, LORA_RANK), generator=gen, device=dev) * 0.1
+            down = torch.randn((LORA_RANK, kdim), generator=gen, device=dev) / LORA_RANK
+            scale = torch.tensor(0.8, device=dev)
+            with torch.inference_mode():
+                y = lm.lora_dense(x, w, b, up, down, scale)
+                again = lm.lora_dense(x, w, b, up, down, scale)
+                y_ref = lm.lora_dense_plain(x, w, b, up, down, scale)
+                torch.cuda.synchronize()
+                err = rel_errors(y, y_ref)
+                same = torch.equal(y, again)
+                ok = f32_ok([err], LORA_F32_TOL, same, bool(torch.isfinite(y).all()))
+                ms = cuda_time(lambda: lm.lora_dense(x, w, b, up, down, scale), iters, flush)
+                plain_ms = cuda_time(lambda: lm.lora_dense_plain(x, w, b, up, down, scale),
+                                     iters, flush)
+                lib_ms = cuda_time(
+                    lambda: torch.addmm(b, x, w.t()).add_((x @ down.t()) @ up.t(),
+                                                          alpha=0.8),
+                    iters, flush)
+                linear_ms = cuda_time(lambda: F.linear(x, w, b), iters, flush)
+            bound, by, fma = bound_f32(
+                2 * m * n * kdim + 2 * m * kdim * LORA_RANK + 2 * m * LORA_RANK * n,
+                4 * (m * kdim + n * kdim + m * n + n + n * LORA_RANK + LORA_RANK * kdim) + 4)
+            row = dict(shape=[m, kdim, n, LORA_RANK], per_step=count if batch == 2 else 0,
+                       train_per_step=count if batch == 1 else 0, max_abs_err=err[0],
+                       max_rel_err=err[1], rel_l2=err[2], repeat_equal=same, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, linear_ms=linear_ms,
+                       bound_ms=bound, bound_by=by, fma_bound_ms=fma)
+            rows.append(row)
+            log(f"lora fp32 M={m:5d} K={kdim:5d} N={n:6d} r={LORA_RANK} x{count:2d} "
+                f"{'serve' if batch == 2 else 'train'}: max_rel={err[1]:.2e} "
+                f"rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} plain={plain_ms:.4f} "
+                f"addmm+lowrank={lib_ms:.4f} linear={linear_ms:.4f} bound={bound:.4f} ({by}; "
+                f"FMA bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"fp32 LoRA dense kernel disagrees at {row['shape']}")
+    step_sums(rows, "lora fp32 over a CFG UNet step's calls", "addmm+lowrank")
+    step_sums(rows, "lora fp32 over a train step's calls", "addmm+lowrank",
+              per="train_per_step")
+    return rows
+
+
+def conv3x3_fp32_rows(gen, flush, iters):
+    """K5's fp32 kernel (``conv3x3_f32_kernel``) at every SD1.5 resnet conv
+    shape the routing sends it at 512^2 in fp32, batch 2 and 1, no bias:
+    against the plain version in fp32 within CONV_F32_TOL, a second run
+    equal bit for bit; its time beside the plain version's, cuDNN's in fp32
+    (``F.conv2d``, TF32 off) and both bounds (``bound_f32``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
+
+    dev = torch.device("cuda")
+    side = IMAGE // 8
+    log(f"limits, conv3x3 fp32 kernel vs plain version: {CONV_F32_TOL}")
+    rows = []
+    for batch in (2, 1):
+        for (b, c, h, w, o), calls in unet_conv3x3_calls(UNetConfig.sd15(), batch, side,
+                                                         itemsize=4).items():
+            x = torch.randn((b, c, h, w), generator=gen, device=dev)
+            wt = torch.randn((o, c, 3, 3), generator=gen, device=dev) / (3 * c ** 0.5)
+            with torch.inference_mode():
+                y = cv._conv3x3_cuda(x, wt, None)
+                again = cv._conv3x3_cuda(x, wt, None)
+                y_ref = cv.conv3x3_plain(x, wt, None)
+                torch.cuda.synchronize()
+                err = rel_errors(y, y_ref)
+                same = torch.equal(y, again)
+                ok = f32_ok([err], CONV_F32_TOL, same, bool(torch.isfinite(y).all()))
+                ms = cuda_time(lambda: cv._conv3x3_cuda(x, wt, None), iters, flush)
+                plain_ms = cuda_time(lambda: cv.conv3x3_plain(x, wt, None), 3, flush,
+                                     hide_host=False)
+                lib_ms = cuda_time(lambda: F.conv2d(x, wt, None, padding=1), iters, flush)
+            bound, by, fma = bound_f32(2 * b * h * w * c * o * 9,
+                                       4 * (b * c * h * w + o * c * 9 + b * o * h * w))
+            row = dict(shape=[b, c, h, w, o], per_step=calls if batch == 2 else 0,
+                       train_per_step=calls if batch == 1 else 0, max_abs_err=err[0],
+                       max_rel_err=err[1], rel_l2=err[2], repeat_equal=same, ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                       fma_bound_ms=fma)
+            rows.append(row)
+            log(f"conv3x3 fp32 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d}: "
+                f"max_rel={err[1]:.2e} rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} "
+                f"plain={plain_ms:.3f} cudnn={lib_ms:.4f} bound={bound:.4f} ({by}; FMA bound "
+                f"{fma:.4f}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"fp32 conv3x3 kernel disagrees at {row['shape']}")
+    step_sums(rows, "conv3x3 fp32 over a CFG UNet step's calls", "cudnn")
+    return rows
+
+
+def step_sums(rows, label, lib_name, per="per_step"):
+    """Log an fp32 row's times summed over one step's calls (each shape's
+    time x its calls ``per`` step): the kernel, its library call and both
+    bounds."""
+    total = {key: sum(r[key] * r[per] for r in rows)
+             for key in ("ms", "library_ms", "bound_ms", "fma_bound_ms")}
+    log(f"{label}: {total['ms']:.4f} ms, {lib_name} {total['library_ms']:.4f} ms "
+        f"(kernel x{total['ms'] / total['library_ms']:.3f}), bound {total['bound_ms']:.4f} ms "
+        f"(x{total['ms'] / total['bound_ms']:.2f}), FMA bound {total['fma_bound_ms']:.4f} ms")
 
 
 def lora_rows(gen, flush, iters):
@@ -628,6 +857,16 @@ def bound(flops, nbytes):
     """(bound ms, what bounds it) on the H100's published peaks."""
     by = "operations" if flops / PEAK_BF16_FLOPS > nbytes / PEAK_BYTES else "bytes"
     return max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3, by
+
+
+def bound_f32(flops, nbytes):
+    """(bound ms, what bounds it, FMA bound ms) of fp32 work: the least
+    time of the split product, 3 TF32 products a product on the tensor
+    cores, against the bytes; beside it the bound at the fp32 rate outside
+    the tensor cores (the FMA kernels' own ceiling, kept for the log)."""
+    t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
+    fma = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", fma
 
 
 def flash_packed_rows(gen, flush, iters, k1_rows):
@@ -874,7 +1113,7 @@ def flash_bwd_rows(gen, flush, iters):
     before = sum(K3_UNORDERED[1][tuple(r["shape"][1:])] * r["per_step"] for r in rows)
     log(f"flash bwd summed over a train step's calls: {ours:.4f} ms ({K3_UNORDERED[0]}: "
         f"{before:.4f}, x{ours / before:.3f})")
-    # fp32 inputs take the FMA kernel: check it once, ragged
+    # K3's fp32 pair at a ragged shape (fp32_rows times it at the SD1.5 shapes)
     q, k, v, do = (torch.randn((4, s, 40), generator=gen, device=dev) for s in (200, 77, 77, 200))
     with torch.inference_mode():
         o, lse = fa.flash_fwd(q, k, v, 0.2)
@@ -969,8 +1208,11 @@ COUNTERS = {
     "flash_attention_fwd_packed": ("flash_attention", "packed_launches"),
     "flash_attention_fwd_fp32": ("flash_attention", "fp32_launches"),
     "flash_attention_bwd": ("flash_attention", "bwd_launches"),
+    "flash_attention_bwd_fp32": ("flash_attention", "bwd_fp32_launches"),
     "lora_dense": ("lora_matmul", "launches"),
+    "lora_dense_fp32": ("lora_matmul", "fp32_launches"),
     "conv3x3": ("conv3x3", "launches"),
+    "conv3x3_fp32": ("conv3x3", "fp32_launches"),
 }
 
 
@@ -1083,7 +1325,9 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
     ("flash_attention_fwd_packed (ours)", ("flash_fwd_bf16_packed",)),
     ("flash_attention_fwd_fp32 (ours)", ("flash_fwd_f32",)),
     ("flash_attention_fwd (ours)", ("flash_fwd",)),
+    ("flash_attention_bwd_fp32 (ours)", ("flash_bwd_f32", "flash_bwd_dq_f32")),
     ("flash_attention_bwd (ours)", ("flash_bwd",)),
+    ("fp32 split copies (ours)", ("split_rows", "split_cols")),
     ("lora_dense (ours)", ("lora_dense",)),
     ("conv3x3 (ours)", ("conv3x3",)),
     ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
@@ -1095,13 +1339,17 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
 
 
 # device kernel -> the launch counter of its wrapper, and the kernels one
-# launch runs (K3: its dK/dV kernel and its dQ kernel); first match wins
+# launch runs (K3: its dK/dV kernel and its dQ kernel; the fp32 kernels'
+# split copies are not counted); first match wins
 DEVICE_KERNELS = (("flash_fwd_bf16_packed", "flash_attention_fwd_packed", 1),
                   ("flash_fwd_f32", "flash_attention_fwd_fp32", 1),
                   ("flash_fwd", "flash_attention_fwd", 1),
                   ("flash_bwd_dq", None, 0),
+                  ("flash_bwd_f32", "flash_attention_bwd_fp32", 1),
                   ("flash_bwd", "flash_attention_bwd", 1),
+                  ("lora_dense_f32", "lora_dense_fp32", 1),
                   ("lora_dense", "lora_dense", 1),
+                  ("conv3x3_f32", "conv3x3_fp32", 1),
                   ("conv3x3", "conv3x3", 1))
 
 
@@ -2618,6 +2866,145 @@ def phase_dreambooth(model_dir, tmp):
     return add_counts(got_first, got_second), row
 
 
+def fp32_step_launches():
+    """Wrapper launches of one fp32 DreamBooth step (the text LoRA on): the
+    LoRA step of ``trainer_step_launches`` on the fp32 kernels' counters."""
+    return want_counts(flash_attention_fwd_fp32=FLASH_PER_STEP,
+                       flash_attention_bwd_fp32=FLASH_PER_STEP,
+                       lora_dense_fp32=LORA_PER_STEP + TEXT_LORA_PER_ENCODE)
+
+
+def step_twin(step_fn, state, batch, label, per_step):
+    """One graphed step of ``step_fn`` (``jit_train_step``: a capture, then
+    its replay) against its eager twin from the same state and a generator
+    of the same seed: loss and every carried tensor equal bit for bit;
+    launches twice a step at the capture (warm-up + capture) and once
+    eager.  Leaves the state as the graphed step left it."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.training.train_step import (carried_tensors,
+                                                                    jit_train_step)
+
+    tensors = carried_tensors(state)
+    before = [t.detach().clone() for t in tensors]
+    host_step = state["step"]
+    gens = [torch.Generator(device=state["device_step"].device).manual_seed(SEED + 61)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, metrics = jit_train_step(step_fn)(state, batch, gens[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    graphed_counts = counts()
+    graphed = (metrics["loss"].clone(), [t.detach().clone() for t in tensors])
+    with torch.no_grad():
+        torch._foreach_copy_(tensors, before)
+    state["step"] = host_step
+    reset_counts()
+    _, metrics = step_fn(state, batch, gens[1])
+    torch.cuda.synchronize()
+    eager_counts = counts()
+    eager = (metrics["loss"].clone(), [t.detach().clone() for t in tensors])
+    differ = [i for i, (a, b) in enumerate(zip(eager[1], graphed[1])) if not torch.equal(a, b)]
+    equal = torch.equal(eager[0], graphed[0]) and not differ
+    if not equal:  # which tensors, by how much, and whether eager repeats itself
+        worst = max((float((eager[1][i] - graphed[1][i]).abs().max()) for i in differ),
+                    default=0.0)
+        with torch.no_grad():
+            torch._foreach_copy_(tensors, before)
+        state["step"] = host_step
+        gen = torch.Generator(device=state["device_step"].device).manual_seed(SEED + 61)
+        _, metrics = step_fn(state, batch, gen)
+        again = torch.equal(metrics["loss"], eager[0]) and all(
+            torch.equal(a, b) for a, b in zip(tensors, eager[1]))
+        log(f"{label}: loss graphed {float(graphed[0])!r} eager {float(eager[0])!r}; "
+            f"{len(differ)} of {len(tensors)} tensors differ (first {differ[:5]}, max |diff| "
+            f"{worst:.3e}); a second eager step equal to the first: {again}")
+    with torch.no_grad():
+        torch._foreach_copy_(tensors, graphed[1])
+    state["step"] = host_step + 1
+    want_graphed = captured(per_step, 1)
+    log(f"{label}: graphed step (capture and replay {capture_s:.2f} s) equal to its eager twin "
+        f"{equal} ({len(tensors)} tensors and the loss); launches {graphed_counts} graphed "
+        f"(want {want_graphed}), {eager_counts} eager (want {per_step})")
+    if graphed_counts != want_graphed or eager_counts != per_step:
+        fail(f"{label} launched {graphed_counts} graphed and {eager_counts} eager")
+    if not equal:
+        fail(f"the graphed {label} step differs from its eager twin")
+    return {"equal_to_eager": equal, "capture_s": capture_s, "launches": graphed_counts,
+            "eager_launches": eager_counts}
+
+
+def phase_dreambooth_fp32(model_dir, tmp):
+    """``train_lora_dreambooth.main`` with no ``--mixed_precision``, i.e. the
+    default fp32 trainer: 512^2, batch 2 with prior preservation (the class
+    images the bf16 run made), the text LoRA, DB_STEPS steps at TRAINER_SPD a
+    graph (the first dispatch captures, the second replays).  Its graphed ms
+    a step, first dispatch s and peak memory, and exact launches of the
+    fp32 kernels, none of the bf16 ones.  Then one graphed step of its step
+    function against its eager twin, switches off (the trainer's path) and
+    with the conv switch on (K5's fp32 kernel in the step)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models import layers
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_dreambooth as db
+
+    args = dreambooth_args(model_dir, tmp, os.path.join(tmp, "dreambooth_fp32"))
+    for flag in ("--mixed_precision", "--full_state_checkpoint_dir"):
+        i = args.index(flag)
+        del args[i:i + 2]
+    made = {}
+    real = db.FusedDispatcher
+
+    class Recording(real):  # keeps the step function and the first batch
+        def run(self, state, group, *a, **kw):
+            made.setdefault("batch", group[0])
+            made["step_fn"] = self._step_fn
+            return super().run(state, group, *a, **kw)
+
+    per_step = fp32_step_launches()
+    db.FusedDispatcher = Recording
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = db.main(db.parse_args(args))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+    finally:
+        db.FusedDispatcher = real
+    want = captured(per_step, TRAINER_SPD)
+    row = {"wall_s": wall, "step_launches": per_step,
+           "train": check_phase_log(state["log"]["dispatch"], "DreamBooth fp32", want)}
+    if got != want:
+        fail(f"the fp32 DreamBooth run launched {got}, want {want}")
+    if state["step"] != DB_STEPS:
+        fail(f"the fp32 DreamBooth run reached step {state['step']}")
+    state.pop("log")
+    # cuDNN picks fp32 convolution algorithms whose sums vary from call to
+    # call unless asked not to (two eager steps from one state differ by an
+    # ulp, while the port's kernels repeat bit for bit): the twins run with
+    # cudnn.deterministic, graphed and eager alike
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    k5 = sum(unet_conv3x3_calls(UNetConfig.sd15(), 2, IMAGE // 8, itemsize=4).values())
+    try:
+        row["twin"] = step_twin(made["step_fn"], state, made["batch"], "DreamBooth fp32",
+                                per_step)
+        layers.CONV_KERNEL = True
+        row["twin_conv_switch"] = step_twin(
+            made["step_fn"], state, made["batch"], "DreamBooth fp32, conv switch on",
+            add_counts(per_step, {"conv3x3_fp32": k5}))
+    finally:
+        layers.CONV_KERNEL = False
+        torch.backends.cudnn.deterministic = deterministic
+    log(f"DreamBooth fp32: {wall:.1f} s")
+    return add_counts(got, row["twin"]["launches"], row["twin_conv_switch"]["launches"]), row
+
+
 def phase_w_ti(model_dir, tmp):
     """``train_lora_w_ti.main`` at 512^2 in bf16: 8 steps at 4 a graph
     (the LoRA unfrozen at step 2, inside the first graph), saves at 4 and 8;
@@ -2698,6 +3085,11 @@ def phase_trainers(model_dir, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 9 DreamBooth: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["dreambooth_fp32"], rows["dreambooth_fp32"] = phase_dreambooth_fp32(model_dir, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 9 DreamBooth fp32: {time.time() - t0:.1f} s")
     t0 = time.time()
     launches["w_ti"], rows["w_ti"] = phase_w_ti(model_dir, tmp)
     gc.collect()
@@ -3149,14 +3541,21 @@ KERNEL_META = {
         "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
         "diffusion_finetuning_tpu/ops/flash_attention.py:178", "unet_step"),
     "flash_attention_fwd_fp32": (
-        "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
+        "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_f32.cu",
         "diffusion_finetuning_tpu/ops/flash_attention.py:87", "unet_step"),
     "flash_attention_bwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd.cu",
                             "diffusion_finetuning_tpu/ops/flash_attention.py:285", "train_step"),
+    "flash_attention_bwd_fp32": (
+        "cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention_bwd_f32.cu",
+        "diffusion_finetuning_tpu/ops/flash_attention.py:285", "train_step"),
     "lora_dense": ("cuda", "diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
                    "diffusion_finetuning_tpu/ops/lora_matmul.py:38", "unet_step"),
+    "lora_dense_fp32": ("cuda", "diffusion_finetuning_tpu_torch/csrc/lora_matmul.cu",
+                        "diffusion_finetuning_tpu/ops/lora_matmul.py:38", "unet_step"),
     "conv3x3": ("cuda", "diffusion_finetuning_tpu_torch/csrc/conv3x3.cu",
                 "diffusion_finetuning_tpu/ops/conv_pallas.py:72", "unet_step"),
+    "conv3x3_fp32": ("cuda", "diffusion_finetuning_tpu_torch/csrc/conv3x3.cu",
+                     "diffusion_finetuning_tpu/ops/conv_pallas.py:72", "unet_step"),
 }
 
 

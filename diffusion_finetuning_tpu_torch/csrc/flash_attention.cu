@@ -49,8 +49,8 @@
 //     in flight, and O is rescaled to the new row maxima after it lands.
 //   * Two CTAs of two warpgroups share an SM where registers allow
 //     (d_pad <= 64), so one CTA's softmax also overlaps the other's products.
-// fp32 inputs take a plain FMA kernel (flash_fwd_f32_kernel) with the same
-// math.
+// fp32 inputs take csrc/flash_attention_f32.cu (split products on the
+// tensor cores).
 //
 // K4, the head-packed forward (dft_flash_fwd with G > 1), replaces the Pallas
 // kernel _fwd_kernel_packed (:178, via _fwd_packed :239, pallas_call :254):
@@ -84,7 +84,8 @@
 //   * The host sizes the q tile for the packed grid
 //     (ops/flash_attention.py:packed_q_tile).
 // It moves the same bytes and does the same operations as K1 (the same
-// bound).  fp32 inputs run the FMA kernel below with the G heads in turn.
+// bound).  fp32 inputs run csrc/flash_attention_f32.cu's kernel with the G
+// heads in turn.
 #include "wgmma.cuh"
 
 namespace {
@@ -559,103 +560,6 @@ __global__ void __launch_bounds__(HG * NWG * 128, 1)
   }
 }
 
-// fp32 inputs: the same online softmax with plain FMA in shared memory.
-constexpr int kF32M = 16, kF32N = 32, kF32Threads = 128;
-
-size_t f32_smem_bytes(int d) {
-  return sizeof(float) * (size_t)(2 * kF32M * d + kF32N * (d + 1) + kF32N * d +
-                                  kF32M * (kF32N + 1) + 3 * kF32M);
-}
-
-__device__ __forceinline__ void flash_fwd_f32_head(const float* __restrict__ qb,
-                                                   const float* __restrict__ kb,
-                                                   const float* __restrict__ vb,
-                                                   float* __restrict__ ob,
-                                                   float* __restrict__ lseb, int q0, int sq,
-                                                   int skv, int d, float logit_scale, float* sm) {
-  float* Qs = sm;                          // kF32M x d
-  float* Os = Qs + kF32M * d;              // kF32M x d
-  float* Ks = Os + kF32M * d;              // kF32N x (d + 1)
-  float* Vs = Ks + kF32N * (d + 1);        // kF32N x d
-  float* S = Vs + kF32N * d;               // kF32M x (kF32N + 1)
-  float* Mr = S + kF32M * (kF32N + 1);
-  float* Lr = Mr + kF32M;
-  float* Ar = Lr + kF32M;
-
-  const int tid = threadIdx.x;
-  __syncthreads();  // a previous head's outputs are written
-  for (int i = tid; i < kF32M * d; i += kF32Threads) {
-    const int r = i / d, c = i % d;
-    Qs[i] = (q0 + r < sq) ? qb[(size_t)(q0 + r) * d + c] : 0.f;
-    Os[i] = 0.f;
-  }
-  if (tid < kF32M) {
-    Mr[tid] = kNegInf;
-    Lr[tid] = 0.f;
-  }
-  for (int kv0 = 0; kv0 < skv; kv0 += kF32N) {
-    __syncthreads();
-    for (int i = tid; i < kF32N * d; i += kF32Threads) {
-      const int r = i / d, c = i % d, gr = kv0 + r;
-      const bool ok = gr < skv;
-      Ks[r * (d + 1) + c] = ok ? kb[(size_t)gr * d + c] : 0.f;
-      Vs[r * d + c] = ok ? vb[(size_t)gr * d + c] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32M * kF32N; i += kF32Threads) {
-      const int r = i / kF32N, c = i % kF32N;
-      float a = 0.f;
-      for (int e = 0; e < d; ++e) a = fmaf(Qs[r * d + e], Ks[c * (d + 1) + e], a);
-      S[r * (kF32N + 1) + c] = (kv0 + c < skv) ? a * logit_scale : kNegInf;
-    }
-    __syncthreads();
-    if (tid < kF32M) {
-      float* row = S + tid * (kF32N + 1);
-      const float m_old = Mr[tid];
-      float mx = m_old;
-      for (int c = 0; c < kF32N; ++c) mx = fmaxf(mx, row[c]);
-      float sum = 0.f;
-      for (int c = 0; c < kF32N; ++c) {
-        const float p = exp2f(row[c] - mx);
-        row[c] = p;
-        sum += p;
-      }
-      const float alpha = exp2f(m_old - mx);
-      Lr[tid] = Lr[tid] * alpha + sum;
-      Mr[tid] = mx;
-      Ar[tid] = alpha;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32M * d; i += kF32Threads) {
-      const int r = i / d, c = i % d;
-      float a = Os[i] * Ar[r];
-      const float* row = S + r * (kF32N + 1);
-      for (int j = 0; j < kF32N; ++j) a = fmaf(row[j], Vs[j * d + c], a);
-      Os[i] = a;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kF32M * d; i += kF32Threads) {
-    const int r = i / d;
-    if (q0 + r < sq) ob[(size_t)(q0 + r) * d + i % d] = Os[i] / Lr[r];
-  }
-  if (tid < kF32M && q0 + tid < sq) lseb[q0 + tid] = Mr[tid] + log2f(Lr[tid]);
-}
-
-// G = 1: K1's fp32 variant; G > 1: K4's (heads blockIdx.y * G .. + G - 1 in turn).
-__global__ void __launch_bounds__(kF32Threads)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int sq, int skv, int d, float logit_scale,
-                         int G) {
-  extern __shared__ float sm[];
-  for (int i = 0; i < G; ++i) {
-    const size_t bh = (size_t)blockIdx.y * G + i;
-    flash_fwd_f32_head(q + bh * sq * d, k + bh * skv * d, v + bh * skv * d, o + bh * sq * d,
-                       lse + bh * sq, blockIdx.x * kF32M, sq, skv, d, logit_scale, sm);
-  }
-}
-
 // K1: one head a CTA, NWG*64 q rows.
 template <int DP, int NWG>
 cudaError_t launch_bf16_tile(const void* q, const void* k, const void* v, void* o, float* lse,
@@ -743,11 +647,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
 }  // namespace
 
 // q (bh, sq, d), k/v (bh, skv, d), o like q, lse (bh, sq) fp32; all contiguous.
-// dtype: 0 = fp32, 1 = bf16.  G heads per CTA: 1 runs K1, G > 1 (dividing bh)
-// runs K4, whose O and lse are bit-equal to K1's at the same q_tile.
-// q_tile: q rows per CTA of the bf16 kernels, 64 or 128 (one or two
-// warpgroups; the fp32 kernel ignores it).  Returns the launch's
-// cudaError_t (0 = launched).
+// dtype: 1 = bf16 (fp32 inputs: dft_flash_fwd_f32).  G heads per CTA: 1 runs
+// K1, G > 1 (dividing bh) runs K4, whose O and lse are bit-equal to K1's at
+// the same q_tile.  q_tile: q rows per CTA, 64 or 128 (one or two
+// warpgroups).  Returns the launch's cudaError_t (0 = launched).
 extern "C" int dft_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                              int bh, int sq, int skv, int d, float scale, int dtype, int G,
                              int q_tile, void* stream) {
@@ -773,17 +676,6 @@ extern "C" int dft_flash_fwd(const void* q, const void* k, const void* v, void* 
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef DFT_FWD_CASE
-  }
-  if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((sq + kF32M - 1) / kF32M, bh / G);
-    flash_fwd_f32_kernel<<<grid, kF32Threads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), l, sq, skv, d, logit_scale, G);
-    return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -71,9 +71,8 @@
 // Registers: dK and dV take d_pad/2 floats a thread each (160 at d=160), so
 // the q tile is as narrow as they force (q_rows: BR = 64 up to d_pad 64, 32
 // up to 96, else 16).
-// fp32 inputs take plain FMA kernels (flash_bwd_f32_kernel for dK/dV,
-// flash_bwd_dq_f32_kernel for dQ, also in KV order) with the same math, no
-// split.
+// fp32 inputs take csrc/flash_attention_bwd_f32.cu (split products on the
+// tensor cores).
 #include "wgmma.cuh"
 
 namespace {
@@ -528,168 +527,6 @@ __global__ void __launch_bounds__(NWG * 128, NWG == 2 && DP <= 64 ? 2 : 1)
   }
 }
 
-// fp32 inputs: the same math with plain FMA in shared memory; dK and dV:
-// one CTA per (batch*head, 16 kv rows), q in tiles of 16 rows, dK/dV in
-// shared memory.
-constexpr int kF32N = 16, kF32M = 16;
-
-size_t f32_smem_bytes(int d) {
-  return sizeof(float) * (size_t)(6 * 16 * d + 2 * kF32N * (kF32M + 1) + 2 * kF32M);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         float* __restrict__ dk,
-                         float* __restrict__ dv, int sq, int skv, int d, float scale,
-                         float logit_scale) {
-  extern __shared__ float sm[];
-  float* Ks = sm;                      // kF32N x d
-  float* Vs = Ks + kF32N * d;          // kF32N x d
-  float* dKs = Vs + kF32N * d;         // kF32N x d
-  float* dVs = dKs + kF32N * d;        // kF32N x d
-  float* Qs = dVs + kF32N * d;         // kF32M x d
-  float* dOs = Qs + kF32M * d;         // kF32M x d
-  float* P = dOs + kF32M * d;          // kF32N x (kF32M + 1)
-  float* dS = P + kF32N * (kF32M + 1); // kF32N x (kF32M + 1)
-  float* Ls = dS + kF32N * (kF32M + 1);
-  float* Ds = Ls + kF32M;
-
-  const int bh = blockIdx.y, kv0 = blockIdx.x * kF32N, tid = threadIdx.x;
-  const float* kb = k + (size_t)bh * skv * d;
-  const float* vb = v + (size_t)bh * skv * d;
-  const float* qb = q + (size_t)bh * sq * d;
-  const float* db = dout + (size_t)bh * sq * d;
-  for (int i = tid; i < kF32N * d; i += kThreads) {
-    const int gr = kv0 + i / d;
-    const bool ok = gr < skv;
-    Ks[i] = ok ? kb[(size_t)gr * d + i % d] : 0.f;
-    Vs[i] = ok ? vb[(size_t)gr * d + i % d] : 0.f;
-    dKs[i] = dVs[i] = 0.f;
-  }
-  for (int q0 = 0; q0 < sq; q0 += kF32M) {
-    __syncthreads();
-    for (int i = tid; i < kF32M * d; i += kThreads) {
-      const int gr = q0 + i / d;
-      const bool ok = gr < sq;
-      Qs[i] = ok ? qb[(size_t)gr * d + i % d] : 0.f;
-      dOs[i] = ok ? db[(size_t)gr * d + i % d] : 0.f;
-    }
-    if (tid < kF32M) {
-      const bool ok = q0 + tid < sq;
-      Ls[tid] = ok ? lse[(size_t)bh * sq + q0 + tid] : 0.f;
-      Ds[tid] = ok ? delta[(size_t)bh * sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32N * kF32M; i += kThreads) {
-      const int r = i / kF32M, c = i % kF32M;
-      float sv = 0.f, dpv = 0.f;
-      for (int e = 0; e < d; ++e) {
-        sv = fmaf(Ks[r * d + e], Qs[c * d + e], sv);
-        dpv = fmaf(Vs[r * d + e], dOs[c * d + e], dpv);
-      }
-      const bool ok = kv0 + r < skv && q0 + c < sq;
-      const float p = ok ? exp2f(sv * logit_scale - Ls[c]) : 0.f;
-      P[r * (kF32M + 1) + c] = p;
-      dS[r * (kF32M + 1) + c] = p * (dpv - Ds[c]) * scale;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32N * d; i += kThreads) {
-      const int r = i / d, col = i % d;
-      float a = dVs[i], b = dKs[i];
-      for (int c = 0; c < kF32M; ++c) {
-        a = fmaf(P[r * (kF32M + 1) + c], dOs[c * d + col], a);
-        b = fmaf(dS[r * (kF32M + 1) + c], Qs[c * d + col], b);
-      }
-      dVs[i] = a;
-      dKs[i] = b;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kF32N * d; i += kThreads) {
-    const int gr = kv0 + i / d;
-    if (gr < skv) {
-      dk[(size_t)bh * skv * d + (size_t)gr * d + i % d] = dKs[i];
-      dv[(size_t)bh * skv * d + (size_t)gr * d + i % d] = dVs[i];
-    }
-  }
-}
-
-// fp32 dQ: one CTA per (batch*head, 16 q rows) walking the KV rows in
-// tiles of 16, in order, dQ in shared memory.
-size_t dq_f32_smem_bytes(int d) {
-  return sizeof(float) * (size_t)(5 * kF32M * d + kF32M * (kF32N + 1) + 2 * kF32M);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ dout,
-                            const float* __restrict__ lse, const float* __restrict__ delta,
-                            float* __restrict__ dq, int sq, int skv, int d, float scale,
-                            float logit_scale) {
-  extern __shared__ float sm[];
-  float* Qs = sm;                      // kF32M x d
-  float* dOs = Qs + kF32M * d;         // kF32M x d
-  float* dQs = dOs + kF32M * d;        // kF32M x d
-  float* Ks = dQs + kF32M * d;         // kF32N x d
-  float* Vs = Ks + kF32N * d;          // kF32N x d
-  float* dS = Vs + kF32N * d;          // kF32M x (kF32N + 1), dS[q][kv]
-  float* Ls = dS + kF32M * (kF32N + 1);
-  float* Ds = Ls + kF32M;
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * kF32M, tid = threadIdx.x;
-  const float* kb = k + (size_t)bh * skv * d;
-  const float* vb = v + (size_t)bh * skv * d;
-  const float* qb = q + (size_t)bh * sq * d;
-  const float* db = dout + (size_t)bh * sq * d;
-  for (int i = tid; i < kF32M * d; i += kThreads) {
-    const int gr = q0 + i / d;
-    const bool ok = gr < sq;
-    Qs[i] = ok ? qb[(size_t)gr * d + i % d] : 0.f;
-    dOs[i] = ok ? db[(size_t)gr * d + i % d] : 0.f;
-    dQs[i] = 0.f;
-  }
-  if (tid < kF32M) {
-    const bool ok = q0 + tid < sq;
-    Ls[tid] = ok ? lse[(size_t)bh * sq + q0 + tid] : 0.f;
-    Ds[tid] = ok ? delta[(size_t)bh * sq + q0 + tid] : 0.f;
-  }
-  for (int kv0 = 0; kv0 < skv; kv0 += kF32N) {
-    __syncthreads();
-    for (int i = tid; i < kF32N * d; i += kThreads) {
-      const int gr = kv0 + i / d;
-      const bool ok = gr < skv;
-      Ks[i] = ok ? kb[(size_t)gr * d + i % d] : 0.f;
-      Vs[i] = ok ? vb[(size_t)gr * d + i % d] : 0.f;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32M * kF32N; i += kThreads) {
-      const int r = i / kF32N, c = i % kF32N;
-      float sv = 0.f, dpv = 0.f;
-      for (int e = 0; e < d; ++e) {
-        sv = fmaf(Ks[c * d + e], Qs[r * d + e], sv);
-        dpv = fmaf(Vs[c * d + e], dOs[r * d + e], dpv);
-      }
-      const bool ok = kv0 + c < skv && q0 + r < sq;
-      const float p = ok ? exp2f(sv * logit_scale - Ls[r]) : 0.f;
-      dS[r * (kF32N + 1) + c] = p * (dpv - Ds[r]) * scale;
-    }
-    __syncthreads();
-    for (int i = tid; i < kF32M * d; i += kThreads) {
-      const int r = i / d, col = i % d;
-      float a = dQs[i];
-      for (int c = 0; c < kF32N; ++c) a = fmaf(dS[r * (kF32N + 1) + c], Ks[c * d + col], a);
-      dQs[i] = a;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < kF32M * d; i += kThreads) {
-    const int gr = q0 + i / d;
-    if (gr < sq) dq[(size_t)bh * sq * d + (size_t)gr * d + i % d] = dQs[i];
-  }
-}
-
 template <int DP, int NWG>
 cudaError_t launch_dq(const CUtensorMap& km, const CUtensorMap& vm, const void* q, const void* k,
                       const void* v, const void* dout, const float* lse, const float* delta,
@@ -761,10 +598,10 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q, dout, dq (bh, sq, d); k, v, dk, dv (bh, skv, d); lse (base 2), delta
-// (bh, sq) fp32.  All contiguous.  dtype: 0 = fp32, 1 = bf16 (q, k, v, dout,
-// dq, dk, dv).  Two launches: dK/dV, then dQ summed over the KV tiles in
-// their order.  q_splits (bf16 only; 1 for fp32): CTAs per (head, 64 KV
-// rows), each over its share of the q tiles.  With q_splits > 1, dkv_part
+// (bh, sq) fp32.  All contiguous.  dtype: 1 = bf16 (q, k, v, dout, dq, dk,
+// dv; fp32 inputs: dft_flash_bwd_f32).  Two launches: dK/dV, then dQ summed
+// over the KV tiles in their order.  q_splits: CTAs per (head, 64 KV rows),
+// each over its share of the q tiles.  With q_splits > 1, dkv_part
 // is fp32 scratch of q_splits * bh * ceil(skv/64) blocks of 2 * 64 * d_pad
 // (d_pad = d rounded up to 16: one KV tile's dK and dV) and counters bh *
 // ceil(skv/64) ints, zero on entry and left zero on exit.  dq_tile (bf16):
@@ -802,27 +639,6 @@ extern "C" int dft_flash_bwd(const void* q, const void* k, const void* v, const 
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef DFT_BWD_CASE
-  }
-  if (dtype == 0) {
-    const size_t smem = f32_smem_bytes(d), dq_smem = dq_f32_smem_bytes(d);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(flash_bwd_dq_f32_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const auto* qf = static_cast<const float*>(q);
-    const auto* kf = static_cast<const float*>(k);
-    const auto* vf = static_cast<const float*>(v);
-    const auto* of = static_cast<const float*>(dout);
-    flash_bwd_f32_kernel<<<dim3((skv + kF32N - 1) / kF32N, bh), kThreads, smem, st>>>(
-        qf, kf, vf, of, l, dl, static_cast<float*>(dk), static_cast<float*>(dv), sq, skv, d,
-        scale, logit_scale);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dq_f32_kernel<<<dim3((sq + kF32M - 1) / kF32M, bh), kThreads, dq_smem, st>>>(
-        qf, kf, vf, of, l, dl, static_cast<float*>(dq), sq, skv, d, scale, logit_scale);
-    return static_cast<int>(cudaGetLastError());
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,8 +31,10 @@ import torch.nn.functional as F
 
 from . import _build, _grid
 
-# kernel launches so far (chip_smoke.py resets and reads it)
+# kernel launches so far, bf16 and fp32 apart (chip_smoke.py resets and
+# reads them)
 launches = 0
+fp32_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BN = 128  # the TPU kernel's output-channel block, read by the routing rule
@@ -245,7 +247,7 @@ def _conv3x3_cuda(x, weight, bias, grid: Optional[Plan] = None):
     """The kernel on NCHW x: the Hopper design where :func:`plan` takes the
     bf16 shape (``grid`` overrides its plan), else the element-load kernel
     (bf16) or the FMA kernel (fp32)."""
-    global launches
+    global launches, fp32_launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv3x3 kernel takes fp32 or bf16, got {x.dtype}")
     if any(t.device != x.device for t in (weight,) + ((bias,) if bias is not None else ())):
@@ -288,7 +290,10 @@ def _conv3x3_cuda(x, weight, bias, grid: Optional[Plan] = None):
                     None if counters is None else counters.data_ptr(), B, C, H, W, O,
                     p.sw, p.splits, stream)
     _build.check(rc, "conv3x3")
-    launches += 1
+    if dt == torch.float32:
+        fp32_launches += 1
+    else:
+        launches += 1
     return y
 
 

@@ -7,8 +7,11 @@ wrapper ``_fwd_packed`` :239) and ``_bwd_kernel`` (:285, wrapper ``_bwd``
 :349), joined by the custom VJP ``_flash`` (:430-456) and reached through the
 public ``flash_attention`` (:459).  The CUDA kernels are
 ``csrc/flash_attention.cu`` (K1, forward, and K4, the same forward with G
-heads per CTA) and ``csrc/flash_attention_bwd.cu`` (K3, backward), all
-``sm_90a``; their designs and bounds are noted there.  Two host rules size
+heads per CTA) and ``csrc/flash_attention_bwd.cu`` (K3, backward) on bf16
+inputs, ``csrc/flash_attention_f32.cu`` and ``csrc/flash_attention_bwd_f32.cu``
+on fp32 inputs (split products of three TF32 products on the tensor cores,
+with fp32 scratch for the split copies of the operands), all ``sm_90a``;
+their designs and bounds are noted there.  Two host rules size
 their grids: :func:`fwd_q_tile` and :func:`packed_q_tile` (64 or 128 q
 rows a forward CTA of K1 and of K4) and
 :func:`bwd_q_splits` (CTAs sharing one KV tile's q loop in the backward,
@@ -52,12 +55,13 @@ LOG2E = 1.4426950408889634
 NEG_INF = -1e30
 
 # kernel launches so far: the bf16 forward (K1), the bf16 packed forward
-# (K4), the fp32 forward (K1's and K4's FMA kernel) and the backward (K3);
-# chip_smoke.py resets and reads them
+# (K4), the fp32 forward (K1's and K4's fp32 kernel), the bf16 backward (K3)
+# and the fp32 backward (K3's fp32 pair); chip_smoke.py resets and reads them
 launches = 0
 packed_launches = 0
 fp32_launches = 0
 bwd_launches = 0
+bwd_fp32_launches = 0
 
 # heads per CTA of the forward (JAX DEFAULT_HEAD_PACK, :69); 1 = K1 only
 DEFAULT_HEAD_PACK = int(os.environ.get("DFT_FLASH_HEAD_PACK", 1))
@@ -66,7 +70,7 @@ DEFAULT_HEAD_PACK = int(os.environ.get("DFT_FLASH_HEAD_PACK", 1))
 _JAX_BLOCK_Q, _JAX_BLOCK_KV, _JAX_HEAD_PAD = 512, 1024, 8
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 160  # largest padded head dim the bf16 kernel is built for
+_MAX_HEAD_DIM = 160  # largest padded head dim the kernels are built for
 # H100 SXM streaming multiprocessors; the tile and split rules size grids
 # against one wave (one CTA an SM) and two waves of them
 _SMS = 132
@@ -190,16 +194,45 @@ def bwd_q_rows(d: int) -> int:
     return 64 if dp <= 64 else 32 if dp <= 96 else 16
 
 
-def bwd_q_splits(bh: int, sq: int, skv: int, d: int) -> int:
-    """CTAs per (head, 64 KV rows) of the bf16 backward, on the grid
-    (ceil(Skv/64), BH, q_splits): the fewest that give two waves (>= 2 x 132
-    CTAs) while every split keeps at least 4 q tiles, and at least one wave
-    (132 CTAs) wherever Sq has the q tiles for it.  Each split writes an
+def f32_head_pad(d: int) -> int:
+    """Head dim of the fp32 kernels' split copies: d rounded up to 8 up to
+    64, to 16 above (``csrc/split_f32.cuh:f32_dpad``)."""
+    return _round_up(d, 8) if d <= 64 else _round_up(d, 16)
+
+
+def bwd_q_rows_f32(d: int) -> int:
+    """q rows per tile of the fp32 backward's dK/dV kernel: 32 up to d_pad
+    72, 16 up to 96, else 8 (dK and dV take d_pad/2 registers each, and a
+    ring stage holds 8 split tiles of the q rows)."""
+    dp = f32_head_pad(d)
+    return 32 if dp <= 72 else 16 if dp <= 96 else 8
+
+
+def f32_fwd_scratch(bh: int, sq: int, skv: int, d: int) -> int:
+    """fp32 values of the fp32 forward's split copies: Q and K [big; small]
+    rows, V [big; small] transposed (``csrc/flash_attention_f32.cu``)."""
+    return 2 * bh * f32_head_pad(d) * (sq + skv + _round_up(skv, 8))
+
+
+def f32_bwd_scratch(bh: int, sq: int, skv: int, d: int) -> int:
+    """fp32 values of the fp32 backward's split copies: Q, dO, K, V rows and
+    Q, dO, K transposed, [big; small] each (``csrc/flash_attention_bwd_f32.cu``)."""
+    return 2 * bh * f32_head_pad(d) * (2 * sq + 2 * skv + 2 * _round_up(sq, 8)
+                                       + _round_up(skv, 8))
+
+
+def bwd_q_splits(bh: int, sq: int, skv: int, d: int, q_rows: Optional[int] = None) -> int:
+    """CTAs per (head, 64 KV rows) of the backward's dK/dV kernel, on the
+    grid (ceil(Skv/64), BH, q_splits): the fewest that give two waves (>= 2
+    x 132 CTAs) while every split keeps at least 4 q tiles, and at least one
+    wave (132 CTAs) wherever Sq has the q tiles for it.  Each split writes an
     fp32 dK/dV partial that the last CTA of its KV tile reads back, so
     splits of 1-3 tiles cost more than they give (measured on the SD1.5
-    shapes, ``PERF.md``)."""
+    shapes, ``PERF.md``).  ``q_rows``: the kernel's q tile, the bf16
+    kernel's :func:`bwd_q_rows` by default (the fp32 kernel's is
+    :func:`bwd_q_rows_f32`)."""
     base = bh * _cdiv(skv, _KV_TILE)
-    n_q = _cdiv(sq, bwd_q_rows(d))
+    n_q = _cdiv(sq, q_rows or bwd_q_rows(d))
     if base >= 2 * _SMS:
         return 1
     two_waves = min(_cdiv(2 * _SMS, base), n_q // 4)
@@ -283,7 +316,7 @@ def _check_qkv(q, k, v):
     if k.shape != v.shape or k.shape[0] != bh or k.shape[2] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not match")
-    if q.dtype == torch.bfloat16 and d > _MAX_HEAD_DIM:
+    if d > _MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} > {_MAX_HEAD_DIM} is not built")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash kernels take contiguous q, k, v")
@@ -302,16 +335,27 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
         raise ValueError(f"head_pack {head_pack} must divide BH = {bh}")
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel("flash_attention", "dft_flash_fwd",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    skv = k.shape[1]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), bh, sq, k.shape[1], d, float(scale),
-                _DTYPES[q.dtype], head_pack,
-                q_tile or (fwd_q_tile(bh, sq) if head_pack == 1
-                           else packed_q_tile(bh, head_pack, sq)), stream)
+        if q.dtype == torch.float32:  # q_tile: the fp32 kernel's CTA is 64 q rows
+            fn = _kernel("flash_attention_f32", "dft_flash_fwd_f32",
+                         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            work = torch.empty(f32_fwd_scratch(bh, sq, skv, d), dtype=torch.float32,
+                               device=q.device)
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                    work.data_ptr(), work.numel(), bh, sq, skv, d, float(scale), head_pack,
+                    stream)
+        else:
+            fn = _kernel("flash_attention", "dft_flash_fwd",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                         + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), bh, sq, skv, d, float(scale),
+                    _DTYPES[q.dtype], head_pack,
+                    q_tile or (fwd_q_tile(bh, sq) if head_pack == 1
+                               else packed_q_tile(bh, head_pack, sq)), stream)
     _build.check(rc, "flash_attention")
     if q.dtype == torch.float32:
         fp32_launches += 1
@@ -323,10 +367,11 @@ def _fwd_cuda(q, k, v, scale, head_pack=1, q_tile=None):
 
 
 def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
-    """K3 on (BH, S, D) tensors: dK/dV with ``q_splits`` (bf16 only;
-    default :func:`bwd_q_splits`) CTAs a KV tile, then dQ summed over the KV
-    tiles in their order, on :func:`fwd_q_tile`'s q tile."""
-    global bwd_launches
+    """K3 on (BH, S, D) tensors: dK/dV with ``q_splits`` (default
+    :func:`bwd_q_splits` of the dtype's q tile) CTAs a KV tile, then dQ
+    summed over the KV tiles in their order, on :func:`fwd_q_tile`'s q tile
+    (bf16; fp32: 64 q rows)."""
+    global bwd_launches, bwd_fp32_launches
     _check_qkv(q, k, v)
     bh, sq, d = q.shape
     if any(t.device != q.device for t in (do, lse, delta)):
@@ -339,27 +384,41 @@ def _bwd_cuda(q, k, v, lse, delta, do, scale, q_splits=None):
             raise ValueError(f"{name} must be a contiguous fp32 ({bh}, {sq}) tensor")
     skv = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    splits = 1
-    if q.dtype == torch.bfloat16:
-        splits = q_splits or bwd_q_splits(bh, sq, skv, d)
-    fn = _kernel("flash_attention_bwd", "dft_flash_bwd",
-                 [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fp32 = q.dtype == torch.float32
+    q_rows = bwd_q_rows_f32(d) if fp32 else bwd_q_rows(d)
+    splits = q_splits or bwd_q_splits(bh, sq, skv, d, q_rows)
+    dp = f32_head_pad(d) if fp32 else _round_up(d, 16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part = counters = None
         if splits > 1:  # fp32 dK/dV partials, summed by the last CTA of each KV tile
-            part = torch.empty((splits, bh, _cdiv(skv, _KV_TILE),
-                                2 * _KV_TILE * _round_up(d, 16)),
+            part = torch.empty((splits, bh, _cdiv(skv, _KV_TILE), 2 * _KV_TILE * dp),
                                dtype=torch.float32, device=q.device)
             counters = _grid.arrival_counters(q.device, stream, bh * _cdiv(skv, _KV_TILE))
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), None if part is None else part.data_ptr(),
-                None if counters is None else counters.data_ptr(), bh, sq, skv, d,
-                float(scale), _DTYPES[q.dtype], splits, fwd_q_tile(bh, sq), stream)
+        ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr()]
+        part_ptrs = [None if part is None else part.data_ptr(),
+                     None if counters is None else counters.data_ptr()]
+        if fp32:
+            fn = _kernel("flash_attention_bwd_f32", "dft_flash_bwd_f32",
+                         [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                 ctypes.c_void_p])
+            work = torch.empty(f32_bwd_scratch(bh, sq, skv, d), dtype=torch.float32,
+                               device=q.device)
+            rc = fn(*ptrs, work.data_ptr(), work.numel(), *part_ptrs, bh, sq, skv, d,
+                    float(scale), splits, stream)
+        else:
+            fn = _kernel("flash_attention_bwd", "dft_flash_bwd",
+                         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                         + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            rc = fn(*ptrs, *part_ptrs, bh, sq, skv, d, float(scale), _DTYPES[q.dtype],
+                    splits, fwd_q_tile(bh, sq), stream)
     _build.check(rc, "flash_attention_bwd")
-    bwd_launches += 1
+    if q.dtype == torch.float32:
+        bwd_fp32_launches += 1
+    else:
+        bwd_launches += 1
     return dq, dk, dv
 
 

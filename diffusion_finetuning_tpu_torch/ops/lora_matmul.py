@@ -30,8 +30,10 @@ import torch
 
 from . import _build, _grid
 
-# kernel launches so far (chip_smoke.py resets and reads it)
+# kernel launches so far, bf16 and fp32 apart (chip_smoke.py resets and
+# reads them)
 launches = 0
+fp32_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 16  # the rank is zero-padded to one mma k-depth in the kernel
@@ -91,7 +93,7 @@ def _kernel():
 def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None):
     """The kernel on (M, K) inputs; ``grid`` (bm, bn, splits), bf16 only,
     defaults to :func:`plan`."""
-    global launches
+    global launches, fp32_launches
     operands = [x, weight, up, down] + ([bias] if bias is not None else [])
     if x.dtype not in _DTYPES:
         raise TypeError(f"LoRA kernel takes fp32 or bf16, got {x.dtype}")
@@ -131,7 +133,10 @@ def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None):
                 None if counters is None else counters.data_ptr(), m, n, k, r,
                 _DTYPES[dt], bm, bn, splits, stream)
     _build.check(rc, "lora_dense")
-    launches += 1
+    if dt == torch.float32:
+        fp32_launches += 1
+    else:
+        launches += 1
     return y
 
 

@@ -111,7 +111,9 @@ def kernel_launches() -> Dict[str, int]:
             "flash_attention_fwd_packed": flash_attention.packed_launches,
             "flash_attention_fwd_fp32": flash_attention.fp32_launches,
             "flash_attention_bwd": flash_attention.bwd_launches,
-            "lora_dense": lora_matmul.launches, "conv3x3": conv3x3.launches}
+            "flash_attention_bwd_fp32": flash_attention.bwd_fp32_launches,
+            "lora_dense": lora_matmul.launches, "lora_dense_fp32": lora_matmul.fp32_launches,
+            "conv3x3": conv3x3.launches, "conv3x3_fp32": conv3x3.fp32_launches}
 
 
 class DispatchLog:

@@ -6,7 +6,10 @@ card's machine, which has no JAX, it runs without the repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances: bf16 outputs within 2e-2 (flash) / 5e-2 (LoRA, |y| up to ~4)
+Tolerances: the fp32 flash kernels within chip_smoke.py's fp32 gates (O
+within 1e-4 absolute and 1e-5 relative L2, lse within 1e-4; dQ, dK, dV
+within 1e-4 of the largest reference value and 1e-5 relative L2); bf16
+outputs within 2e-2 (flash) / 5e-2 (LoRA, |y| up to ~4)
 absolute, or one bf16 ulp of the largest value (conv3x3)
 absolute of the plain version on the same bf16 inputs -- the kernel and the
 plain version round p or h and the output to bf16 at the same places but sum
@@ -96,7 +99,7 @@ def test_flash_kernel_fp32_ragged(card):
                                                (torch.float32, "fp32_launches", 1e-4)])
 def test_attention_launches_the_flash_kernel(card, dtype, counter, tol):
     """(B, S, H*D) in, one launch, the same result as plain_attention; bf16
-    runs K1 and fp32 its FMA kernel, each counted on its own counter."""
+    runs K1 and fp32 K1's fp32 kernel, each counted on its own counter."""
     g = torch.Generator(device=card).manual_seed(2)
     q, k, v = (torch.randn((2, s, 8 * 40), generator=g, device=card, dtype=dtype)
                for s in (256, 77, 77))
@@ -248,6 +251,102 @@ def test_attention_backward_launches_the_bwd_kernel(card):
         assert a.shape == b.shape and _rel_l2(a, b) <= 2e-2
 
 
+# chip_smoke.py's fp32 gates: FLASH_F32_TOL (O and lse) and FLASH_BWD_F32_TOL
+# (each of dQ, dK, dV: max |err| relative to the largest reference value,
+# rel L2); both sides sum fp32 products in fp32, in another order
+F32_FWD = {"max_abs": 1e-4, "rel_l2": 1e-5, "lse_abs": 1e-4}
+F32_BWD = {"max_rel": 1e-4, "rel_l2": 1e-5}
+
+
+def _counters():
+    return {n: getattr(tfa, n) for n in ("launches", "packed_launches", "fp32_launches",
+                                         "bwd_launches", "bwd_fp32_launches")}
+
+
+def _moved(before):
+    return {n: v - before[n] for n, v in _counters().items() if v != before[n]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,d", [(333, 77, 40), (200, 129, 72), (130, 77, 80), (70, 90, 160),
+                                      (1024, 1024, 40), (77, 200, 100)])
+def test_flash_fp32_kernel_matches_plain(card, sq, skv, d):
+    """K1's fp32 kernel (split products on the tensor cores) at ragged Sq and
+    Skv (77 included) and head dims 40/72/80/100/160: O and lse within the
+    fp32 gate, a second call equal bit for bit, one launch a call on its
+    own counter."""
+    g = torch.Generator(device=card).manual_seed(11)
+    q, k, v = (torch.randn((3, s, d), generator=g, device=card) for s in (sq, skv, skv))
+    before = _counters()
+    with torch.inference_mode():
+        o, lse = tfa.flash_fwd(q, k, v, d ** -0.5)
+        o2, lse2 = tfa.flash_fwd(q, k, v, d ** -0.5)
+        o_ref, lse_ref = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert _moved(before) == {"fp32_launches": 2}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert _max_err(o, o_ref) <= F32_FWD["max_abs"] and _rel_l2(o, o_ref) <= F32_FWD["rel_l2"]
+    assert _max_err(lse, lse_ref) <= F32_FWD["lse_abs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [2, 4])
+@pytest.mark.parametrize("sq,skv,d", [(333, 77, 40), (130, 90, 80), (64, 64, 160)])
+def test_packed_flash_fp32_equals_k1(card, pack, sq, skv, d):
+    """K4 on fp32 inputs runs K1's fp32 kernel with the G heads in turn: O and
+    lse equal G = 1's bit for bit, both on the fp32 counter."""
+    g = torch.Generator(device=card).manual_seed(12)
+    q, k, v = (torch.randn((8, s, d), generator=g, device=card) for s in (sq, skv, skv))
+    before = _counters()
+    with torch.inference_mode():
+        o1, lse1 = tfa._fwd_cuda(q, k, v, d ** -0.5)
+        o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack)
+    assert _moved(before) == {"fp32_launches": 2}
+    assert torch.equal(o4, o1) and torch.equal(lse4, lse1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_splits", [None, 1, 3])
+@pytest.mark.parametrize("sq,skv,d", [(333, 77, 40), (200, 129, 72), (130, 77, 80), (70, 90, 160),
+                                      (1024, 1024, 40)])
+def test_flash_bwd_fp32_kernel_matches_plain(card, sq, skv, d, q_splits):
+    """K3's fp32 pair at ragged Sq and Skv and head dims 40/72/80/160, at its
+    q-split rule and at 1 and 3 splits: dQ, dK and dV within the fp32 gate,
+    a second call equal bit for bit, one launch a call on its own counter,
+    and dQ (summed over the kv tiles in their order) the same whatever the
+    splits."""
+    q, k, v, o, lse, do = _bwd_inputs(card, 2, sq, skv, d, torch.float32, 13)
+    delta = tfa._delta(o, do)
+    before = _counters()
+    with torch.inference_mode():
+        got = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=q_splits)
+        again = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=q_splits)
+        one = tfa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5, q_splits=1)
+        want = tfa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5)
+    assert _moved(before) == {"bwd_fp32_launches": 3}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], one[0])
+    for a, b in zip(got, want):
+        peak = float(b.abs().max())
+        assert _max_err(a, b) <= F32_BWD["max_rel"] * peak and _rel_l2(a, b) <= F32_BWD["rel_l2"]
+
+
+@pytest.mark.cuda
+def test_attention_backward_fp32_runs_the_fp32_pair(card):
+    """A backward through ops.attention in fp32 runs K1's and K3's fp32
+    kernels once each, on their own counters, with plain_attention
+    autograd's gradients."""
+    g = torch.Generator(device=card).manual_seed(14)
+    q, k, v = (torch.randn((2, s, 8 * 40), generator=g, device=card).requires_grad_(True)
+               for s in (256, 77, 77))
+    dout = torch.randn((2, 256, 8 * 40), generator=g, device=card)
+    before = _counters()
+    got = torch.autograd.grad(tatt.attention(q, k, v, 8), (q, k, v), dout)
+    assert _moved(before) == {"fp32_launches": 1, "bwd_fp32_launches": 1}
+    want = torch.autograd.grad(tatt.plain_attention(q, k, v, 8), (q, k, v), dout)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_l2(a, b) <= 1e-5
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,kdim,n", [(8192, 320, 320), (154, 768, 640), (512, 1280, 10240)])
 def test_lora_kernel_matches_plain(card, m, kdim, n):
@@ -385,7 +484,7 @@ def test_packed_flash_kernel_equals_k1(card, pack, dtype, sq, skv, d):
     with torch.inference_mode():
         o1, lse1 = tfa._fwd_cuda(q, k, v, d ** -0.5)
         o4, lse4 = tfa._fwd_cuda(q, k, v, d ** -0.5, pack)
-    # bf16: one K1 and one K4 launch; fp32: both run the FMA kernel, counted apart
+    # bf16: one K1 and one K4 launch; fp32: both run K1's fp32 kernel, counted apart
     want = (1, 1, 0) if dtype == torch.bfloat16 else (0, 0, 2)
     assert tuple(n - b for n, b in zip(
         (tfa.launches, tfa.packed_launches, tfa.fp32_launches), before)) == want
@@ -1283,8 +1382,13 @@ def test_img2img_graph_per_sampler_equals_eager(small_pipe, scheduler):
                   output_type="device")
         got = pipe.img2img(["photo", "photo of sks"], image, **kw)
         want = _eager(pipe, lambda: pipe.img2img(["photo", "photo of sks"], image, **kw))
-        assert got.shape == (2, 32, 32, 3) and torch.equal(got, want)
-    assert [e.replays for e in pipe._graphs.graphs.values()] == [2]
+        replays = [e.replays for e in pipe._graphs.graphs.values()]
+        assert got.shape == (2, 32, 32, 3), f"seed {seed}: graphed shape {tuple(got.shape)}"
+        assert torch.equal(got, want), (
+            f"seed {seed}: graphed differs from eager by max |diff| "
+            f"{float((got.float() - want.float()).abs().max())}; graph replays {replays}")
+    replays = [e.replays for e in pipe._graphs.graphs.values()]
+    assert replays == [2], f"graph replays {replays}, want [2]"
 
 
 @pytest.mark.cuda

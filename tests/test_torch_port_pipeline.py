@@ -349,7 +349,7 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_chip_smoke_counts_fp32_flash_launches_in_their_own_row():
-    """The fp32 flash forward (K1's FMA kernel) has a row of its own,
+    """The fp32 flash forward (K1's fp32 kernel) has a row of its own,
     replacing the same Pallas kernel as K1: an fp32 path's launches stay off
     the bf16 K1 row, and the smoke's counters are the trainers' counters."""
     import chip_smoke
@@ -366,8 +366,52 @@ def test_chip_smoke_counts_fp32_flash_launches_in_their_own_row():
     assert (bf16["launches"], fp32["launches"]) == (960, 640)
     assert fp32["launches_by_path"] == {"run_img2img": 0, "visualize_progress": 640}
     assert fp32["replaces"] == bf16["replaces"] == "diffusion_finetuning_tpu/ops/flash_attention.py:87"
-    assert (fp32["ms"], fp32["source"]) == (160.0, bf16["source"])
+    assert fp32["ms"] == 160.0
+    assert fp32["source"] == "diffusion_finetuning_tpu_torch/csrc/flash_attention_f32.cu"
     assert set(chip_smoke.COUNTERS) == set(kernel_launches())
+
+
+def test_chip_smoke_counts_each_fp32_kernel_in_its_own_row():
+    """K3's, K2's and K5's fp32 kernels have rows of their own beside their
+    bf16 kernels' (the same Pallas kernel replaced, each its own source), an
+    fp32 path's launches stay off the bf16 rows, each row reads its own
+    wrapper counter, and the fp32 DreamBooth step counts on the fp32 rows
+    alone."""
+    import importlib
+
+    import chip_smoke
+
+    row = dict(max_abs_err=1e-6, ms=1.0, plain_ms=3.0, bound_ms=0.5, bound_by="operations",
+               library_ms=0.7)
+    names = ("flash_attention_bwd", "lora_dense", "conv3x3")
+    results = {}
+    for name in names:
+        results[name] = [dict(row, shape=[1], per_step=2)]
+        results[name + "_fp32"] = [dict(row, shape=[1], per_step=3, ms=4.0)]
+    line = chip_smoke.kernels_line(results, {
+        "trainer_dreambooth": {"flash_attention_bwd": 64, "lora_dense": 384},
+        "trainer_dreambooth_fp32": {"flash_attention_bwd_fp32": 64, "lora_dense_fp32": 384,
+                                    "conv3x3_fp32": 34}})
+    by = {k["name"]: k for k in line["kernels"]}
+    assert {n: by[n]["launches"] for n in by} == {
+        "flash_attention_bwd": 64, "flash_attention_bwd_fp32": 64, "lora_dense": 384,
+        "lora_dense_fp32": 384, "conv3x3": 0, "conv3x3_fp32": 34}
+    for name in names:
+        assert by[name + "_fp32"]["replaces"] == by[name]["replaces"]
+        assert by[name + "_fp32"]["ms"] == 12.0
+    assert by["flash_attention_bwd_fp32"]["source"].endswith("csrc/flash_attention_bwd_f32.cu")
+    assert by["lora_dense_fp32"]["source"] == by["lora_dense"]["source"]
+    assert by["conv3x3_fp32"]["source"] == by["conv3x3"]["source"]
+    counters = {name: chip_smoke.COUNTERS[name] for name in by}
+    assert len(set(counters.values())) == len(counters)
+    for mod, attr in counters.values():
+        assert isinstance(getattr(importlib.import_module(
+            f"diffusion_finetuning_tpu_torch.ops.{mod}"), attr), int)
+    step = chip_smoke.fp32_step_launches()
+    assert {k: n for k, n in step.items() if n} == {
+        "flash_attention_fwd_fp32": chip_smoke.FLASH_PER_STEP,
+        "flash_attention_bwd_fp32": chip_smoke.FLASH_PER_STEP,
+        "lora_dense_fp32": chip_smoke.LORA_PER_STEP + chip_smoke.TEXT_LORA_PER_ENCODE}
 
 
 def test_chip_smoke_kernels_line_names_each_kernel_fully():
