@@ -18,7 +18,10 @@ Phases, each fatal on failure:
      (FLASH_F32_TOL, FLASH_BWD_F32_TOL, LORA_F32_TOL, CONV_F32_TOL),
      repeating bit for bit, beside one library call in fp32 (TF32 off) and
      two bounds (``bound_f32``: the split product on the tensor cores, and
-     the fp32 FMA rate); the flash forward's q tile and the flash
+     the fp32 FMA rate), K2's also at the text encoder's projections
+     (TEXT_LORA_ROW) and summed over an fp32 DreamBooth step's forward, K2's
+     and K5's beside the FMA kernels they replaced (``K2F32_PREV``,
+     ``K5F32_PREV``, log only); the flash forward's q tile and the flash
      backward's q splits (whose dQ, dK and dV must repeat bit for bit, and
      whose dQ must not change with the splits), each timed beside the
      choices its rule did not make (the other tile; half and twice the
@@ -103,7 +106,9 @@ Phases, each fatal on failure:
      checkpoint (restored state bit-equal to the saved one, "Resumed at step
      4", step 8 reached); ``train_lora_dreambooth.main`` again with no
      ``--mixed_precision``, the default fp32 trainer (8 steps, the fp32
-     kernels only), then one graphed step of its step function against its
+     kernels only; its peak memory printed beside the bytes of the fp32
+     kernels' split copies in a step), then one graphed step of its step
+     function against its
      eager twin bit for bit, switches off and with the conv switch on (K5's
      fp32 kernel); ``train_lora_w_ti.main`` for 8 steps.  Fatal
      unless every loss is finite, the checkpoint and output files read back,
@@ -189,6 +194,10 @@ LORA_TRAIN_SHAPES = []
 for _m, _c, _blocks in ((4096, 320, 5), (1024, 640, 5), (256, 1280, 5), (64, 1280, 1)):
     LORA_TRAIN_SHAPES += [(_m, _c, _c, 6 * _blocks), (77, 768, _c, 2 * _blocks),
                           (_m, _c, 8 * _c, _blocks)]
+# the text encoder's LoRA'd projections in an fp32 DreamBooth step with prior
+# preservation: (M = one instance and one class prompt of 77 tokens, K, N,
+# calls: 12 CLIP layers x q, k, v, out)
+TEXT_LORA_ROW = (154, 768, 768, 48)
 LORA_RANK = 4
 FLASH_PER_STEP = sum(s[3] for s in FLASH_SHAPES)   # 32
 LORA_PER_STEP = sum(s[3] for s in LORA_SHAPES)     # 144
@@ -233,6 +242,27 @@ K3_UNORDERED = ("K3 before, e663ccd", {
     (4096, 4096, 40): 0.3289, (1024, 1024, 80): 0.0689, (256, 256, 160): 0.0406,
     (64, 64, 160): 0.0236, (4096, 77, 40): 0.0341, (1024, 77, 80): 0.0347,
     (256, 77, 160): 0.0371, (64, 77, 160): 0.0239})
+
+# per-call ms of the fp32 FMA kernels the split-product kernels replaced
+# (lora_dense_f32_kernel, conv3x3_f32_kernel), measured by this script's
+# phase 2 (lora_fp32_rows, conv3x3_fp32_rows) at commit 6d5a880 on an NVIDIA
+# H100 80GB HBM3 at 700 W: K2 at (M, K, N), rank 4, K5 at (B, C, H, W, O);
+# printed in the log only
+K2F32_PREV = ("K2 fp32 FMA, 6d5a880", {
+    (8192, 320, 320): 0.2564, (154, 768, 320): 0.2090, (8192, 320, 2560): 1.8519,
+    (2048, 640, 640): 0.3085, (154, 768, 640): 0.2102, (2048, 640, 5120): 1.8664,
+    (512, 1280, 1280): 0.4268, (154, 768, 1280): 0.2092, (512, 1280, 10240): 1.9347,
+    (128, 1280, 1280): 0.3729, (128, 1280, 10240): 0.6691, (4096, 320, 320): 0.1593,
+    (77, 768, 320): 0.2059, (4096, 320, 2560): 0.9565, (1024, 640, 640): 0.2173,
+    (77, 768, 640): 0.2059, (1024, 640, 5120): 0.9523, (256, 1280, 1280): 0.3634,
+    (77, 768, 1280): 0.2087, (256, 1280, 10240): 1.0316, (64, 1280, 1280): 0.3793,
+    (64, 1280, 10240): 0.4834})
+K5F32_PREV = ("K5 fp32 FMA, 6d5a880", {
+    (2, 320, 64, 64, 320): 1.2240, (2, 320, 32, 32, 640): 0.7455,
+    (2, 640, 32, 32, 640): 1.4834, (2, 640, 16, 16, 1280): 1.1129,
+    (2, 640, 64, 64, 320): 2.4796, (1, 320, 64, 64, 320): 0.7383,
+    (1, 320, 32, 32, 640): 0.5476, (1, 640, 32, 32, 640): 1.0913,
+    (1, 640, 16, 16, 1280): 0.9942, (1, 640, 64, 64, 320): 1.4686})
 
 # flash forward heads per CTA on the phase-6 path, and the packings phase 2
 # holds against K1
@@ -643,21 +673,28 @@ def flash_bwd_fp32_rows(gen, flush, iters):
 
 
 def lora_fp32_rows(gen, flush, iters):
-    """K2's fp32 kernel (``lora_dense_f32_kernel``) at every LoRA'd
-    projection of a CFG UNet step and of a train step, rank 4, fp32:
+    """K2's fp32 kernel (``lora_dense_tf32_kernel``, the split product) at
+    every LoRA'd projection of a CFG UNet step and of a train step, and at
+    the text encoder's (TEXT_LORA_ROW: an fp32 DreamBooth step's 154 prompt
+    rows, 48 calls), rank 4, fp32, at ``lora_matmul.plan_f32``'s grid:
     against the plain version in fp32 within LORA_F32_TOL, a second run
-    equal bit for bit; its time beside the plain version's, the library
-    route in fp32 (``addmm`` plus the low-rank product), ``F.linear`` alone
-    and both bounds (``bound_f32``)."""
+    equal bit for bit; its time beside the choices its rules did not make
+    (W split by the other route, ``lora_matmul.f32_w_in_smem``; the other
+    tiles unsplit, half and twice the splits), the FMA kernel's
+    (``K2F32_PREV``, log only), the plain version's, the library route in
+    fp32 (``addmm`` plus the low-rank product), ``F.linear`` alone and both
+    bounds (``bound_f32``)."""
     import torch
     import torch.nn.functional as F
 
+    from diffusion_finetuning_tpu_torch.ops import _grid
     from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
 
     dev = torch.device("cuda")
     log(f"limits, lora fp32 kernel vs plain version: {LORA_F32_TOL}")
     rows = []
-    for batch, shapes in ((2, LORA_SHAPES), (1, LORA_TRAIN_SHAPES)):
+    for kind, shapes in (("serve", LORA_SHAPES), ("train", LORA_TRAIN_SHAPES),
+                         ("text", [TEXT_LORA_ROW])):
         for m, kdim, n, count in shapes:
             x = torch.randn((m, kdim), generator=gen, device=dev)
             w = torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5
@@ -665,6 +702,13 @@ def lora_fp32_rows(gen, flush, iters):
             up = torch.randn((n, LORA_RANK), generator=gen, device=dev) * 0.1
             down = torch.randn((LORA_RANK, kdim), generator=gen, device=dev) / LORA_RANK
             scale = torch.tensor(0.8, device=dev)
+            grid = lm.plan_f32(m, n, kdim)
+            bm, bn, splits = grid
+            w_smem = lm.f32_w_in_smem(m, kdim, bm)
+            steps = -(-kdim // lm.K_STEP_F32)
+            others = sorted(({(tm, tn, 1) for tm, tn in lm.TILES if tm <= -(-m // 64) * 64}
+                             | {(bm, bn, max(1, splits // 2)), (bm, bn, min(steps, 2 * splits))})
+                            - {grid})
             with torch.inference_mode():
                 y = lm.lora_dense(x, w, b, up, down, scale)
                 again = lm.lora_dense(x, w, b, up, down, scale)
@@ -674,6 +718,10 @@ def lora_fp32_rows(gen, flush, iters):
                 same = torch.equal(y, again)
                 ok = f32_ok([err], LORA_F32_TOL, same, bool(torch.isfinite(y).all()))
                 ms = cuda_time(lambda: lm.lora_dense(x, w, b, up, down, scale), iters, flush)
+                other_w_ms = cuda_time(lambda: lm._lora_dense_cuda(
+                    x, w, b, up, down, scale, w_split=not w_smem), iters, flush)
+                other_ms = {g: cuda_time(lambda: lm._lora_dense_cuda(
+                    x, w, b, up, down, scale, grid=g), iters, flush) for g in others}
                 plain_ms = cuda_time(lambda: lm.lora_dense_plain(x, w, b, up, down, scale),
                                      iters, flush)
                 lib_ms = cuda_time(
@@ -684,35 +732,67 @@ def lora_fp32_rows(gen, flush, iters):
             bound, by, fma = bound_f32(
                 2 * m * n * kdim + 2 * m * kdim * LORA_RANK + 2 * m * LORA_RANK * n,
                 4 * (m * kdim + n * kdim + m * n + n + n * LORA_RANK + LORA_RANK * kdim) + 4)
-            row = dict(shape=[m, kdim, n, LORA_RANK], per_step=count if batch == 2 else 0,
-                       train_per_step=count if batch == 1 else 0, max_abs_err=err[0],
+            ctas = _grid.cdiv(m, bm) * _grid.cdiv(n, bn) * splits
+            row = dict(shape=[m, kdim, n, LORA_RANK], per_step=count if kind == "serve" else 0,
+                       train_per_step=count if kind == "train" else 0,
+                       text_per_step=count if kind == "text" else 0, max_abs_err=err[0],
                        max_rel_err=err[1], rel_l2=err[2], repeat_equal=same, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, linear_ms=linear_ms,
-                       bound_ms=bound, bound_by=by, fma_bound_ms=fma)
+                       bound_ms=bound, bound_by=by, fma_bound_ms=fma, plan=list(grid),
+                       ctas=ctas, w_in_smem=w_smem, other_w_route_ms=other_w_ms,
+                       other_plans_ms={str(list(g)): t for g, t in other_ms.items()})
             rows.append(row)
-            log(f"lora fp32 M={m:5d} K={kdim:5d} N={n:6d} r={LORA_RANK} x{count:2d} "
-                f"{'serve' if batch == 2 else 'train'}: max_rel={err[1]:.2e} "
-                f"rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} plain={plain_ms:.4f} "
-                f"addmm+lowrank={lib_ms:.4f} linear={linear_ms:.4f} bound={bound:.4f} ({by}; "
-                f"FMA bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
+            prev = K2F32_PREV[1].get((m, kdim, n))
+            log(f"lora fp32 M={m:5d} K={kdim:5d} N={n:6d} r={LORA_RANK} x{count:2d} {kind} "
+                f"plan bm={bm} bn={bn} splits={splits} ({ctas} CTAs), W "
+                f"{'in shared memory' if w_smem else 'by the prep pass'}: "
+                f"max_rel={err[1]:.2e} rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} ("
+                f"W by the other route: {other_w_ms:.4f}; "
+                + "".join(f"{list(g)}: {t:.4f}; " for g, t in other_ms.items())
+                + (f"{K2F32_PREV[0]}: {prev:.4f}" if prev is not None else "no earlier time")
+                + f") plain={plain_ms:.4f} addmm+lowrank={lib_ms:.4f} linear={linear_ms:.4f} "
+                f"bound={bound:.4f} ({by}; FMA bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"fp32 LoRA dense kernel disagrees at {row['shape']}")
+            del x, w, b, up, down, y, again, y_ref
     step_sums(rows, "lora fp32 over a CFG UNet step's calls", "addmm+lowrank")
     step_sums(rows, "lora fp32 over a train step's calls", "addmm+lowrank",
               per="train_per_step")
+    # an fp32 DreamBooth step at batch 2 (prior preservation) runs the UNet's
+    # projections at the CFG step's shapes and the text encoder's 48
+    for r in rows:
+        r["dreambooth_per_step"] = r["per_step"] + r["text_per_step"]
+    step_sums(rows, "lora fp32 over an fp32 DreamBooth step's forward calls", "addmm+lowrank",
+              per="dreambooth_per_step")
+    prev = {key: sum(K2F32_PREV[1][tuple(r["shape"][:3])] * r[per] for r in rows
+                     if tuple(r["shape"][:3]) in K2F32_PREV[1])
+            for key, per in (("CFG UNet step", "per_step"), ("train step", "train_per_step"))}
+    log(f"lora fp32, {K2F32_PREV[0]}: {prev['CFG UNet step']:.4f} ms a CFG UNet step, "
+        f"{prev['train step']:.4f} ms a train step")
+    for per in ("per_step", "train_per_step"):
+        route = {smem: sum((r["ms"] if r["w_in_smem"] == smem else r["other_w_route_ms"])
+                           * r[per] for r in rows) for smem in (False, True)}
+        log(f"lora fp32 W routes over a {'CFG UNet' if per == 'per_step' else 'train'} step: "
+            f"prep pass everywhere {route[False]:.4f} ms, shared memory everywhere "
+            f"{route[True]:.4f} ms, by shape {sum(r['ms'] * r[per] for r in rows):.4f} ms")
     return rows
 
 
 def conv3x3_fp32_rows(gen, flush, iters):
-    """K5's fp32 kernel (``conv3x3_f32_kernel``) at every SD1.5 resnet conv
-    shape the routing sends it at 512^2 in fp32, batch 2 and 1, no bias:
-    against the plain version in fp32 within CONV_F32_TOL, a second run
-    equal bit for bit; its time beside the plain version's, cuDNN's in fp32
-    (``F.conv2d``, TF32 off) and both bounds (``bound_f32``)."""
+    """K5's fp32 kernel (``conv3x3_tf32_kernel``, the split product) at every
+    SD1.5 resnet conv shape the routing sends it at 512^2 in fp32, batch 2
+    and 1, no bias, at ``conv3x3.plan_f32``'s grid: against the plain
+    version in fp32 within CONV_F32_TOL, a second run equal bit for bit; its
+    time beside the splits its rule did not pick (1-4, among them the one
+    ``_grid.k_splits`` would), the FMA kernel's (``K5F32_PREV``, log only),
+    the plain version's, cuDNN's in fp32 (``F.conv2d``, TF32 off) and both
+    bounds (``bound_f32``).  The split tap-major weight copy is made before the
+    timings, as the layers' frozen weights have it after their first call."""
     import torch
     import torch.nn.functional as F
 
     from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.ops import _grid
     from diffusion_finetuning_tpu_torch.ops import conv3x3 as cv
 
     dev = torch.device("cuda")
@@ -724,6 +804,10 @@ def conv3x3_fp32_rows(gen, flush, iters):
                                                          itemsize=4).items():
             x = torch.randn((b, c, h, w), generator=gen, device=dev)
             wt = torch.randn((o, c, 3, 3), generator=gen, device=dev) / (3 * c ** 0.5)
+            p = cv.plan_f32(b, c, h, w, o)
+            steps = 9 * -(-cv.f32_channels(c) // cv.C_STEP_F32)
+            k_rule = _grid.k_splits(p.tiles, steps, 4)
+            others = sorted({1, 2, 3, 4, k_rule} - {p.splits})
             with torch.inference_mode():
                 y = cv._conv3x3_cuda(x, wt, None)
                 again = cv._conv3x3_cuda(x, wt, None)
@@ -733,6 +817,9 @@ def conv3x3_fp32_rows(gen, flush, iters):
                 same = torch.equal(y, again)
                 ok = f32_ok([err], CONV_F32_TOL, same, bool(torch.isfinite(y).all()))
                 ms = cuda_time(lambda: cv._conv3x3_cuda(x, wt, None), iters, flush)
+                other_ms = {sp: cuda_time(lambda: cv._conv3x3_cuda(
+                    x, wt, None, grid=cv.plan_f32(b, c, h, w, o, splits=sp)), iters, flush)
+                    for sp in others}
                 plain_ms = cuda_time(lambda: cv.conv3x3_plain(x, wt, None), 3, flush,
                                      hide_host=False)
                 lib_ms = cuda_time(lambda: F.conv2d(x, wt, None, padding=1), iters, flush)
@@ -742,15 +829,27 @@ def conv3x3_fp32_rows(gen, flush, iters):
                        train_per_step=calls if batch == 1 else 0, max_abs_err=err[0],
                        max_rel_err=err[1], rel_l2=err[2], repeat_equal=same, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                       fma_bound_ms=fma)
+                       fma_bound_ms=fma, plan=p._asdict(), ctas=p.tiles * p.splits,
+                       k_splits_rule_ms=other_ms.get(k_rule, ms),
+                       other_plans_ms={f"splits={sp}": t for sp, t in other_ms.items()})
             rows.append(row)
-            log(f"conv3x3 fp32 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d}: "
-                f"max_rel={err[1]:.2e} rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} "
-                f"plain={plain_ms:.3f} cudnn={lib_ms:.4f} bound={bound:.4f} ({by}; FMA bound "
-                f"{fma:.4f}) {'ok' if ok else 'FAIL'}")
+            prev = K5F32_PREV[1].get((b, c, h, w, o))
+            log(f"conv3x3 fp32 B={b} C={c:4d} {h:2d}x{w:2d} O={o:4d} x{calls:2d} plan "
+                f"box={p.box} rows={p.rows} splits={p.splits} ({p.tiles * p.splits} CTAs; "
+                f"k_splits would take {k_rule}): "
+                f"max_rel={err[1]:.2e} rel_l2={err[2]:.2e} repeat equal {same} ms={ms:.4f} ("
+                + "".join(f"splits={sp}: {t:.4f}; " for sp, t in other_ms.items())
+                + (f"{K5F32_PREV[0]}: {prev:.4f}" if prev is not None else "no earlier time")
+                + f") plain={plain_ms:.3f} cudnn={lib_ms:.4f} bound={bound:.4f} ({by}; FMA "
+                f"bound {fma:.4f}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"fp32 conv3x3 kernel disagrees at {row['shape']}")
+            del x, wt, y, again, y_ref
     step_sums(rows, "conv3x3 fp32 over a CFG UNet step's calls", "cudnn")
+    before = sum(K5F32_PREV[1][tuple(r["shape"])] * r["per_step"] for r in rows)
+    k_rule = sum(r["k_splits_rule_ms"] * r["per_step"] for r in rows)
+    log(f"conv3x3 fp32, {K5F32_PREV[0]}: {before:.4f} ms a CFG UNet step; at the splits "
+        f"_grid.k_splits would take: {k_rule:.4f} ms")
     return rows
 
 
@@ -863,7 +962,8 @@ def bound_f32(flops, nbytes):
     """(bound ms, what bounds it, FMA bound ms) of fp32 work: the least
     time of the split product, 3 TF32 products a product on the tensor
     cores, against the bytes; beside it the bound at the fp32 rate outside
-    the tensor cores (the FMA kernels' own ceiling, kept for the log)."""
+    the tensor cores (the ceiling of a kernel on the FMA units, kept for the
+    log)."""
     t_ops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES
     fma = max(flops / PEAK_F32_FLOPS, t_bytes) * 1e3
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes", fma
@@ -1015,7 +1115,8 @@ def conv3x3_rows(gen, flush, iters):
             if not ok:
                 fail(f"conv3x3 kernel disagrees at {row['shape']}")
     log(f"conv3x3 tap-major weight copies of one UNet's routed convs: {w9_bytes} bytes")
-    # fp32 inputs take the FMA kernel: check it once, ragged
+    # fp32 inputs take the split-product kernel at every shape: check it once,
+    # ragged (W = 11, C = 24, O = 70, a bias)
     x = torch.randn((2, 24, 9, 11), generator=gen, device=dev)
     wt = torch.randn((70, 24, 3, 3), generator=gen, device=dev) * 0.1
     bias = torch.randn((70,), generator=gen, device=dev)
@@ -1901,8 +2002,9 @@ def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, re
 
 GRAPH_REPEATS = 10  # timed calls of each graphed path, and of each eager train path
 # timed eager requests of each serving path: one takes 2-4 s, host-bound, and
-# ten of every path would cost 2-3 minutes on a slow host
-EAGER_REQUESTS = 5
+# ten of every path would cost 2-3 minutes on a slow host (the whole script
+# took 956 s of its 1200 on one, with 5)
+EAGER_REQUESTS = 3
 TRAIN_SPDS = (1, 4)
 
 
@@ -2874,6 +2976,32 @@ def fp32_step_launches():
                        lora_dense_fp32=LORA_PER_STEP + TEXT_LORA_PER_ENCODE)
 
 
+def fp32_step_scratch():
+    """Bytes of the split copies the fp32 kernels allocate in one fp32
+    DreamBooth step (batch 2: the UNet at the CFG step's shapes, the text
+    encoder's 48 projections, K1's 32 forwards and K3's 32 backwards at BH
+    16): the largest single call's and all calls' together, by kernel."""
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+
+    calls = []
+    for m, k, n, count in LORA_SHAPES + [TEXT_LORA_ROW]:
+        bm = lm.plan_f32(m, n, k)[0]
+        calls.append(("lora_dense_fp32", (m, k, n), count, 4 * lm.f32_scratch_floats(
+            m, n, k, LORA_RANK, lm.f32_w_in_smem(m, k, bm))))
+    for sq, skv, d, count in FLASH_SHAPES:
+        calls.append(("flash_attention_fwd_fp32", (sq, skv, d), count,
+                      4 * fa.f32_fwd_scratch(FLASH_BH, sq, skv, d)))
+        calls.append(("flash_attention_bwd_fp32", (sq, skv, d), count,
+                      4 * fa.f32_bwd_scratch(FLASH_BH, sq, skv, d)))
+    name, shape, _, largest = max(calls, key=lambda c: c[3])
+    by_kernel = {}
+    for kernel, _, count, nbytes in calls:
+        by_kernel[kernel] = by_kernel.get(kernel, 0) + count * nbytes
+    return {"largest_bytes": largest, "largest": f"{name} {shape}",
+            "total_bytes": sum(by_kernel.values()), "by_kernel": by_kernel}
+
+
 def step_twin(step_fn, state, batch, label, per_step):
     """One graphed step of ``step_fn`` (``jit_train_step``: a capture, then
     its replay) against its eager twin from the same state and a generator
@@ -2978,7 +3106,16 @@ def phase_dreambooth_fp32(model_dir, tmp):
         db.FusedDispatcher = real
     want = captured(per_step, TRAINER_SPD)
     row = {"wall_s": wall, "step_launches": per_step,
-           "train": check_phase_log(state["log"]["dispatch"], "DreamBooth fp32", want)}
+           "train": check_phase_log(state["log"]["dispatch"], "DreamBooth fp32", want),
+           "split_scratch": fp32_step_scratch()}
+    peak = row["train"]["peak_bytes"]
+    sc = row["split_scratch"]
+    log(f"DreamBooth fp32: peak memory {'n/a' if peak is None else f'{peak / 2**30:.2f}'} GiB "
+        f"beside the fp32 kernels' split scratch of one step: largest call "
+        f"{sc['largest_bytes'] / 2**20:.1f} MiB ({sc['largest']}), all calls "
+        f"{sc['total_bytes'] / 2**30:.2f} GiB (" + ", ".join(
+            f"{name} {n / 2**30:.2f}" for name, n in sc["by_kernel"].items())
+        + "), each call's freed when it returns")
     if got != want:
         fail(f"the fp32 DreamBooth run launched {got}, want {want}")
     if state["step"] != DB_STEPS:

@@ -52,9 +52,33 @@
 // conv3x3_bf16_kernel (the first design: mma.sync, pixels gathered by
 // predicated element loads from NCHW, the OIHW weight read as it lies) takes
 // the bf16 shapes whose rows TMA cannot stride: W not a multiple of 8, or
-// above 128 -- chosen by shape, never after a failure.  fp32 inputs take a
-// plain FMA kernel (conv3x3_f32_kernel) with the same math.
-#include "wgmma.cuh"
+// above 128 -- chosen by shape, never after a failure.
+//
+// fp32 inputs (conv3x3_tf32_kernel, every shape) take the same roles on the
+// split product of csrc/split_f32.cuh (big + small TF32 halves, three
+// tensor-core products a product).  tf32 wgmma has no transpose bit, so
+// both operands are K-major:
+//   * a prep pass writes x as NHWC [big; small] (split_nhwc, channels
+//     zero-padded to cp, a multiple of 8), read through a 4-D map over (cp,
+//     W, H, 2B): a box of 32 channels x box pixels x 128/box image rows lands
+//     as a K-major (128 pixels x 32 k) tile.  Channels are innermost, so
+//     both tap shifts are box start coordinates (W + dx, H + dy) and TMA
+//     zero-fills the halo and the columns past W: no column phases and no
+//     accumulator shuffles, and any W (box 8, 16, 32, 64 or 128 pixels, a
+//     row over several tiles past 128);
+//   * the weight comes from a split tap-major copy (2, 9, O, cp), cached per
+//     weight as the bf16 copy is (ops/conv3x3.py:tap_major_split);
+//   * a stage is one tap and 32 channels (48 KB with both halves, 4
+//     stages); each stage's products go into a fresh accumulator that FADD
+//     adds to the running sum (the tensor cores' sums are not rounded to
+//     nearest);
+//   * the k-loop (9 taps x ceil(cp / 32)) splits into the runs that best
+//     fill whole waves (ops/conv3x3.py:plan_f32: 2 or 3 at SD1.5's convs,
+//     measured), the last CTA summing in split order; the epilogue adds the
+//     bias and stores fp32 pairs along the pixel runs.
+// Bound: the SD1.5 UNet's 17 fp32-routed convs of a CFG step at 512^2 carry
+// 271.8 GFLOP, 1.65 ms on the split product.
+#include "split_f32.cuh"
 
 namespace {
 
@@ -187,68 +211,6 @@ __global__ void __launch_bounds__(kThreads)
           yb[(size_t)n * HW] = __float2bfloat16(acc[mt][nt][2 * half + j] + bv);
         }
       }
-    }
-  }
-}
-
-// fp32 inputs: the same implicit GEMM with plain FMA, 64x64 tiles, 4x4
-// outputs per thread.
-constexpr int kFM = 64, kFN = 64, kFK = 16, kFThreads = 256;
-
-__global__ void __launch_bounds__(kFThreads)
-    conv3x3_f32_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                       const float* __restrict__ bias, float* __restrict__ y, int B, int C, int H,
-                       int W, int O) {
-  __shared__ float Xs[kFK][kFM + 1];
-  __shared__ float Ws[kFK][kFN + 1];
-  const int HW = H * W, M = B * HW, K = 9 * C;
-  const int m0 = blockIdx.x * kFM, n0 = blockIdx.y * kFN, tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += kFK) {
-    __syncthreads();
-    for (int i = tid; i < kFK * kFM; i += kFThreads) {
-      const int row = i % kFM, kk = i / kFM;  // neighbouring threads, neighbouring pixels
-      const int m = m0 + row, k = k0 + kk;
-      float a = 0.f;
-      if (m < M && k < K) {
-        const int b = m / HW, rem = m % HW, c = k / 9, tap = k % 9;
-        const int hh = rem / W + tap / 3 - 1, ww = rem % W + tap % 3 - 1;
-        if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-          a = x[((size_t)b * C + c) * HW + hh * W + ww];
-      }
-      Xs[kk][row] = a;
-    }
-    for (int i = tid; i < kFK * kFN; i += kFThreads) {
-      const int row = i / kFK, kk = i % kFK;
-      Ws[kk][row] = (n0 + row < O && k0 + kk < K) ? wt[(size_t)(n0 + row) * K + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kFK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = Xs[kk][ty * 4 + i];
-        b[i] = Ws[kk][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-    const int b = m / HW, rem = m % HW;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n >= O) continue;
-      y[((size_t)b * O + n) * HW + rem] = acc[i][j] + (bias != nullptr ? bias[n] : 0.f);
     }
   }
 }
@@ -488,38 +450,225 @@ cudaError_t launch_wgmma(const void* x, const void* w9, const void* bias, void* 
   return cudaGetLastError();
 }
 
+// --- fp32 inputs: the split product (csrc/split_f32.cuh) on tf32 wgmma ---
+
+constexpr int kFC = 32;  // channels a k-step: 32 fp32 values, one 128-byte slab
+
+// 64 output channels by kGBN pixels a CTA, as the bf16 tile
+struct ConvTileF32 {
+  static constexpr int BM = 64;
+  static constexpr int NC = 128;           // consumer threads: one warpgroup
+  static constexpr int THREADS = NC + 32;  // and one producer warp
+  static constexpr int AH = BM * kFC, BH = kGBN * kFC;  // floats of one half
+  static constexpr int STAGE = 2 * (AH + BH);           // [big; small] of both
+  static constexpr int PART = NC * (kGBN / 2);          // floats of a split's partial
+  static constexpr size_t smem() {
+    return 1024 + 4 * (size_t)kGStages * STAGE + 8 * 2 * kGStages + 16;
+  }
+};
+
+// One (image, rows x box pixels, 64 output channels, k split) tile: pixels
+// (h0 + v / box, w0 + v % box) of the tile's kGBN, v = the accumulator's
+// column.  The k-loop runs over the 9 taps, then the 32-channel blocks: the
+// weight slab of (tap, channels) from the split tap-major copy, and the
+// pixel box of NHWC x at (channels, w0 + dx, h0 + dy) -- the tap's shift is
+// the box's start, and TMA zero-fills the halo and the columns past W.
+__global__ void __launch_bounds__(ConvTileF32::THREADS)
+    conv3x3_tf32_kernel(const __grid_constant__ CUtensorMap amap,
+                        const __grid_constant__ CUtensorMap xmap, const float* __restrict__ bias,
+                        float* __restrict__ y, float* __restrict__ part,
+                        int* __restrict__ counters, int B, int cp, int H, int W, int O,
+                        int log_box, int row_tiles, int col_tiles, int splits) {
+  using T = ConvTileF32;
+  extern __shared__ __align__(128) unsigned char gemm_smem[];
+  float* ring = reinterpret_cast<float*>(  // 1024-byte aligned stages
+      (reinterpret_cast<uintptr_t>(gemm_smem) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kGStages * T::STAGE);
+  uint64_t* empty = full + kGStages;
+  int* flag = reinterpret_cast<int*>(empty + kGStages);
+
+  const int box = 1 << log_box, rows = kGBN >> log_box;
+  const int per_image = row_tiles * col_tiles;
+  const int b = blockIdx.x / per_image, rem = blockIdx.x % per_image;
+  const int h0 = (rem / col_tiles) * rows, w0 = (rem % col_tiles) * box;
+  const int o0 = blockIdx.y * T::BM, split = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int cb = (cp + kFC - 1) / kFC, nk = 9 * cb;
+  const int k0 = (int)((long long)split * nk / splits);
+  const int k1 = (int)((long long)(split + 1) * nk / splits);
+
+  if (tid == 0) {
+    for (int i = 0; i < kGStages; ++i) {
+      dft::mbar_init(&full[i], 1);
+      dft::mbar_init(&empty[i], T::NC);
+    }
+    dft::mbar_init_fence();
+  }
+  __syncthreads();
+
+  float acc[kGBN / 2];
+#pragma unroll
+  for (int i = 0; i < kGBN / 2; ++i) acc[i] = 0.f;
+
+  if (tid >= T::NC) {  // the producer warp: one thread starts every copy
+    if (tid == T::NC) {
+      for (int ks = k0; ks < k1; ++ks) {
+        const int i = ks - k0, s = i % kGStages;
+        const int tap = ks / cb, c0 = (ks % cb) * kFC;
+        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+        if (i >= kGStages) dft::mbar_wait(&empty[s], (i / kGStages - 1) & 1);
+        float* st = ring + s * T::STAGE;
+        dft::mbar_expect_tx(&full[s], T::STAGE * 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // the big halves, then the small ones
+          dft::tma_load_slab(st + h * T::AH, &amap, c0, o0, h * 9 + tap, &full[s]);
+          dft::tma_load_4d(st + 2 * T::AH + h * T::BH, &xmap, c0, w0 + dx, h0 + dy, h * B + b,
+                           &full[s]);
+        }
+      }
+    }
+  } else {
+    float sacc[kGBN / 2];  // one stage's products: fresh, then added by FADD
+    for (int ks = k0; ks < k1; ++ks) {
+      const int i = ks - k0, s = i % kGStages;
+      dft::mbar_wait(&full[s], (i / kGStages) & 1);
+      const float* st = ring + s * T::STAGE;
+      const float *ab = st, *as = st + T::AH, *xb = st + 2 * T::AH, *xs = xb + T::BH;
+      dft::fence_operands(sacc);
+      dft::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kFC / 8; ++kc) {
+        const uint64_t wb = dft::desc_f32<64, 128>(ab, kc);
+        dft::wgmma_tf32_ss(sacc, dft::desc_f32<64, 128>(as, kc),
+                           dft::desc_f32<kGBN, 128>(xb, kc), kc > 0);
+        dft::wgmma_tf32_ss(sacc, wb, dft::desc_f32<kGBN, 128>(xs, kc), 1);
+        dft::wgmma_tf32_ss(sacc, wb, dft::desc_f32<kGBN, 128>(xb, kc), 1);
+      }
+      dft::wgmma_commit();
+      dft::wgmma_wait<0>();
+      dft::fence_operands(sacc);
+      dft::mbar_arrive(&empty[s]);
+#pragma unroll
+      for (int j = 0; j < kGBN / 2; ++j) acc[j] += sacc[j];
+    }
+  }
+
+  if (splits > 1) {
+    const size_t tile = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+    const size_t split_stride = (size_t)gridDim.y * gridDim.x * T::PART;
+    if (tid < T::NC)
+      dft::part_store(part + split * split_stride + tile * T::PART, acc, tid, T::NC);
+    if (!dft::last_to_arrive(counters + tile, splits, flag)) return;
+    if (tid < T::NC) {
+#pragma unroll
+      for (int i = 0; i < kGBN / 2; ++i) acc[i] = 0.f;
+      const float* p = part + tile * T::PART;
+      for (int sp = 0; sp < splits; ++sp, p += split_stride) dft::part_add(acc, p, tid, T::NC);
+    }
+  }
+  if (tid >= T::NC) return;
+
+  // accumulator rows: output channels 16*warp + g (+8); columns 8i + 2t
+  // (+1): two neighbouring pixels of one box row (box is even)
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int oa = o0 + warp * 16 + g, ob = oa + 8;
+  const float ba = bias != nullptr && oa < O ? bias[oa] : 0.f;
+  const float bb = bias != nullptr && ob < O ? bias[ob] : 0.f;
+  const bool pairs = (W & 1) == 0;  // fp32 pairs 8-byte aligned
+#pragma unroll
+  for (int i = 0; i < kGBN / 8; ++i) {
+    const int v = 8 * i + 2 * t, h = h0 + (v >> log_box), w = w0 + (v & (box - 1));
+    if (h >= H || w >= W) continue;
+    const bool two = w + 1 < W;
+    const size_t pix = (size_t)h * W + w;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int o = half ? ob : oa;
+      if (o >= O) continue;
+      const float bv = half ? bb : ba;
+      const float v0 = acc[4 * i + 2 * half] + bv, v1 = acc[4 * i + 2 * half + 1] + bv;
+      float* dst = y + ((size_t)b * O + o) * H * W + pix;
+      if (two && pairs) {
+        *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+      } else {
+        dst[0] = v0;
+        if (two) dst[1] = v1;
+      }
+    }
+  }
+}
+
 }  // namespace
 
-// x (B, C, H, W), wt (O, C, 3, 3), bias (O) or NULL, y (B, O, H, W); all
-// contiguous, and C a multiple of 8 for bf16 (16-byte weight rows).
-// dtype: 0 = fp32 (FMA kernel), 1 = bf16 (the element-load route, for the
-// shapes dft_conv3x3_wgmma does not take).  Returns the launch's cudaError_t
-// (0 = launched).
+// bf16 x (B, C, H, W), wt (O, C, 3, 3), bias (O) or NULL, y (B, O, H, W);
+// all contiguous, C a multiple of 8 (16-byte weight rows): the element-load
+// route, for the shapes dft_conv3x3_wgmma does not take.  Returns the
+// launch's cudaError_t (0 = launched).
 extern "C" int dft_conv3x3(const void* x, const void* wt, const void* bias, void* y, int B, int C,
-                           int H, int W, int O, int dtype, void* stream) {
+                           int H, int W, int O, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long M = (long long)B * H * W;
-  if (B < 1 || C < 1 || H < 1 || W < 1 || O < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 1) {
-    if (C % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = bf16_smem_bytes();
+  if (B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || C % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bf16_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_bf16_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (O + kBN - 1) / kBN);
+  conv3x3_bf16_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
+      static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), B, C, H, W, O);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// fp32 x (B, C, H, W), any shape; w9s (2, 9, O, cp) the split tap-major
+// weight, [big; small] of w9[kh*3+kw, o, c] = wt[o, c, kh, kw], channels
+// zero-padded to cp = C rounded up to 8 (ops/conv3x3.py:tap_major_split);
+// bias (O) or NULL; y (B, O, H, W); all contiguous.  box in {8, 16, 32, 64,
+// 128} pixels of an image row a TMA box reads (W <= box, or box = 128 and a
+// row spans ceil(W / 128) tiles), 128 / box rows a tile; splits CTAs along
+// K (1 .. 9 * ceil(cp / 32)).  work: fp32 scratch of work_floats >= 2 * B *
+// H * W * cp floats for x's split NHWC copy.  With splits > 1, part is fp32
+// scratch of splits * tiles * 64 * 128 floats and counters `tiles` ints
+// (tiles = B * ceil(H / rows) * ceil(W / box) * ceil(O / 64),
+// ops/conv3x3.py:plan_f32), zero on entry and left zero on exit.  Returns the
+// launches' cudaError_t (0 = launched).
+extern "C" int dft_conv3x3_f32(const void* x, const void* w9s, const void* bias, void* y,
+                               void* work, long long work_floats, void* part, void* counters,
+                               int B, int C, int H, int W, int O, int box, int splits,
+                               void* stream) {
+  using T = ConvTileF32;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int cp = (C + 7) / 8 * 8, nk = 9 * ((cp + kFC - 1) / kFC);
+  int log_box = 3;
+  while (log_box < 7 && (1 << log_box) < box) ++log_box;
+  if (B < 1 || C < 1 || H < 1 || W < 1 || O < 1 || box != (1 << log_box) ||
+      (W > box && box != 128) || splits < 1 || splits > nk || work == nullptr ||
+      work_floats < 2LL * B * H * W * cp ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        conv3x3_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem());
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((unsigned)((M + kBM - 1) / kBM), (O + kBN - 1) / kBN);
-    conv3x3_bf16_kernel<<<grid, kThreads, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
-        static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), B, C, H, W, O);
-    return static_cast<int>(cudaGetLastError());
+    configured = true;
   }
-  if (dtype == 0) {
-    const dim3 grid((unsigned)((M + kFM - 1) / kFM), (O + kFN - 1) / kFN);
-    conv3x3_f32_kernel<<<grid, kFThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt),
-        static_cast<const float*>(bias), static_cast<float*>(y), B, C, H, W, O);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  float* xs = static_cast<float*>(work);  // (2, B, H, W, cp)
+  cudaError_t err = dft::split_nhwc(static_cast<const float*>(x), xs, B, C, H * W, cp, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int rows = kGBN / box, row_tiles = (H + rows - 1) / rows, col_tiles = (W + box - 1) / box;
+  CUtensorMap am{}, xm{};
+  if (!(dft::make_tile_map_f32(&am, static_cast<const float*>(w9s), 18, O, cp, T::BM, 128) &&
+        dft::make_nhwc_map_f32(&xm, xs, 2 * B, H, W, cp, box, rows)))
+    return static_cast<int>(cudaErrorNotSupported);
+  const dim3 grid(B * row_tiles * col_tiles, (O + T::BM - 1) / T::BM, splits);
+  conv3x3_tf32_kernel<<<grid, T::THREADS, T::smem(), st>>>(
+      am, xm, static_cast<const float*>(bias), static_cast<float*>(y),
+      static_cast<float*>(part), static_cast<int*>(counters), B, cp, H, W, O, log_box,
+      row_tiles, col_tiles, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The Hopper design: bf16 x (B, C, H, W) with W a multiple of 8 and at most

@@ -18,15 +18,28 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def k_splits(tiles: int, k_steps: int, min_steps: int, min_tiles: int = SMS) -> int:
+def k_splits(tiles: int, k_steps: int, min_steps: int, min_tiles: int = SMS,
+             target: int = SMS) -> int:
     """CTAs along K for a grid of ``tiles`` output tiles whose k-loop has
     ``k_steps`` steps: 1 where the grid has ``min_tiles`` tiles; else the
-    fewest splits that give one wave, as far as every split keeps
-    ``min_steps`` steps.  Splits cut the loop into contiguous runs of whole
-    steps (split s: steps [s*n // splits, (s+1)*n // splits))."""
+    fewest splits that give ``target`` CTAs (one wave), as far as every
+    split keeps ``min_steps`` steps.  Splits cut the loop into contiguous
+    runs of whole steps (split s: steps [s*n // splits, (s+1)*n // splits))."""
     if tiles >= min_tiles:
         return 1
-    return max(1, min(cdiv(SMS, tiles), k_steps // min_steps))
+    return max(1, min(cdiv(target, tiles), k_steps // min_steps))
+
+
+def wave_splits(tiles: int, k_steps: int, min_steps: int, max_splits: int) -> int:
+    """CTAs along K that best fill whole waves: 1 where the grid has three
+    waves (the last wave's loss is small there, a split's partials are
+    not); else the fewest splits s (at most ``max_splits``, every split
+    keeping ``min_steps`` steps) that minimise ceil(tiles * s / SMS) / s,
+    the waves a unit of the work takes."""
+    if tiles >= 3 * SMS:
+        return 1
+    top = max(1, min(max_splits, k_steps // min_steps))
+    return min(range(1, top + 1), key=lambda s: (cdiv(tiles * s, SMS) / s, s))
 
 
 def split_steps(k_steps: int, splits: int):

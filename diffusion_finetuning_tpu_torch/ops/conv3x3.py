@@ -8,8 +8,12 @@ VJP whose backward is XLA's conv gradient, :155-169; routing ``supported``
 GEMM (output channels x pixels x 9 taps * C) that reads the NCHW input where
 it lies, by TMA, with no padded, channels-last or 9-tap copy of it; its
 weight comes from a tap-major copy (:func:`tap_major`), made once per
-weight and cached.  :func:`plan` sizes its grid.  Its design and bound are
-noted there.
+weight and cached.  :func:`plan` sizes its grid.  fp32 inputs take the same
+file's ``conv3x3_tf32_kernel`` (the split, 3xTF32, product on the tensor
+cores) at every shape: x through a split NHWC copy made each call, the
+weight through a split tap-major copy cached beside the bf16 one
+(:func:`tap_major_split`), the grid from :func:`plan_f32`.  The designs and
+bounds are noted there.
 
 Layouts are PyTorch's, as in the port's modules: x (B, C, H, W), weight
 (O, C, 3, 3), bias (O,) or None, y (B, O, H, W).  The JAX function takes
@@ -36,11 +40,12 @@ from . import _build, _grid
 launches = 0
 fp32_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BN = 128  # the TPU kernel's output-channel block, read by the routing rule
 PIXELS = 128  # pixels a CTA of the Hopper kernel (whole image rows)
 CHANNELS = 64  # output channels a CTA (one consumer warpgroup)
 C_STEP = 64  # channels a k-step
+C_STEP_F32 = 32  # channels a k-step of the fp32 kernel (32 fp32 values, 128 bytes)
+F32_BOXES = (8, 16, 32, 64, 128)  # pixels of an image row a box of the fp32 kernel reads
 
 
 class Plan(NamedTuple):
@@ -72,6 +77,56 @@ def plan(B: int, C: int, H: int, W: int, O: int,
     tiles = B * _grid.cdiv(H, rows) * _grid.cdiv(O, CHANNELS)
     splits = splits or _grid.k_splits(tiles, 9 * _grid.cdiv(C, C_STEP), 4)
     return Plan(sw=2 * p, rows=rows, splits=splits, tiles=tiles)
+
+
+class PlanF32(NamedTuple):
+    """Grid of the fp32 kernel for one conv: ``box`` pixels of an image row
+    a TMA box reads, ``rows`` (= PIXELS // box) image rows a tile,
+    ``col_tiles`` tiles along a row (1 unless W > 128), ``splits`` CTAs
+    along the 9 * ceil(cp / 32) k-loop, ``tiles`` the output tiles (B *
+    ceil(H / rows) * col_tiles * ceil(O / CHANNELS))."""
+    box: int
+    rows: int
+    col_tiles: int
+    splits: int
+    tiles: int
+
+
+def f32_channels(C: int) -> int:
+    """Channels of the fp32 kernel's split copies: C rounded up to 8."""
+    return _grid.cdiv(C, 8) * 8
+
+
+def plan_f32(B: int, C: int, H: int, W: int, O: int,
+             splits: Optional[int] = None) -> PlanF32:
+    """The fp32 kernel's grid, for every shape: a tile is 64 output channels
+    by 128 pixels, ``rows`` image rows of the narrowest box of
+    :data:`F32_BOXES` that holds W (box 128 and a row over several tiles past
+    128 pixels; pixels past W are zero-filled and not stored); the 9 *
+    ceil(cp / 32) k-steps split into the runs (at most 3, of at least 4
+    steps) that best fill whole waves (``_grid.wave_splits``: measured on
+    the card, 160 tiles run fastest in 3 splits, 320 in 2, 40 and 80 in 3).
+    ``splits`` overrides the rule's choice (tests, timings)."""
+    box = next((p for p in F32_BOXES if W <= p), F32_BOXES[-1])
+    rows = PIXELS // box
+    col_tiles = _grid.cdiv(W, box)
+    tiles = B * _grid.cdiv(H, rows) * col_tiles * _grid.cdiv(O, CHANNELS)
+    steps = 9 * _grid.cdiv(f32_channels(C), C_STEP_F32)
+    splits = splits or _grid.wave_splits(tiles, steps, 4, 3)
+    return PlanF32(box=box, rows=rows, col_tiles=col_tiles, splits=splits, tiles=tiles)
+
+
+def f32_scratch_floats(B: int, C: int, H: int, W: int) -> int:
+    """fp32 scratch of one fp32 call's split NHWC copy of x: [big; small],
+    each (B, H, W, cp)."""
+    return 2 * B * H * W * f32_channels(C)
+
+
+def part_floats(p) -> int:
+    """fp32 scratch of a split call's partials (a :class:`Plan` or a
+    :class:`PlanF32`): each split of each output tile stores its 64 x 128
+    accumulator."""
+    return p.splits * p.tiles * CHANNELS * PIXELS
 
 
 def _row_block(H, W, C, itemsize=2):
@@ -166,8 +221,51 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.reshape(B, H, W, -1).permute(0, 3, 1, 2).to(dt).contiguous()
 
 
-_TAP_MAJOR = {}  # (id(weight), dtype) -> (weakref to the weight, its _version, w9)
+_TAP_MAJOR = {}  # (id(weight), kind) -> (weakref to the weight, its _version, copy)
 tap_major_copies = 0  # misses of the cache: tap-major copies made so far
+SPLIT = "tf32_split"  # the cache kind of the fp32 kernel's split copy
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to tf32 as the kernels' cvt.rna does: to nearest, ties
+    away from zero, the low 13 mantissa bits cleared."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _reordered(weight: torch.Tensor, kind) -> torch.Tensor:
+    """The copy of ``weight`` a cache ``kind`` holds: a dtype's tap-major
+    (9, O, C), or :data:`SPLIT`'s [big; small] (2, 9, O, cp) in fp32."""
+    o, c = weight.shape[:2]
+    if kind != SPLIT:
+        return weight.detach().to(kind).permute(2, 3, 0, 1).reshape(9, o, c)
+    w9 = weight.detach().float().permute(2, 3, 0, 1).reshape(9, o, c)
+    w9 = F.pad(w9, (0, f32_channels(c) - c))
+    big = _tf32(w9)
+    return torch.stack((big, _tf32(w9 - big)))
+
+
+def _cached(weight: torch.Tensor, kind) -> torch.Tensor:
+    """``_reordered(weight, kind)``, made once per weight and version."""
+
+    def reorder():
+        global tap_major_copies
+        tap_major_copies += 1
+        return _reordered(weight, kind).contiguous()
+
+    if weight.is_inference():
+        return reorder()
+    key = (id(weight), kind)
+    hit = _TAP_MAJOR.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
+        return hit[2]
+    if weight.is_cuda and torch.cuda.is_current_stream_capturing():
+        # the copy would be recorded, not made, yet cached for eager calls
+        raise RuntimeError("a tap-major weight copy was asked for while a CUDA graph is "
+                           "being captured: warm up on the capture stream first")
+    copy = reorder()
+    _TAP_MAJOR[key] = (weakref.ref(weight, lambda _, k=key: _TAP_MAJOR.pop(k, None)),
+                       weight._version, copy)
+    return copy
 
 
 def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -186,28 +284,17 @@ def tap_major(weight: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torc
     a CUDA graph such a reorder is one copy each replay.  A cache miss of
     another weight while a graph is being captured raises (a warm-up fills
     the cache first).  :data:`tap_major_copies` counts the copies made."""
-    dtype = dtype or weight.dtype
-    o, c = weight.shape[:2]
+    return _cached(weight, dtype or weight.dtype)
 
-    def reorder():
-        global tap_major_copies
-        tap_major_copies += 1
-        return weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, o, c).contiguous()
 
-    if weight.is_inference():
-        return reorder()
-    key = (id(weight), dtype)
-    hit = _TAP_MAJOR.get(key)
-    if hit is not None and hit[0]() is weight and hit[1] == weight._version:
-        return hit[2]
-    if weight.is_cuda and torch.cuda.is_current_stream_capturing():
-        # the copy would be recorded, not made, yet cached for eager calls
-        raise RuntimeError("a tap-major weight copy was asked for while a CUDA graph is "
-                           "being captured: warm up on the capture stream first")
-    w9 = reorder()
-    _TAP_MAJOR[key] = (weakref.ref(weight, lambda _, k=key: _TAP_MAJOR.pop(k, None)),
-                       weight._version, w9)
-    return w9
+def tap_major_split(weight: torch.Tensor) -> torch.Tensor:
+    """The fp32 kernel's weight operand: :func:`tap_major`'s (9, O, C) in
+    fp32, channels zero-padded to cp (:func:`f32_channels`), as [big; small]
+    tf32 halves (2, 9, O, cp) -- big = tf32(w), small = tf32(w - big), as
+    ``csrc/split_f32.cuh`` splits.  Cached beside the tap-major copies, under
+    a key of its own, by the same rules (:func:`refresh_tap_major` rewrites
+    it in place; a miss during a capture raises)."""
+    return _cached(weight, SPLIT)
 
 
 def refresh_tap_major(weight: torch.Tensor) -> None:
@@ -215,9 +302,8 @@ def refresh_tap_major(weight: torch.Tensor) -> None:
     copies in place (the same tensors, which a CUDA graph may read) and mark
     them current; a weight with no cached copy is left alone."""
     global tap_major_copies
-    o, c = weight.shape[:2]
-    for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        key = (id(weight), dtype)
+    for kind in (torch.bfloat16, torch.float16, torch.float32, SPLIT):
+        key = (id(weight), kind)
         hit = _TAP_MAJOR.get(key)
         if hit is None or hit[0]() is not weight:
             continue
@@ -225,7 +311,7 @@ def refresh_tap_major(weight: torch.Tensor) -> None:
         # a copy made inside a request's inference mode is an inference
         # tensor, written in place only there
         with torch.inference_mode(hit[2].is_inference()):
-            hit[2].copy_(weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, o, c))
+            hit[2].copy_(_reordered(weight, kind))
         _TAP_MAJOR[key] = (hit[0], weight._version, hit[2])
 
 
@@ -243,12 +329,13 @@ def _kernel(symbol: str, argtypes):
     return fn
 
 
-def _conv3x3_cuda(x, weight, bias, grid: Optional[Plan] = None):
-    """The kernel on NCHW x: the Hopper design where :func:`plan` takes the
-    bf16 shape (``grid`` overrides its plan), else the element-load kernel
-    (bf16) or the FMA kernel (fp32)."""
+def _conv3x3_cuda(x, weight, bias, grid=None):
+    """The kernel on NCHW x: bf16 through the Hopper design where
+    :func:`plan` takes the shape, else the element-load kernel; fp32 through
+    the split-product kernel at every shape.  ``grid`` overrides the plan
+    (a :class:`Plan` for bf16, a :class:`PlanF32` for fp32)."""
     global launches, fp32_launches
-    if x.dtype not in _DTYPES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 kernel takes fp32 or bf16, got {x.dtype}")
     if any(t.device != x.device for t in (weight,) + ((bias,) if bias is not None else ())):
         raise ValueError("conv3x3 operands must be on one device")
@@ -263,34 +350,41 @@ def _conv3x3_cuda(x, weight, bias, grid: Optional[Plan] = None):
     if x.dtype == torch.bfloat16 and C % 8:
         raise ValueError(f"bf16 conv3x3 kernel needs C % 8 == 0, got C={C}")
     dt = x.dtype
+    fp32 = dt == torch.float32
     x = x.contiguous()
     bias = None if bias is None else bias.to(dt).contiguous()
     y = torch.empty((B, O, H, W), dtype=dt, device=x.device)
-    p = (grid or plan(B, C, H, W, O)) if dt == torch.bfloat16 else None
+    p = grid or (plan_f32 if fp32 else plan)(B, C, H, W, O)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         bias_ptr = None if bias is None else bias.data_ptr()
         if p is None:
-            fn = _kernel("dft_conv3x3", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+            fn = _kernel("dft_conv3x3", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                          + [ctypes.c_void_p])
             wt = weight.to(dt).contiguous()
-            rc = fn(x.data_ptr(), wt.data_ptr(), bias_ptr, y.data_ptr(), B, C, H, W, O,
-                    _DTYPES[dt], stream)
+            rc = fn(x.data_ptr(), wt.data_ptr(), bias_ptr, y.data_ptr(), B, C, H, W, O, stream)
         else:
-            fn = _kernel("dft_conv3x3_wgmma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                         + [ctypes.c_void_p])
-            w9 = tap_major(weight, dt)
+            w9 = tap_major_split(weight) if fp32 else tap_major(weight, dt)
             part = counters = None
             if p.splits > 1:  # fp32 partials, summed by the last CTA of each tile
-                part = torch.empty(p.splits * p.tiles * CHANNELS * PIXELS, dtype=torch.float32,
-                                   device=x.device)
+                part = torch.empty(part_floats(p), dtype=torch.float32, device=x.device)
                 counters = _grid.arrival_counters(x.device, stream, p.tiles)
-            rc = fn(x.data_ptr(), w9.data_ptr(), bias_ptr, y.data_ptr(),
-                    None if part is None else part.data_ptr(),
-                    None if counters is None else counters.data_ptr(), B, C, H, W, O,
-                    p.sw, p.splits, stream)
+            part_ptrs = [None if part is None else part.data_ptr(),
+                         None if counters is None else counters.data_ptr()]
+            if fp32:
+                fn = _kernel("dft_conv3x3_f32", [ctypes.c_void_p] * 5 + [ctypes.c_longlong]
+                             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                work = torch.empty(f32_scratch_floats(B, C, H, W), dtype=torch.float32,
+                                   device=x.device)
+                rc = fn(x.data_ptr(), w9.data_ptr(), bias_ptr, y.data_ptr(), work.data_ptr(),
+                        work.numel(), *part_ptrs, B, C, H, W, O, p.box, p.splits, stream)
+            else:
+                fn = _kernel("dft_conv3x3_wgmma", [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                             + [ctypes.c_void_p])
+                rc = fn(x.data_ptr(), w9.data_ptr(), bias_ptr, y.data_ptr(), *part_ptrs,
+                        B, C, H, W, O, p.sw, p.splits, stream)
     _build.check(rc, "conv3x3")
-    if dt == torch.float32:
+    if fp32:
         fp32_launches += 1
     else:
         launches += 1

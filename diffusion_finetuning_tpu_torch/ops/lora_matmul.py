@@ -7,6 +7,10 @@ public ``lora_dense`` :137).  The CUDA kernel is ``csrc/lora_matmul.cu``
 (``sm_90a``); its design and its bound on the card are noted there.  Its
 grid comes from :func:`plan`: the rows and columns of y a CTA computes and
 the CTAs that split the k-loop where the grid alone cannot fill the card.
+fp32 operands take the same file's ``lora_dense_tf32_kernel``, the split
+(3xTF32) product on the tensor cores, with its grid from :func:`plan_f32`,
+split copies of x and down made each call in scratch, and W split either
+the same way or in shared memory (:func:`f32_w_in_smem`).
 
 Layouts: ``weight`` is ``nn.Linear``'s (N, K) (the JAX ``kernel`` is its
 transpose), ``up`` (N, r) and ``down`` (r, K) are the on-disk LoRA layout
@@ -35,9 +39,9 @@ from . import _build, _grid
 launches = 0
 fp32_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 16  # the rank is zero-padded to one mma k-depth in the kernel
 K_STEP = 64  # k a stage of the bf16 kernel
+K_STEP_F32 = 32  # k a stage of the fp32 kernel: 32 fp32 values, one 128-byte slab
 TILES = ((128, 128), (64, 128), (64, 64))  # (rows, columns) of y a CTA, largest first
 
 
@@ -54,6 +58,49 @@ def plan(m: int, n: int, k: int):
         if tiles >= _grid.SMS:
             return bm, bn, 1
     return bm, bn, _grid.k_splits(tiles, _grid.cdiv(k, K_STEP), 8, _grid.SMS // 2)
+
+
+def plan_f32(m: int, n: int, k: int):
+    """(bm, bn, splits) of the fp32 kernel: the largest tile (of
+    :data:`TILES`, no taller than m rounded up to 64) whose grid fills half a
+    wave, else 64 x 64 with the k-loop (32-deep steps) split into the fewest
+    runs of at least 4 steps that fill half a wave.  Measured on the card at
+    the SD1.5 shapes: a CTA of the split product is three times a bf16 one's
+    work, so fewer, larger CTAs beat a full wave of small ones (2048 x 640 x
+    640: 80 tiles of 128 x 128 in 0.045 ms, 160 of 64 x 128 in 0.056), and
+    the text projections' short k-loops lose to more splits than that."""
+    half = _grid.SMS // 2
+    for bm, bn in TILES:
+        if bm > _grid.cdiv(m, 64) * 64:
+            continue
+        tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
+        if tiles >= half:
+            return bm, bn, 1
+    return bm, bn, _grid.k_splits(tiles, _grid.cdiv(k, K_STEP_F32), 4, half, half)
+
+
+def f32_w_in_smem(m: int, k: int, bm: int) -> bool:
+    """Whether the fp32 kernel splits W in shared memory, each CTA the W
+    tiles it reads, rather than through the prep pass: where at most 4 CTAs
+    along M read each W tile (measured on the card: the prep pass's bytes
+    cost more than those splits there, and less where the 8192-row calls'
+    64 row tiles would each split W again), and K is a multiple of 4 (W's
+    rows read by TMA as they lie)."""
+    return k % 4 == 0 and _grid.cdiv(m, bm) <= 4
+
+
+def f32_scratch_floats(m: int, n: int, k: int, r: int, w_split: bool = False) -> int:
+    """fp32 scratch of one fp32 call's split copies: [big; small] of x (m,
+    kp), down (r, kp) and, unless W is split in shared memory, W (n, kp);
+    kp = k rounded up to 8."""
+    return 2 * _grid.cdiv(k, 8) * 8 * (m + r + (0 if w_split else n))
+
+
+def part_floats(m: int, n: int, grid) -> int:
+    """fp32 scratch of a split call's partials (either dtype): each split of
+    each output tile stores its bm x bn base and bm x 16 h accumulators."""
+    bm, bn, splits = grid
+    return splits * _grid.cdiv(m, bm) * _grid.cdiv(n, bn) * bm * (bn + 16)
 
 
 def _scale32(scale, device) -> torch.Tensor:
@@ -76,26 +123,27 @@ def lora_dense_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.to(dt)
 
 
-_lib = None
+_FNS = {}
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = _build.load("lora_matmul")
-        fn = lib.dft_lora_dense
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+def _kernel(symbol: str, argtypes):
+    """The C entry point ``symbol`` of ``csrc/lora_matmul.cu``, built at first use."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load("lora_matmul"), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib.dft_lora_dense
+        _FNS[symbol] = fn
+    return fn
 
 
-def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None):
-    """The kernel on (M, K) inputs; ``grid`` (bm, bn, splits), bf16 only,
-    defaults to :func:`plan`."""
+def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None, w_split=None):
+    """The kernel on (M, K) inputs, bf16 or fp32; ``grid`` (bm, bn, splits)
+    defaults to :func:`plan` (bf16) or :func:`plan_f32` (fp32), ``w_split``
+    (fp32: W split in shared memory) to :func:`f32_w_in_smem`."""
     global launches, fp32_launches
     operands = [x, weight, up, down] + ([bias] if bias is not None else [])
-    if x.dtype not in _DTYPES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"LoRA kernel takes fp32 or bf16, got {x.dtype}")
     if any(t.device != x.device for t in operands):
         raise ValueError("all LoRA dense operands must be on one device")
@@ -111,29 +159,40 @@ def _lora_dense_cuda(x, weight, bias, up, down, scale, grid=None):
     if x.dtype == torch.bfloat16 and k % 8:
         raise ValueError(f"bf16 LoRA kernel needs K % 8 == 0, got K={k}")
     dt = x.dtype
+    fp32 = dt == torch.float32
     x = x.contiguous()
     weight, up, down = (t.to(dt).contiguous() for t in (weight, up, down))
     bias = None if bias is None else bias.to(dt).contiguous()
     s = _scale32(scale, x.device)
     y = torch.empty((m, n), dtype=dt, device=x.device)
-    bm, bn, splits = (grid or plan(m, n, k)) if dt == torch.bfloat16 else (64, 64, 1)
-    fn = _kernel()
+    grid = grid or (plan_f32 if fp32 else plan)(m, n, k)
+    bm, bn, splits = grid
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         part = counters = None
         if splits > 1:  # fp32 partials of y and h, summed by the last CTA of each tile
-            tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
-            part = torch.empty(splits * tiles * bm * (bn + 16), dtype=torch.float32,
+            part = torch.empty(part_floats(m, n, grid), dtype=torch.float32, device=x.device)
+            counters = _grid.arrival_counters(x.device, stream,
+                                              _grid.cdiv(m, bm) * _grid.cdiv(n, bn))
+        ptrs = [x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
+                up.data_ptr(), down.data_ptr(), s.data_ptr(), y.data_ptr()]
+        part_ptrs = [None if part is None else part.data_ptr(),
+                     None if counters is None else counters.data_ptr()]
+        if fp32:
+            fn = _kernel("dft_lora_dense_f32", [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            ws = f32_w_in_smem(m, k, bm) if w_split is None else w_split
+            ws = ws and weight.data_ptr() % 16 == 0  # TMA reads W where it lies
+            work = torch.empty(f32_scratch_floats(m, n, k, r, ws), dtype=torch.float32,
                                device=x.device)
-            counters = _grid.arrival_counters(x.device, stream, tiles)
-        rc = fn(x.data_ptr(), weight.data_ptr(),
-                None if bias is None else bias.data_ptr(), up.data_ptr(),
-                down.data_ptr(), s.data_ptr(), y.data_ptr(),
-                None if part is None else part.data_ptr(),
-                None if counters is None else counters.data_ptr(), m, n, k, r,
-                _DTYPES[dt], bm, bn, splits, stream)
+            rc = fn(*ptrs, work.data_ptr(), work.numel(), *part_ptrs, m, n, k, r, bm, bn,
+                    splits, int(ws), stream)
+        else:
+            fn = _kernel("dft_lora_dense", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+            rc = fn(*ptrs, *part_ptrs, m, n, k, r, bm, bn, splits, stream)
     _build.check(rc, "lora_dense")
-    if dt == torch.float32:
+    if fp32:
         fp32_launches += 1
     else:
         launches += 1

@@ -6,9 +6,10 @@ card's machine, which has no JAX, it runs without the repo's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 
-Tolerances: the fp32 flash kernels within chip_smoke.py's fp32 gates (O
-within 1e-4 absolute and 1e-5 relative L2, lse within 1e-4; dQ, dK, dV
-within 1e-4 of the largest reference value and 1e-5 relative L2); bf16
+Tolerances: the fp32 kernels within chip_smoke.py's fp32 gates (flash O
+within 1e-4 absolute and 1e-5 relative L2, lse within 1e-4; dQ, dK, dV,
+and the fp32 LoRA dense and conv3x3 outputs, within 1e-4 of the largest
+reference value and 1e-5 relative L2); bf16
 outputs within 2e-2 (flash) / 5e-2 (LoRA, |y| up to ~4)
 absolute, or one bf16 ulp of the largest value (conv3x3)
 absolute of the plain version on the same bf16 inputs -- the kernel and the
@@ -429,6 +430,133 @@ def test_lora_kernel_fp32_ragged(card):
     assert _max_err(y, y_ref) <= 1e-4
 
 
+# ---------------------------------------------------------------------------
+# K2's fp32 kernel (lora_dense_tf32_kernel: the split product on tf32 wgmma)
+# against the plain version in fp32, within chip_smoke.py's LORA_F32_TOL
+# (max |err| within 1e-4 of the largest reference value, rel L2 1e-5)
+# ---------------------------------------------------------------------------
+
+
+def _lora_f32_inputs(card, m, kdim, n, r, seed, bias=True):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((m, kdim), generator=g, device=card)
+    w = torch.randn((n, kdim), generator=g, device=card) * kdim ** -0.5
+    b = torch.randn((n,), generator=g, device=card) * 0.1 if bias else None
+    up = torch.randn((n, r), generator=g, device=card) * 0.1
+    down = torch.randn((r, kdim), generator=g, device=card) / r
+    return x, w, b, up, down
+
+
+def _f32_close(y, y_ref):
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert _max_err(y, y_ref) <= 1e-4 * float(y_ref.abs().max())
+    assert _rel_l2(y, y_ref) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,kdim,n,r,bias", [
+    (100, 72, 90, 3, False), (100, 70, 90, 1, True), (33, 7, 17, 16, True),
+    (100, 72, 90, 16, True), (154, 768, 768, 4, True), (8192, 320, 320, 4, True)])
+def test_lora_kernel_fp32_matches_plain(card, m, kdim, n, r, bias):
+    """K2 in fp32 at ragged M and N, K not a multiple of 4 (70, 7: W through
+    the prep pass) or of 32, ranks 1, 3, 4 and 16, with and without a bias,
+    and at two SD1.5 shapes: within the fp32 gate, a second call equal bit
+    for bit, one launch a call on the fp32 counter."""
+    x, w, b, up, down = _lora_f32_inputs(card, m, kdim, n, r, 70 + r, bias)
+    before = (tlm.launches, tlm.fp32_launches)
+    with torch.inference_mode():
+        y = tlm.lora_dense(x, w, b, up, down, 0.6)
+        again = tlm.lora_dense(x, w, b, up, down, 0.6)
+        y_ref = tlm.lora_dense_plain(x, w, b, up, down, 0.6)
+    assert (tlm.launches, tlm.fp32_launches) == (before[0], before[1] + 2)
+    _f32_close(y, y_ref)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(64, 64, 1), (64, 64, 5), (64, 128, 3), (128, 128, 24),
+                                  None])
+@pytest.mark.parametrize("w_split", [False, True])
+def test_lora_kernel_fp32_forced_grids(card, grid, w_split):
+    """K2 in fp32 at each tile with forced k-splits (up to every one of the
+    24 32-deep k-steps of K = 768) and at the plan's choice, W split by the
+    prep pass and in shared memory: within the fp32 gate, repeating bit for
+    bit, and equal between the two W routes."""
+    x, w, b, up, down = _lora_f32_inputs(card, 154, 768, 200, 4, 80)
+    with torch.inference_mode():
+        y = tlm._lora_dense_cuda(x, w, b, up, down, 0.8, grid=grid, w_split=w_split)
+        again = tlm._lora_dense_cuda(x, w, b, up, down, 0.8, grid=grid, w_split=w_split)
+        other = tlm._lora_dense_cuda(x, w, b, up, down, 0.8, grid=grid,
+                                     w_split=not w_split)
+        y_ref = tlm.lora_dense_plain(x, w, b, up, down, 0.8)
+    _f32_close(y, y_ref)
+    assert torch.equal(y, again) and torch.equal(y, other)
+
+
+@pytest.mark.cuda
+def test_lora_kernel_fp32_on_two_streams(card):
+    """Split fp32 K2 launches in flight on two streams at once (each stream
+    has its own arrival counters and scratch) equal one launch bit for bit."""
+    x, w, b, up, down = _lora_f32_inputs(card, 154, 768, 768, 4, 81)
+    assert tlm.plan_f32(154, 768, 768)[2] > 1
+    main = torch.cuda.current_stream(card)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    got = []
+    with torch.inference_mode():
+        want = tlm.lora_dense(x, w, b, up, down, 0.8)
+        for s in streams:
+            s.wait_stream(main)
+        for _ in range(8):
+            for s in streams:
+                with torch.cuda.stream(s):
+                    got.append(tlm.lora_dense(x, w, b, up, down, 0.8))
+        for s in streams:
+            main.wait_stream(s)
+        torch.cuda.synchronize(card)
+    assert all(torch.equal(y, want) for y in got)
+
+
+@pytest.mark.cuda
+def test_lora_kernel_fp32_graph_replay_equals_eager(card):
+    """A CUDA graph of split fp32 K2 calls (prep pass, k-split sum) replays
+    equal to the eager calls bit for bit, after new inputs are copied in."""
+    from diffusion_finetuning_tpu_torch.graph import Graphs
+
+    x, w, b, up, down = _lora_f32_inputs(card, 154, 768, 768, 4, 82)
+    x2 = torch.randn_like(x)
+    scale = torch.tensor(0.8, device=card)
+    graphs = Graphs(card)
+    with torch.inference_mode():
+        entry = graphs.capture("lora fp32", lambda: tlm.lora_dense(x, w, b, up, down, scale))
+        eager = tlm.lora_dense(x2, w, b, up, down, scale)
+        x.copy_(x2)
+        replayed = entry.replay()
+    torch.cuda.synchronize(card)
+    assert torch.equal(replayed, eager)
+
+
+@pytest.mark.cuda
+def test_lora_dense_fp32_gradients_match_plain(card):
+    """fp32 gradients through the kernel's autograd function against autograd
+    of the plain version (the backward is torch matmuls in fp32 either way)."""
+    g = torch.Generator(device=card).manual_seed(83)
+    x = torch.randn((2048, 640), generator=g, device=card).requires_grad_(True)
+    w = torch.randn((640, 640), generator=g, device=card) * 640 ** -0.5
+    b = torch.randn((640,), generator=g, device=card) * 0.1
+    up = (torch.randn((640, 4), generator=g, device=card) * 0.1).requires_grad_(True)
+    down = (torch.randn((4, 640), generator=g, device=card) / 4).requires_grad_(True)
+    dy = torch.randn((2048, 640), generator=g, device=card)
+    before = tlm.fp32_launches
+    y = tlm.lora_dense(x, w, b, up, down, 0.8)
+    assert tlm.fp32_launches == before + 1
+    got = torch.autograd.grad(y, (x, up, down), dy)
+    y_ref = tlm.lora_dense_plain(x, w, b, up, down, 0.8)
+    want = torch.autograd.grad(y_ref, (x, up, down), dy)
+    _f32_close(y.detach(), y_ref.detach())
+    for a, b_ in zip(got, want):
+        assert a.dtype == torch.float32 and _rel_l2(a, b_) <= 1e-5
+
+
 @pytest.mark.cuda
 def test_lora_linear_launches_the_lora_kernel(card):
     """A LoRALinear with a LoRA set runs the kernel on (B, S, K) inputs;
@@ -642,6 +770,119 @@ def test_conv3x3_kernel_fp32_ragged(card):
         y = tconv.conv3x3(x, w, None)
         y_ref = tconv.conv3x3_plain(x, w, None)
     assert _rel_l2(y, y_ref) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# K5's fp32 kernel (conv3x3_tf32_kernel: the split product on tf32 wgmma)
+# against the plain version in fp32, within chip_smoke.py's CONV_F32_TOL
+# ---------------------------------------------------------------------------
+
+
+def _conv_f32_inputs(card, b, c, h, w, o, seed, bias=True):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((b, c, h, w), generator=g, device=card)
+    wt = torch.randn((o, c, 3, 3), generator=g, device=card) / (3 * c ** 0.5)
+    bs = torch.randn((o,), generator=g, device=card) * 0.1 if bias else None
+    return x, wt, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,o,splits", [
+    (2, 24, 9, 11, 70, None), (1, 20, 7, 5, 64, None), (1, 20, 6, 300, 65, None),
+    (2, 64, 8, 8, 96, 9), (1, 72, 9, 24, 64, 5), (1, 40, 5, 130, 64, 3),
+    (2, 320, 64, 64, 320, None), (1, 640, 16, 16, 1280, None), (1, 640, 16, 16, 1280, 7)])
+def test_conv3x3_kernel_fp32_matches_plain(card, b, c, h, w, o, splits):
+    """K5 in fp32 at every box width (W = 5: 8 pixels, 9-11: 16, 24: 32, 64,
+    130 and 300: rows over 2 and 3 tiles of 128), C not a multiple of 8 (20)
+    or of 32 (24, 40, 72), ragged H and O, forced splits (up to every one of
+    the 9 k-steps), a bias, and two SD1.5 shapes: within the fp32 gate, a
+    second call equal bit for bit, one launch a call on the fp32 counter."""
+    x, wt, bias = _conv_f32_inputs(card, b, c, h, w, o, 90 + w)
+    p = tconv.plan_f32(b, c, h, w, o, splits=splits)
+    before = (tconv.launches, tconv.fp32_launches)
+    with torch.inference_mode():
+        y = tconv._conv3x3_cuda(x, wt, bias, grid=p)
+        again = tconv._conv3x3_cuda(x, wt, bias, grid=p)
+        y_ref = tconv.conv3x3_plain(x, wt, bias)
+    assert (tconv.launches, tconv.fp32_launches) == (before[0], before[1] + 2)
+    assert y.shape == (b, o, h, w)
+    _f32_close(y, y_ref)
+    assert torch.equal(y, again)
+
+
+@pytest.mark.cuda
+def test_conv3x3_kernel_fp32_split_weight_cache(card):
+    """K5's split weight copy: made once (a second call copies nothing),
+    rewritten in place by ``refresh_tap_major`` after an in-place ``add_``
+    (the next call reads it, right, without a new copy), and a miss while a
+    CUDA graph is being captured raises."""
+    from diffusion_finetuning_tpu_torch.graph import GraphError, Graphs
+
+    x, wt, _ = _conv_f32_inputs(card, 1, 64, 16, 16, 64, 95, bias=False)
+    with torch.inference_mode():
+        before = tconv.tap_major_copies
+        tconv.conv3x3(x, wt)
+        cached = tconv.tap_major_split(wt)
+        tconv.conv3x3(x, wt)
+        assert tconv.tap_major_copies == before + 1
+    with torch.no_grad():
+        wt.add_(0.01)
+    tconv.refresh_tap_major(wt)
+    assert tconv.tap_major_copies == before + 2
+    with torch.inference_mode():
+        y = tconv.conv3x3(x, wt)
+        y_ref = tconv.conv3x3_plain(x, wt, None)
+    assert tconv.tap_major_split(wt) is cached and tconv.tap_major_copies == before + 2
+    _f32_close(y, y_ref)
+    fresh = torch.randn((64, 64, 3, 3), device=card)
+    with pytest.raises(GraphError, match="tap-major"):
+        Graphs(card).capture("split weight", lambda: tconv.conv3x3(x, fresh),
+                             warmup=lambda: None)
+
+
+@pytest.mark.cuda
+def test_fp32_calls_reach_only_the_split_product_kernels(card, monkeypatch):
+    """Every fp32 call of K2 and K5 (ragged shapes, W through either route,
+    split and unsplit) goes to the split-product entry points, each shape
+    once, and none to the bf16 ones (whose fp32 branches are gone)."""
+    called = []
+    for mod in (tlm, tconv):
+        real = mod._kernel
+        monkeypatch.setattr(mod, "_kernel",
+                            lambda sym, types, real=real: called.append(sym) or real(sym, types))
+    with torch.inference_mode():
+        for m, kdim, n, r in ((100, 70, 90, 1), (154, 768, 768, 4), (8192, 320, 320, 16)):
+            x, w, b, up, down = _lora_f32_inputs(card, m, kdim, n, r, 96)
+            tlm.lora_dense(x, w, b, up, down, 0.5)
+        for b_, c, h, w_ in ((2, 24, 9, 11), (1, 640, 16, 16), (1, 20, 6, 300)):
+            x, wt, bias = _conv_f32_inputs(card, b_, c, h, w_, 70, 97)
+            tconv.conv3x3(x, wt, bias)
+    torch.cuda.synchronize(card)
+    assert called == ["dft_lora_dense_f32"] * 3 + ["dft_conv3x3_f32"] * 3
+
+
+@pytest.mark.cuda
+def test_conv3x3_fp32_gradients_match_conv2d(card, monkeypatch):
+    """A routed fp32 LoRAConv2d (switch on) runs K5's fp32 kernel once in the
+    forward; its gradients are F.conv2d autograd's (TF32 off), the frozen
+    weight gets none."""
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    torch.manual_seed(98)
+    layer = LoRAConv2d(320, 640, 3, padding=1).to(card)
+    layer.weight.requires_grad_(False)
+    layer.set_lora(torch.randn((640, 4, 1, 1)) * 0.1, torch.randn((4, 320, 3, 3)) * 0.05, 0.5)
+    x = torch.randn((2, 320, 32, 32), device=card).requires_grad_(True)
+    dy = torch.randn((2, 640, 32, 32), device=card)
+    before = tconv.fp32_launches
+    y = layer(x)
+    assert tconv.fp32_launches == before + 1
+    (gx,) = torch.autograd.grad(y, (x,), dy)
+    assert layer.weight.grad is None
+    ref = (F.conv2d(x, layer.weight, layer.bias, padding=1)
+           + 0.5 * F.conv2d(F.conv2d(x, layer.lora_down, padding=1), layer.lora_up))
+    (gx_ref,) = torch.autograd.grad(ref, (x,), dy)
+    assert _rel_l2(y, ref) <= 1e-5 and _rel_l2(gx, gx_ref) <= 1e-5
 
 
 @pytest.mark.cuda
