@@ -133,7 +133,22 @@ Phases, each fatal on failure:
      card, each pair before the clamp within DISTILL_REL_FRO of 0.8 x B's up
      down; the ``run_img2img`` (bf16) and ``visualize_training_progress``
      (fp32, as in JAX: K1's fp32 kernel) scripts with exact launches.
-     Printed: seconds and bytes of each tool.
+     Printed: seconds and bytes of each tool;
+ 11. the multi-device slice (``parallel/``) on the one card, from phase 8's
+     directory: (a) ``train_lora_dreambooth.main`` in fp32 (its default)
+     for one step with prior preservation and the text LoRA, over two ranks
+     sharing the card (child processes of this script, gloo, ``data`` = 2,
+     one example a rank: rank 0 the instance row, rank 1 the class row),
+     against the same trainer in one process at batch 2 with the same draws
+     (the summed LoRA gradient within PAR_GRAD_REL_L2, the LoRA update
+     within PAR_UPDATE_REL_L2, the loss within PAR_LOSS_RTOL, each rank's
+     launches one fp32 step's); (b) an eager bf16 CFG UNet step
+     at 64x64 latents with a dynamic LoRA and ``tp`` = 2 (``parallel/tp.py``:
+     to_q 160 x 320 on a rank, 4 heads) against the unsplit step within
+     PAR_TP_REL_L2, each rank launching 32 K1 and 144 K2; (c) one graphed
+     DreamBooth step through a one-rank NCCL mesh passed to
+     ``FusedDispatcher`` (the gradient all-reduce captured in the CUDA
+     graph), equal bit for bit to the mesh-free graphed step.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -152,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
@@ -3670,6 +3686,309 @@ def phase_rest_of_card(model_dir, tmp):
     log(f"phase 10 scripts: {time.time() - t0:.1f} s")
     return launches, rows
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-device slice (parallel/) on one card
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2
+# one data-parallel fp32 DreamBooth step against the one-process step on the
+# same batch and draws.  The LoRA gradient (summed over the ranks) within
+# 1e-4 relative L2, the CPU tests' bound (the same fp32 sums in another
+# order: each rank's K1/K2/K3 sum one row where one process sums two, in
+# another tiling); the loss within 1e-5.  The LoRA update (parameters after
+# minus before) within 1e-2 relative L2: the first AdamW step is about
+# lr * sign(g), so a gradient element whose sum cancels to near zero takes
+# either sign, its update +-lr, in one order or the other (a few such
+# elements out of millions); per-element bounds do not hold for those
+PAR_GRAD_REL_L2 = 1e-4
+PAR_UPDATE_REL_L2 = 1e-2
+PAR_LOSS_RTOL = 1e-5
+# bf16 eps of the tp=2 CFG UNet step against the unsplit step: two bf16
+# runs rounding at different points (each row layer's halves round to bf16
+# before their fp32 sum, where the unsplit K2 rounds once; the LoRA's h
+# rounds per half, parallel/tp.py), each within UNET_REL_L2 of an fp32 run
+PAR_TP_REL_L2 = UNET_REL_L2
+PAR_TIMEOUT_S = 600
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _lora_flat(params, grads=False):
+    """The trainable tensors (or their gradients) end to end, on the CPU."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.training.optim import trainable_tensors
+
+    return torch.cat([(t.grad if grads else t).detach().float().reshape(-1).cpu()
+                      for t in trainable_tensors(params)])
+
+
+def parallel_rank(rank, work):
+    """One rank of phase 11 (a child process; gloo, both ranks on cuda:0):
+    (a) the fp32 DreamBooth trainer, one step, data = 2, one example a rank;
+    (b) an eager bf16 CFG UNet step with tp = 2 (rank 0 also runs it
+    unsplit first).  Writes ``rank{R}.pt`` into ``work``."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.lora import attached
+    from diffusion_finetuning_tpu_torch.parallel import mesh as mesh_lib
+    from diffusion_finetuning_tpu_torch.parallel import tp as tp_lib
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_dreambooth as db
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+    dev = spec.get("device", "cuda:0")  # the CPU in a rehearsal at a small size
+    mesh_lib.initialize_distributed(f"file://{work}/rendezvous", PAR_RANKS, rank,
+                                    backend="gloo", device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    reset_counts()
+    state = db.main(db.parse_args(spec["db_args"] + ["--output_dir",
+                                                     os.path.join(work, f"db{rank}")]),
+                    device=dev)
+    torch.cuda.synchronize()
+    out["dp_counts"] = counts()
+    out["dp_params"] = _lora_flat(state["params"])
+    out["dp_grads"] = _lora_flat(state["params"], grads=True)
+    out["dp_losses"] = [float(x) for x in state["log"]["dispatch"]["losses"]]
+    out["dp_s"] = time.perf_counter() - t0
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pipe = StableDiffusionPipeline.from_pretrained(spec["model_dir"], dtype=torch.bfloat16,
+                                                   device=dev)
+    x, t, ctx = (v.to(dev) for v in spec["unet_inputs"])
+    lora = tree_to(spec["lora"], dev)
+
+    def unet_step():
+        with torch.no_grad(), attached(pipe.unet, lora):
+            eps = pipe.unet(x, t, ctx)
+        torch.cuda.synchronize()
+        return eps
+
+    if rank == 0:
+        out["tp_ref"] = unet_step().float().cpu()
+    mesh = mesh_lib.make_mesh(PAR_RANKS, ("data", "tp"), (1, PAR_RANKS), device=dev)
+    tp_lib.shard_module(pipe.unet, mesh)
+    blk = "down_blocks.0.attentions.0.transformer_blocks.0"
+    out["tp_shapes"] = {
+        "to_q": tuple(pipe.unet.get_submodule(blk + ".attn1.to_q").weight.shape),
+        "to_out": tuple(pipe.unet.get_submodule(blk + ".attn1.to_out.0").weight.shape),
+        "geglu": tuple(pipe.unet.get_submodule(blk + ".ff.net.0.proj").weight.shape),
+        "heads": pipe.unet.get_submodule(blk + ".attn1").heads}
+    unet_step()  # warm-up
+    reset_counts()
+    eps = unet_step()
+    out["tp_counts"] = counts()
+    out["tp_eps"] = eps.float().cpu()
+    out["tp_ms"] = wall_ms(unet_step, 3)
+    out["tp_s"] = time.perf_counter() - t0
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    mesh_lib.barrier("phase 11")
+    torch.distributed.destroy_process_group()
+
+
+def _run_ranks(work):
+    """The two ranks of phase 11 as child processes of this script."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(PAR_RANKS)]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--parallel-rank", str(r), "--parallel-dir", work],
+                              stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=HERE)
+             for r in range(PAR_RANKS)]
+    try:
+        rcs = [p.wait(timeout=PAR_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    if any(rcs):
+        for r in range(PAR_RANKS):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                log(f"--- rank {r} (exit {rcs[r]}) ---\n" + f.read()[-6000:])
+        fail(f"phase 11 ranks exited {rcs}")
+    import torch
+
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(PAR_RANKS)]
+
+
+def phase_parallel(model_dir, tmp):
+    """Phase 11: (a) the fp32 DreamBooth trainer with data = 2 over two
+    ranks sharing the card (gloo), one example a rank (prior preservation:
+    rank 0 the instance row, rank 1 the class row), against the same
+    trainer in one process at batch 2, the same draws; (b) an eager bf16
+    CFG UNet step at 64x64 latents with tp = 2, against the unsplit step
+    (rank 0's), K1 and K2 launched on both ranks at the shard shapes; (c) one graphed
+    step through a one-rank NCCL mesh passed to ``FusedDispatcher``, equal
+    bit for bit to the mesh-free graphed step."""
+    import torch
+    import torch.distributed as dist
+
+    from diffusion_finetuning_tpu_torch.parallel import mesh as mesh_lib
+    from diffusion_finetuning_tpu_torch.training.train_step import (FusedDispatcher,
+                                                                    carried_tensors)
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_dreambooth as db
+
+    work = tempfile.mkdtemp(prefix="parallel_", dir=tmp)
+    args = dreambooth_args(model_dir, tmp, "unused")
+    for flag in ("--mixed_precision", "--full_state_checkpoint_dir", "--output_dir"):
+        i = args.index(flag)
+        del args[i:i + 2]
+    for flag, value in (("--max_train_steps", "1"), ("--steps_per_dispatch", "1")):
+        args[args.index(flag) + 1] = value
+    ucfg = sd15_configs()[0]
+    x, t, ctx = unet_step_inputs(types.SimpleNamespace(unet_config=ucfg, vae_scale_factor=8))
+    torch.save({"db_args": args, "model_dir": model_dir, "unet_inputs": (x, t, ctx),
+                "lora": random_lora(ucfg)}, os.path.join(work, "spec.pt"))
+    t0 = time.perf_counter()
+    ranks = _run_ranks(work)
+    ranks_s = time.perf_counter() - t0
+
+    # (a) against one process
+    made = {}
+    real = db.FusedDispatcher
+
+    class Recording(real):  # keeps the step function, the batch, the LoRA before
+        def run(self, state, group, *a, **kw):
+            made.setdefault("batch", group[0])
+            made.setdefault("before", _lora_flat(state["params"]))
+            made["step_fn"] = self._step_fn
+            return super().run(state, group, *a, **kw)
+
+    db.FusedDispatcher = Recording
+    try:
+        t0 = time.perf_counter()
+        reset_counts()
+        state = db.main(db.parse_args(args + ["--output_dir", os.path.join(work, "db_one")]))
+        torch.cuda.synchronize()
+        one_counts, one_s = counts(), time.perf_counter() - t0
+    finally:
+        db.FusedDispatcher = real
+    one = _lora_flat(state["params"])
+    one_grad = _lora_flat(state["params"], grads=True)
+    one_losses = [float(x) for x in state["log"]["dispatch"]["losses"]]
+    update = one - made["before"]
+    per_step = fp32_step_launches()
+    lr = 1e-4  # dreambooth_args' --learning_rate
+    dp = {"one_process_s": one_s, "ranks_s": ranks_s}
+    errs = []
+    for r, res in enumerate(ranks):
+        grad_rel = float((res["dp_grads"] - one_grad).norm() / one_grad.norm())
+        upd_rel = float((res["dp_params"] - made["before"] - update).norm() / update.norm())
+        diff = (res["dp_params"] - one).abs()
+        loss_rel = abs(res["dp_losses"][0] - one_losses[0]) / abs(one_losses[0])
+        row = {"loss": res["dp_losses"][0], "loss_rel": loss_rel, "grad_rel_l2": grad_rel,
+               "update_rel_l2": upd_rel, "param_max_abs_diff": float(diff.max()),
+               "params_off_by_2pct_lr": int((diff > 2e-2 * lr).sum()),
+               "params": diff.numel(), "launches": res["dp_counts"], "trainer_s": res["dp_s"]}
+        log(f"phase 11 (a) rank {r}: loss {row['loss']!r} vs one process {one_losses[0]!r} "
+            f"(rel {loss_rel:.2e}, gate {PAR_LOSS_RTOL}); LoRA gradient rel L2 {grad_rel:.2e} "
+            f"(gate {PAR_GRAD_REL_L2}); update rel L2 {upd_rel:.2e} (gate {PAR_UPDATE_REL_L2}); "
+            f"parameters max |diff| {row['param_max_abs_diff']:.3e}, "
+            f"{row['params_off_by_2pct_lr']} of {row['params']} off by more than 2% of the LR; "
+            f"launches {res['dp_counts']} (want {per_step}); trainer {res['dp_s']:.1f} s")
+        if not (grad_rel <= PAR_GRAD_REL_L2 and upd_rel <= PAR_UPDATE_REL_L2
+                and loss_rel <= PAR_LOSS_RTOL):
+            errs.append(f"(a): rank {r}'s data-parallel step differs from one process")
+        if res["dp_counts"] != per_step:
+            errs.append(f"(a): rank {r} launched {res['dp_counts']}, want {per_step}")
+        dp[f"rank{r}"] = row
+    if one_counts != captured(per_step, 1):  # its graph's warm-up and capture
+        errs.append(f"(a): the one-process step launched {one_counts}, want "
+                    f"{captured(per_step, 1)}")
+    dp["one_process_loss"] = one_losses[0]
+
+    # (b) tp = 2 against the unsplit step
+    ref = ranks[0]["tp_ref"]
+    want_tp = want_counts(flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP)
+    tp = {}
+    for r, res in enumerate(ranks):
+        err = res["tp_eps"] - ref
+        rel = float(err.norm() / ref.norm())
+        mx = float(err.abs().max())
+        log(f"phase 11 (b) rank {r}: eps rel L2 {rel:.3e} (gate {PAR_TP_REL_L2}), max |err| "
+            f"{mx:.3e}; shard shapes {res['tp_shapes']}; launches "
+            f"{res['tp_counts']} (want {want_tp}); {res['tp_ms']:.1f} ms a step "
+            f"(two ranks on one card, gloo)")
+        if not (rel <= PAR_TP_REL_L2 and torch.isfinite(err).all()):
+            errs.append(f"(b): rank {r}'s tp=2 UNet step differs from the unsplit step")
+        if res["tp_counts"] != want_tp:
+            errs.append(f"(b): rank {r} launched {res['tp_counts']}, want {want_tp}")
+        if res["tp_shapes"]["to_q"] != (160, 320) or res["tp_shapes"]["heads"] != 4:
+            errs.append(f"(b): rank {r} holds shards {res['tp_shapes']}")
+        tp[f"rank{r}"] = {"rel_l2": rel, "max_abs": mx, "ms": res["tp_ms"],
+                          "launches": res["tp_counts"], "shapes": res["tp_shapes"]}
+
+    # (c) an NCCL all-reduce captured in the step's graph; the trainer's own
+    # graph is dropped, so that both runs capture afresh under
+    # cudnn.deterministic (see phase_dreambooth_fp32)
+    for attr in ("_dft_graphs", "_dft_jit_cache"):
+        made["step_fn"].__dict__.pop(attr, None)
+    tensors = carried_tensors(state)
+    before = [t.detach().clone() for t in tensors]
+    host_step = state["step"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    results, graph_counts = [], {}
+    try:
+        mesh = mesh_lib.make_mesh(1, device="cuda:0")
+        for label, m in (("mesh-free", None), ("one-rank NCCL mesh", mesh)):
+            with torch.no_grad():
+                torch._foreach_copy_(tensors, before)
+            state["step"] = host_step
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+            disp = FusedDispatcher(made["step_fn"], 1, mesh=m)
+            reset_counts()
+            t0 = time.perf_counter()
+            state, losses = disp.run(state, [made["batch"]], gen)
+            torch.cuda.synchronize()
+            graph_counts[label] = counts()
+            log(f"phase 11 (c) {label}: graphed step (capture and replay) "
+                f"{time.perf_counter() - t0:.2f} s, loss {float(losses[0])!r}")
+            results.append((losses.clone(), [t.detach().clone() for t in tensors]))
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    equal = torch.equal(results[0][0], results[1][0]) and all(
+        torch.equal(a, b) for a, b in zip(results[0][1], results[1][1]))
+    want_graph = captured(per_step, 1)
+    log(f"phase 11 (c): the graphed step through a one-rank NCCL mesh equal to the mesh-free "
+        f"graphed step: {equal} ({len(tensors)} tensors and the loss); launches "
+        f"{graph_counts['one-rank NCCL mesh']} (want {want_graph})")
+    if not equal:
+        errs.append("(c): the NCCL-mesh graphed step differs from the mesh-free one")
+    if any(c != want_graph for c in graph_counts.values()):
+        errs.append(f"(c): graphed steps launched {graph_counts}, want {want_graph}")
+    if errs:  # every part has run; all of its faults together
+        fail("phase 11 " + "; ".join(errs))
+    del state, made
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"parallel_dp_rank0": ranks[0]["dp_counts"],
+                "parallel_dp_rank1": ranks[1]["dp_counts"],
+                "parallel_tp_rank0": ranks[0]["tp_counts"],
+                "parallel_tp_rank1": ranks[1]["tp_counts"],
+                "parallel_nccl_graph": graph_counts["one-rank NCCL mesh"]}
+    return launches, {"dp": dp, "tp": tp, "nccl_graph_equal": equal}
+
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
@@ -3724,9 +4043,16 @@ def main():
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also trace UNet steps and train steps (switches off and on) "
                          "with torch.profiler and write their per-kernel tables into DIR")
+    # phase 11 starts this script again as each of its ranks
+    ap.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+
+    if args.parallel_rank is not None:
+        parallel_rank(args.parallel_rank, args.parallel_dir)
+        return
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -3795,17 +4121,23 @@ def main():
         t0 = time.time()
         rest_launches, rest = phase_rest_of_card(os.path.join(tmp, "sd15"), tmp)
         log(f"phase 10: {time.time() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        parallel_launches, parallel = phase_parallel(os.path.join(tmp, "sd15"), tmp)
+        log(f"phase 11: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
                     "graphed": graphed, "serving_entry": entry, "trainers": trainers,
-                    "rest_of_card": rest}))
+                    "rest_of_card": rest, "parallel": parallel}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
         graphed=graphed_launches, **entry_launches,
-        **{f"trainer_{k}": v for k, v in trainer_launches.items()}, **rest_launches))))
+        **{f"trainer_{k}": v for k, v in trainer_launches.items()}, **rest_launches,
+        **parallel_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

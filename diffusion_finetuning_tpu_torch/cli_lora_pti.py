@@ -21,9 +21,12 @@ Each phase is one :func:`~.training.train_step.build_train_step` driven by
 a :class:`~.training.train_step.FusedDispatcher` (``steps_per_dispatch``
 steps a CUDA graph on the card, clipped to the save window so that one
 capture serves the phase).  The first phase's graphs and optimiser state
-are freed before the second is captured.  One device, no mesh:
-``tensor_parallel > 1`` raises.  The returned pipe holds the learned tokens
-(in the text encoder's table) and the LoRA trees, and serves at once.
+are freed before the second is captured.  Under ``torchrun`` the ranks
+form ``trainer_mesh`` (``data`` over as many ranks as the per-step batch
+divides, ``tensor_parallel`` ranks splitting the frozen UNet/CLIP
+projections) and rank 0 alone prints, saves and logs to wandb.  The
+returned pipe holds the learned tokens (in the text encoder's table) and
+the LoRA trees, its modules whole again, and serves at once.
 
 Run: ``python -m diffusion_finetuning_tpu_torch.cli_lora_pti
 --instance_data_dir DIR --pretrained_model_name_or_path MODEL --output_dir
@@ -42,18 +45,20 @@ import numpy as np
 import torch
 
 from . import lora as lora_lib
-from . import resolve_device
 from .data.dataset import DataLoader, PivotalTuningDatasetCapation
 from .models.clip_text import resize_token_embeddings, text_encoder_lora_targets, TOKEN_EMBEDDING
 from .models.schedulers import DDPMScheduler
 from .models.unet import unet_lora_targets
+from .parallel import mesh as mesh_lib
+from .parallel import tp as tp_lib
 from .pipelines.pipeline import StableDiffusionPipeline
 from .training.optim import ParamGroup, lr_schedule, multi_group_optimizer
 from .training.train_step import (FusedDispatcher, TrainablePartition, build_train_step,
                                   init_train_state)
-from .training.trainer_util import (DispatchLog, check_tensor_parallel, compute_dtype, detached,
+from .training.trainer_util import (DispatchLog, compute_dtype, detached,
                                     enable_gradient_checkpointing, host_tree,
-                                    install_token_table, load_vae, token_table)
+                                    install_token_table, load_vae, main_print, mesh_graphs,
+                                    token_table)
 from .utils.cli import Fire
 
 
@@ -181,9 +186,14 @@ def train(
     with ``frozen_rows_changed``: the rows other than the placeholders'
     that differ from the initial table after it (0: the frozen rows came
     back bit-identical)."""
-    check_tensor_parallel(tensor_parallel)
-    dev = resolve_device(device)
+    dev = mesh_lib.rank_device(device)
     del num_class_images, sample_batch_size
+    # the data axis over as many ranks as the per-step batch divides (prior
+    # preservation doubles it); tensor_parallel ranks split the projections
+    eff_batch = train_batch_size * (2 if with_prior_preservation else 1)
+    mesh = mesh_lib.trainer_mesh(eff_batch, tensor_parallel, device=dev)
+    print = main_print  # rank 0 alone prints
+    log_wandb = log_wandb and mesh_lib.is_main_process()
     if log_wandb:
         import wandb
 
@@ -224,7 +234,7 @@ def train(
     noise_scheduler = DDPMScheduler(pipe.scheduler_config)
 
     if scale_lr:
-        scale = gradient_accumulation_steps * train_batch_size
+        scale = gradient_accumulation_steps * train_batch_size * mesh_lib.process_count()
         unet_lr, text_encoder_lr, ti_lr = (learning_rate_unet * scale,
                                            learning_rate_text * scale, learning_rate_ti * scale)
     else:
@@ -255,8 +265,12 @@ def train(
     init_generator = torch.Generator().manual_seed(seed)
     pipe.train_log = []
 
+    tp_lib.shard_models(mesh, pipe.unet, pipe.text_encoder)
     preped_clip = None
-    if log_wandb:
+    if log_wandb and mesh is not None and mesh.axis_size("tp") > 1:
+        # its requests would need every rank of the split modules
+        print("wandb eval: not under tensor parallelism; logging loss only")
+    elif log_wandb:
         try:
             from .utils.eval import prepare_clip_model_sets
 
@@ -293,6 +307,8 @@ def train(
             text_lora=text_lora if partition.text_lora else None,
             ti_embeddings=ti_master if partition.ti else None, index_updates=index_updates,
             device=dev)
+        if mesh is not None:
+            state = mesh_lib.shard_tree(state, mesh_lib.tp_state_shardings(mesh, state), mesh)
         params = state["params"]
         step_fn = build_train_step(
             unet=pipe.unet, text_encoder=pipe.text_encoder, vae=pipe.vae,
@@ -305,7 +321,7 @@ def train(
         spd = max(1, steps_per_dispatch)
         if save_steps:
             spd = min(spd, save_steps)
-        dispatcher = FusedDispatcher(step_fn, spd=spd)
+        dispatcher = FusedDispatcher(step_fn, spd=spd, mesh=mesh, cuda_graphs=mesh_graphs(mesh))
 
         def batch_stream():
             while True:
@@ -329,7 +345,7 @@ def train(
                 loss_sum = loss_sum + losses.sum()
             if global_step % 50 < take or global_step == num_steps:
                 print(f"{label} step {global_step}/{num_steps} loss={float(losses[-1]):.4f}")
-            if save_steps and global_step % save_steps == 0:
+            if save_steps and global_step % save_steps == 0 and mesh_lib.is_main_process():
                 _save_checkpoint(pipe, params, partition, unet_targets, text_targets,
                                  placeholder_tokens, placeholder_token_ids,
                                  os.path.join(output_dir, save_name.format(global_step)),
@@ -413,6 +429,9 @@ def train(
                     text_lora=text_lora)
     del optimizer2
     finish_phase()
+    mesh_lib.barrier("end of training")
+    tp_lib.unshard_module(pipe.unet)
+    tp_lib.unshard_module(pipe.text_encoder)
 
     # the final trees into the pipe, to serve at once
     pipe.unet_lora = out["unet_lora"]

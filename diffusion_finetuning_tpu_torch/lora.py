@@ -83,6 +83,8 @@ __all__ = [
     "monkeypatch_remove_lora",
     "monkeypatch_add_lora",
     "inspect_lora",
+    "_text_lora_path",
+    "_ti_lora_path",
     "save_all",
 ]
 
@@ -269,7 +271,8 @@ def materialize_lora_tree(model: nn.Module, lora: Optional[Mapping[str, Any]]
     with (``torch.func.functional_call``) at base-model speed.  The delta is
     dense ``up @ down`` or, for convs, the 1x1 up composed with the kxk down;
     computed in fp32 and rounded to the weight's dtype once, as the JAX
-    package's ``materialize_lora_tree`` (lora.py:478).  The sum is formed in
+    package's ``materialize_lora_tree`` (lora.py:478); a tensor-parallel
+    layer's (``parallel/tp.py``) is its shard of the merged weight.  The sum is formed in
     the delta's buffer (the same fp32 operations), so a layer's workspace is
     one fp32 copy of its weight."""
     prefix = getattr(model, "lora_prefix", "")
@@ -283,6 +286,9 @@ def materialize_lora_tree(model: nn.Module, lora: Optional[Mapping[str, Any]]
             delta = torch.einsum("or,rikl->oikl", up[:, :, 0, 0], down)
         else:
             delta = up @ down
+        shard = getattr(model.get_submodule(name), "_dft_tp", None)
+        if shard is not None:  # a tensor-parallel layer: its block of the delta
+            delta = shard.local_weight(delta)
         scale = torch.as_tensor(leaf["scale"], dtype=torch.float32).to(weight.device)
         out[name + ".weight"] = delta.mul_(scale).add_(weight).to(weight.dtype)
         del delta

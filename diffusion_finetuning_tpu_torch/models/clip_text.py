@@ -61,20 +61,22 @@ class CLIPAttention(nn.Module):
         super().__init__()
         h = config.hidden_size
         self.heads = config.num_attention_heads
+        self.head_dim = h // self.heads
         self.k_proj = LoRALinear(h, h)
         self.v_proj = LoRALinear(h, h)
         self.q_proj = LoRALinear(h, h)
         self.out_proj = LoRALinear(h, h)
 
     def forward(self, x, causal_mask):
-        B, S, C = x.shape
-        d = C // self.heads
+        # self.heads may be a tensor-parallel rank's share (parallel/tp.py)
+        B, S, _ = x.shape
+        d = self.head_dim
         split = lambda t: t.reshape(B, S, self.heads, d).transpose(1, 2)
         k, v = split(self.k_proj(x)), split(self.v_proj(x))
         q = split(self.q_proj(x) * d ** -0.5)
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) + causal_mask
         attn = torch.softmax(attn, dim=-1).to(x.dtype)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, S, C)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, S, self.heads * d)
         return self.out_proj(out)
 
 

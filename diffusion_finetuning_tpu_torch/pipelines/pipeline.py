@@ -57,8 +57,14 @@ overrides a TI file makes (the grown token table under
 ``clip_text.TOKEN_EMBEDDING``), where the JAX pipeline holds the whole
 text parameter tree.  Public layouts are the JAX package's: ``latents``
 (B, h, w, 4), images (B, H, W, 3), img2img's init image (H, W, 3).  The
-model modules run NCHW.  Multi-device sharding (``shard_over``) comes in a
-later slice.
+model modules run NCHW.
+
+:meth:`~StableDiffusionPipeline.shard_over` spreads generation over a
+``parallel.mesh`` mesh (JAX :325-377): every rank calls ``pipe(...)`` with
+the same arguments, generates its rows of the request along ``data`` and
+gets the whole gathered result; a ``tp`` axis splits the UNet's attention
+and feed-forward pairs (``parallel/tp.py``), merged LoRA weights and their
+graph buffers holding each rank's shard.
 """
 
 from __future__ import annotations
@@ -87,6 +93,8 @@ from ..models.schedulers import (DDIMScheduler, DDPMScheduler, EulerDiscreteSche
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
 from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
 from ..models.weights import load_module
+from ..parallel import mesh as mesh_lib
+from ..parallel import tp as tp_lib
 
 # merged LoRA sets kept for explicit adapters (the server's per-request
 # trees), least recently used dropped first: the JAX pipeline's bound (:51-54)
@@ -225,6 +233,8 @@ class StableDiffusionPipeline:
         # whole requests through CUDA graphs on the card; False runs them
         # eagerly there (the graphs' reference)
         self.cuda_graphs: bool = True
+        # the mesh generation is spread over (shard_over), or None
+        self.mesh = None
         self._merged_current: Dict[Tuple, Tuple] = {}
         self._merged_cache: "collections.OrderedDict[Tuple, Tuple]" = collections.OrderedDict()
         # serialises LoRA/TI swaps, merges, captures and replays: a request
@@ -296,6 +306,53 @@ class StableDiffusionPipeline:
             self._merged_cache.clear()
             self._graphs = None
         return self
+
+    # -- multi-device -----------------------------------------------------
+    def shard_over(self, mesh) -> "StableDiffusionPipeline":
+        """Spread generation over ``mesh`` (``parallel.mesh``; JAX
+        :325-377).  Its ``data`` axis splits each request's batch: every
+        rank calls the pipe with the same arguments, generates its rows and
+        gets the whole result, gathered; the batch must be a multiple of the
+        ``data`` size.  A ``tp`` axis splits the UNet's attention and
+        feed-forward pairs over its ranks (``parallel/tp.py``).  The modules'
+        weights are broadcast from rank 0 once now.  ``None`` gathers the
+        split weights back, and each rank generates whole requests alone.
+        Under gloo on the card a ``tp`` split needs ``cuda_graphs = False``
+        (its collectives run inside the request).  Returns self."""
+        with self._swap_lock:
+            if self.mesh is not None:
+                tp_lib.unshard_module(self.unet)
+            self.mesh = mesh
+            self._merged_current.clear()
+            self._merged_cache.clear()
+            self._graphs = None
+            if mesh is not None:
+                for m in (self.unet, self.vae, self.text_encoder):
+                    mesh_lib.replicate(list(m.parameters()), mesh)
+                tp_lib.shard_module(self.unet, mesh)
+        return self
+
+    def _data_rows(self, b: int) -> Optional[slice]:
+        """This rank's rows of a ``b``-row request under a ``data`` mesh
+        (None: all of them); raises JAX's error (:754-759) for a batch that
+        is not a multiple of the axis."""
+        if self.mesh is None:
+            return None
+        n = self.mesh.axis_size("data")
+        if b % n:
+            raise ValueError(f"batch {b} must be a multiple of the mesh data axis ({n}); "
+                             "pad the prompt list or use a matching batch size")
+        if n == 1:
+            return None
+        d, per = self.mesh.index("data"), b // n
+        return slice(d * per, (d + 1) * per)
+
+    def _gather(self, images: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
+        if rows is None:
+            return images
+        mesh = self.mesh
+        return mesh_lib.gather_rows(images, mesh.index("data"), mesh.axis_size("data"),
+                                    mesh.groups["data"])
 
     def release_graphs(self) -> None:
         """Drop the request graphs and their memory pool (a trainer that has
@@ -394,6 +451,10 @@ class StableDiffusionPipeline:
         into its static buffers, by later ones."""
         if self.device.type != "cuda" or not self.cuda_graphs:
             return body(params, inputs)
+        if (self.mesh is not None and self.mesh.backend == "gloo"
+                and self.mesh.axis_size("tp") > 1):
+            raise ValueError("a gloo tensor-parallel request cannot be captured in a CUDA "
+                             "graph; set pipe.cuda_graphs = False")
         with self._swap_lock:  # one request at a time through the buffers
             sig, flat = param_signature(params)
             key = key + (self.scheduler_config, sig, kernel_switches())
@@ -500,6 +561,13 @@ class StableDiffusionPipeline:
         if len(negs) != b:
             raise ValueError(f"{len(negs)} negative prompts for {b} prompts — pass one "
                              "string (broadcast) or a list of matching length")
+        rows = self._data_rows(b)
+        if rows is not None:  # this rank's rows of the request
+            seeds = [seed + i for i in range(b)] if isinstance(seed, int) else list(seed)
+            prompts, negs, seed = prompts[rows], negs[rows], seeds[rows]
+            latents = None if latents is None else latents[rows]
+            noise = None if noise is None else noise[:, rows]
+            b = len(prompts)
         sch = txt2img_scheduler(scheduler, self.scheduler_config)
         ancestral = getattr(sch, "stochastic", False)
         steps = num_inference_steps
@@ -522,7 +590,7 @@ class StableDiffusionPipeline:
         images = self._generate(
             ("txt2img", steps, height, width, scheduler, b),
             lambda p, inp: self._txt2img(p, inp, steps, scheduler), inputs, params)
-        return self._postprocess(images, output_type)
+        return self._postprocess(self._gather(images, rows), output_type)
 
     def _guidance(self, scale: float) -> torch.Tensor:
         return torch.full((), scale, dtype=torch.float32, device=self.device)
@@ -620,6 +688,7 @@ class StableDiffusionPipeline:
         b = len(prompts)
         if len(negs) != b:
             raise ValueError(f"{len(negs)} negative prompts for {b} prompts")
+        rows = self._data_rows(b)
         img = np.asarray(init_image)
         if img.dtype == np.uint8:
             img = img.astype(np.float32) / 255.0
@@ -635,6 +704,11 @@ class StableDiffusionPipeline:
         sch = restart_on_tail(sch, num_inference_steps, t_start)
         if draws is None:
             draws = self.img2img_draws(seed, b, (h // f, w // f), used if ancestral else 0)
+        if rows is not None:  # this rank's rows of the request and its draws
+            prompts, negs = prompts[rows], negs[rows]
+            draws = {k: v if k == "sample" else v[rows] if k == "noise" else v[:, rows]
+                     for k, v in draws.items()}
+            b = len(prompts)
 
         def draw(key, shape):
             d = draws[key]
@@ -661,7 +735,7 @@ class StableDiffusionPipeline:
             ("img2img", num_inference_steps, t_start, h, w, scheduler, b),
             lambda p, inp: self._img2img(p, inp, num_inference_steps, sch, ts[t_start:]),
             inputs, params)
-        return self._postprocess(images, output_type)
+        return self._postprocess(self._gather(images, rows), output_type)
 
     def _img2img(self, params, inputs, num_steps: int, sch, ts_used) -> torch.Tensor:
         """The whole request from its device inputs; ``sch`` is the sampler

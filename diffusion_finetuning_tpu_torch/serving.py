@@ -16,7 +16,13 @@ The worker runs a depth-2 pipeline: it enqueues batch i+1 on the card
 copy to pinned host memory is enqueued right behind the batch's graph on
 the same stream) before it waits for batch i's copy and resolves its
 futures.  ``diffusion_finetuning_tpu_torch.serve`` exposes the server over
-HTTP.  The JAX server's multi-device ``mesh`` branch is not ported.
+HTTP.
+
+On a pipe spread over a mesh (``pipe.shard_over``, JAX :82-86) the ladder
+is rounded up to multiples of the ``data`` size, the server runs on rank
+0, and each dispatched batch's call (prompts, seeds, steps, sampler,
+adapter name) is broadcast to the other ranks, which run :func:`follow`
+until the server stops.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from .parallel import mesh as mesh_lib
 
 
 @dataclass
@@ -94,6 +102,12 @@ class GenerationServer:
         if allowed_batches is None:
             allowed_batches = [b for b in (1, 2, 4, 8) if b <= max_batch]
         self.allowed_batches = sorted(set(allowed_batches) | {max_batch})
+        # a pipe spread over a mesh takes multiples of its data axis only
+        self.mesh = getattr(pipe, "mesh", None)
+        if self.mesh is not None:
+            n = self.mesh.axis_size("data")
+            self.allowed_batches = sorted({-(-b // n) * n for b in self.allowed_batches})
+            self.max_batch = self.allowed_batches[-1]
         self._q: "queue.Queue[_Request]" = queue.Queue()
         # dequeued but not dispatched: the head of the next shape class,
         # and/or the rest of a partial batch split down the ladder
@@ -247,12 +261,16 @@ class GenerationServer:
                     prompts = [r.prompt for r in batch] + [r0.prompt] * (nb - n)
                     negs = [r.negative_prompt for r in batch] + [r0.negative_prompt] * (nb - n)
                     seeds = [r.seed for r in batch] + [r0.seed] * (nb - n)
+                    call = dict(prompt=prompts, negative_prompt=negs, height=r0.height,
+                                width=r0.width, num_inference_steps=r0.steps,
+                                guidance_scale=r0.guidance_scale, scheduler=r0.scheduler,
+                                seed=seeds)
                     try:
-                        dev = self.pipe(
-                            prompts, negative_prompt=negs, height=r0.height, width=r0.width,
-                            num_inference_steps=r0.steps, guidance_scale=r0.guidance_scale,
-                            scheduler=r0.scheduler, seed=seeds, output_type="device",
-                            adapter_params=self._adapter_params(r0.adapter))
+                        if self.mesh is not None:  # the other ranks make the same call
+                            mesh_lib.broadcast_object(dict(call, adapter=r0.adapter),
+                                                      self.mesh)
+                        dev = self.pipe(**call, output_type="device",
+                                        adapter_params=self._adapter_params(r0.adapter))
                         out = _to_host(dev)
                     except Exception as e:
                         for r in batch:
@@ -266,4 +284,33 @@ class GenerationServer:
         finally:
             if pending is not None:
                 self._resolve(pending)
+            if self.mesh is not None:
+                mesh_lib.broadcast_object(None, self.mesh)  # the followers stop
             self._drain_and_fail()
+
+
+def follow(pipe, adapters: Optional[Dict[str, Any]] = None) -> int:
+    """The loop of a rank other than 0 under a meshed pipe's
+    :class:`GenerationServer`: receive each call rank 0 broadcasts and make
+    it (its rows of the batch, and its part of the collectives), until the
+    server stops.  ``adapters``: name -> what ``register_adapter`` took (a
+    path or a dict of trees), the same set rank 0 registers.  Returns the
+    number of calls made."""
+    from .pipelines.pipeline import build_adapter
+
+    trees = {name: build_adapter(pipe, src) if isinstance(src, str) else dict(src)
+             for name, src in (adapters or {}).items()}
+    calls = 0
+    while True:
+        call = mesh_lib.broadcast_object(None, pipe.mesh)
+        if call is None:
+            return calls
+        name = call.pop("adapter")
+        params = None
+        if name is not None:
+            t = trees[name]
+            params = pipe.adapter_generation_params(
+                unet_lora=t.get("unet_lora"), text_lora=t.get("text_encoder_lora"),
+                text_params=t.get("text_params"), materialize=t.get("materialize"))
+        pipe(**call, output_type="device", adapter_params=params)
+        calls += 1

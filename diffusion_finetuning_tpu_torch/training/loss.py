@@ -27,7 +27,8 @@ step, as a captured train step needs them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 from torch.func import functional_call
@@ -66,12 +67,29 @@ def face_mask_weights(mask: torch.Tensor, batch: int, lh: int, lw: int) -> torch
     return mask
 
 
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """A data-parallel rank's part of the global batch (``parallel/``): it
+    holds rows ``lo .. lo + B - 1`` of ``total``; ``gather_mask`` maps the
+    node's face mask to the global batch's (the nodes' masks end to end)."""
+
+    lo: int
+    total: int
+    gather_mask: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+
+    def rows(self, b: int) -> slice:
+        return slice(self.lo, self.lo + b)
+
+
 def draw_inputs(batch: Mapping[str, Any], *, vae, scheduler, t_mutliplier: float = 1.0,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                shard: Optional[RowShard] = None) -> Dict[str, torch.Tensor]:
     """The three draws :func:`loss_step` makes for ``batch`` from
     ``generator`` on the VAE's device, in its order: the posterior sample's
     noise in the VAE's dtype and the forward noise in fp32, both (B, h, w,
-    C) on the latent grid, then the timesteps in [0, T * t_mutliplier)."""
+    C) on the latent grid, then the timesteps in [0, T * t_mutliplier).
+    With ``shard`` the global batch's draws are made, as one device would
+    make them, and this rank's rows kept."""
     dev = _device(vae)
     if "latent_moments" in batch:
         b, h, w, c2 = batch["latent_moments"].shape
@@ -81,10 +99,39 @@ def draw_inputs(batch: Mapping[str, Any], *, vae, scheduler, t_mutliplier: float
         f = 2 ** (len(vae.config.block_out_channels) - 1)
         h, w, c = hp // f, wp // f, vae.config.latent_channels
     t_max = int(scheduler.num_train_timesteps * t_mutliplier)
-    return {"sample": torch.randn((b, h, w, c), generator=generator, device=dev, dtype=vae.dtype),
-            "noise": torch.randn((b, h, w, c), generator=generator, device=dev,
-                                 dtype=torch.float32),
-            "timesteps": torch.randint(0, t_max, (b,), generator=generator, device=dev)}
+    n = b if shard is None else shard.total
+    out = {"sample": torch.randn((n, h, w, c), generator=generator, device=dev, dtype=vae.dtype),
+           "noise": torch.randn((n, h, w, c), generator=generator, device=dev,
+                                dtype=torch.float32),
+           "timesteps": torch.randint(0, t_max, (n,), generator=generator, device=dev)}
+    return out if shard is None else shard_draws(out, shard, b)
+
+
+def shard_draws(draws: Mapping[str, Any], shard: RowShard, b: int) -> Dict[str, Any]:
+    """A rank's rows of the global batch's draws; draws that already have
+    the rank's ``b`` rows are kept as they are."""
+    if len(draws["timesteps"]) == b:
+        return dict(draws)
+    return {k: v[shard.rows(b)] for k, v in draws.items()}
+
+
+def _share(sq: torch.Tensor, shard: RowShard, prior: bool, weight: float) -> torch.Tensor:
+    """A rank's share of the global loss from its rows' squared errors:
+    each term's mean over its rows times their fraction of the term's
+    global rows, so the ranks' shares sum to the global loss.  With prior
+    preservation the global batch's first half is the instance term, the
+    second the class term (JAX :130-135), wherever a rank's rows fall."""
+    b = sq.shape[0]
+    if not prior:
+        return sq.mean() * (b / shard.total)
+    half = shard.total // 2
+    n_inst = min(max(half - shard.lo, 0), b)
+    terms = []
+    if n_inst:
+        terms.append(sq[:n_inst].mean() * (n_inst / half))
+    if b - n_inst:
+        terms.append(weight * (sq[n_inst:].mean() * ((b - n_inst) / half)))
+    return terms[0] if len(terms) == 1 else terms[0] + terms[1]
 
 
 def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
@@ -93,15 +140,24 @@ def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
               t_mutliplier: float = 1.0,   # sic -- the reference parameter name
               with_prior_preservation: bool = False, prior_loss_weight: float = 1.0,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+              draws: Optional[Mapping[str, Any]] = None,
+              shard: Optional[RowShard] = None) -> torch.Tensor:
     """The scalar fp32 training loss; differentiable w.r.t. the LoRA trees'
     tensors and ``token_embedding`` (which replaces CLIP's token embedding,
     the TI path).  With prior preservation the batch is [instance; class]
-    stacked along axis 0."""
+    stacked along axis 0.
+
+    With ``shard`` the batch is a data-parallel rank's rows of the global
+    batch and the result is its share of the global loss (the ranks' shares
+    sum to it): the global batch's draws, the face mask normalised by the
+    global mask's mean, and every mean over its global count.  ``draws``
+    may then hold the global batch's rows or the rank's."""
     dev = _device(unet)
     if draws is None:
         draws = draw_inputs(batch, vae=vae, scheduler=scheduler, t_mutliplier=t_mutliplier,
-                            generator=generator)
+                            generator=generator, shard=shard)
+    elif shard is not None:
+        draws = shard_draws(draws, shard, len(batch["input_ids"]))
 
     def get(key):
         return torch.as_tensor(batch[key]).to(dev)
@@ -141,12 +197,22 @@ def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
                           encoder_hidden_states.to(unet.dtype)).float()
 
     target = scheduler.training_target(latents, noise, timesteps)
+    b = model_pred.shape[0]
     if "mask" in batch and batch["mask"] is not None:
-        weights = face_mask_weights(get("mask"), model_pred.shape[0], model_pred.shape[2],
-                                    model_pred.shape[3])
+        mask = get("mask")
+        if shard is None:
+            weights = face_mask_weights(mask, b, model_pred.shape[2], model_pred.shape[3])
+        else:
+            if shard.gather_mask is not None:
+                mask = shard.gather_mask(mask)
+            weights = face_mask_weights(mask, shard.total, model_pred.shape[2],
+                                        model_pred.shape[3])[shard.rows(b)]
         model_pred = model_pred * weights
         target = target * weights
 
+    if shard is not None and (shard.lo, shard.total) != (0, b):
+        return _share((model_pred - target) ** 2, shard, with_prior_preservation,
+                      prior_loss_weight)
     if with_prior_preservation:
         pred_i, pred_p = model_pred.chunk(2, dim=0)
         tgt_i, tgt_p = target.chunk(2, dim=0)

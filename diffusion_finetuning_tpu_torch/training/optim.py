@@ -255,21 +255,48 @@ class MultiGroupOptimizer:
     max_grad_norm: Optional[float] = None
     use_8bit: bool = False
     runtime_lr_scale: bool = False
+    param_labels: Any = None
+
+    def _labelled(self, params: Mapping[str, Any]) -> Dict[str, List[torch.Tensor]]:
+        """{group name: its trainable tensors}, in the order of
+        :func:`trainable_tensors` over ``params``.  ``param_labels`` (a
+        label tree shaped like ``params``, or a callable mapping ``params``
+        to one) names each leaf's group; None labels each top-level subtree
+        with its own name."""
+        labels = self.param_labels
+        if labels is None:
+            labels = {k: k for k in params}
+        elif callable(labels):
+            labels = labels(params)
+        out: Dict[str, List[torch.Tensor]] = {}
+
+        def walk(tree, label, path):
+            if isinstance(label, Mapping):
+                if isinstance(tree, torch.Tensor):
+                    raise ValueError(f"param_labels has a subtree at {path} where the "
+                                     "parameters have a tensor")
+                for key in sorted(tree):
+                    if key != "scale" and tree[key] is not None:
+                        walk(tree[key], label[key], path + (key,))
+                return
+            for t in trainable_tensors(tree):
+                if label not in self.groups:
+                    raise ValueError(f"no ParamGroup for parameters {label!r} (at {path})")
+                out.setdefault(label, []).append(t)
+
+        walk({k: v for k, v in params.items() if v is not None}, labels, ())
+        return dict(sorted(out.items()))
 
     def init(self, params: Mapping[str, Any]) -> OptimizerState:
-        """``params``: {group name: tree of tensors}; the trees' trainable
-        tensors (fp32, requiring grad, on one device) are updated in place
-        by :meth:`step`."""
+        """``params``: {name: tree of tensors}; the trees' trainable tensors
+        (fp32, requiring grad, on one device) are updated in place by
+        :meth:`step`, each in the group ``param_labels`` gives it."""
         groups, layouts, moments, acc, scales = {}, {}, {}, {}, {}
         dev = None
-        for name, tree in sorted(params.items()):
-            if tree is None:
-                continue
-            if name not in self.groups:
-                raise ValueError(f"no ParamGroup for parameters {name!r}")
-            groups[name] = list(trainable_tensors(tree))
-            dev = groups[name][0].device
-            layout = layouts[name] = FlatLayout(groups[name])
+        for name, tensors in self._labelled(params).items():
+            groups[name] = tensors
+            dev = tensors[0].device
+            layout = layouts[name] = FlatLayout(tensors)
             zeros = torch.zeros(layout.numel, dtype=torch.float32, device=dev)
             if self.use_8bit:
                 q, s = quantize_blockwise(zeros)
@@ -360,13 +387,18 @@ class MultiGroupOptimizer:
         return upd
 
 
-def multi_group_optimizer(groups: Mapping[str, ParamGroup], grad_accum_steps: int = 1,
-                          max_grad_norm: Optional[float] = None, use_8bit: bool = False,
+def multi_group_optimizer(groups: Mapping[str, ParamGroup], param_labels: Any = None,
+                          grad_accum_steps: int = 1, max_grad_norm: Optional[float] = None,
+                          use_8bit: bool = False,
                           runtime_lr_scale: bool = False) -> MultiGroupOptimizer:
-    """The reference's multi-LR optimiser: each top-level subtree of the
-    parameters trains in the group of its own name."""
+    """The reference's multi-LR optimiser (JAX :225-267).  ``param_labels``:
+    a tree (or a callable mapping the parameter tree to one) labelling each
+    leaf with a group name, as torch param-group dicts do; a label at an
+    inner node labels every leaf under it, so one top-level subtree may be
+    split over several groups.  None, what every trainer wants, trains each
+    top-level subtree in the group of its own name."""
     return MultiGroupOptimizer(dict(groups), grad_accum_steps, max_grad_norm, use_8bit,
-                               runtime_lr_scale)
+                               runtime_lr_scale, param_labels)
 
 
 def set_lr_scale(opt_state: OptimizerState, group: str, value: float) -> OptimizerState:

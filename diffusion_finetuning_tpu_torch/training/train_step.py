@@ -34,6 +34,12 @@ captures on the first call of a key and replays after that; a graph's
 random draws are made before the replay from the caller's generator, in the
 order the eager step makes them, and copied into static buffers, so a
 replay gives the eager step's result.  On the CPU they run the step eagerly.
+
+With a mesh (``parallel.mesh``, JAX's ``mesh=``) each rank steps on its rows
+of the node's batch and the gradients are summed over the mesh inside the
+step (:func:`reduce_gradients`, one all-reduce of a flat buffer); under
+NCCL that all-reduce is captured in the graph, under gloo the step runs
+eagerly (``cuda_graphs=False``).
 """
 
 from __future__ import annotations
@@ -46,8 +52,10 @@ import torch
 
 from .. import resolve_device
 from ..graph import Graphs
+from ..lora import module_name
 from ..models.layers import kernel_switches
-from .loss import draw_inputs, loss_step
+from ..parallel import mesh as mesh_lib
+from .loss import RowShard, draw_inputs, loss_step
 from .optim import MultiGroupOptimizer, apply_ti_constraints, trainable_tensors
 
 
@@ -114,16 +122,80 @@ def carried_tensors(state: Mapping[str, Any]) -> List[torch.Tensor]:
     return _leaves(state["params"]) + state["opt_state"].tensors() + [state["device_step"]]
 
 
+def _row_shard(mesh, batch) -> RowShard:
+    b = len(batch["input_ids"])
+    lo, total = mesh_lib.batch_rows(mesh, b)
+    return RowShard(lo, total, lambda m: mesh_lib.gather_node_batch(m, mesh))
+
+
+def _split_flags(params: Mapping[str, Any], models: Mapping[str, Any]) -> List[bool]:
+    """For each tensor of :func:`trainable_tensors` over ``params``: whether
+    it is a LoRA leaf of a tensor-parallel layer (``parallel/tp.py``), whose
+    gradient on a rank is a zero-padded partial."""
+    flags: List[bool] = []
+
+    def walk(tree, model, path):
+        if isinstance(tree, torch.Tensor):
+            split = False
+            if model is not None and getattr(model, "_dft_tp_mesh", None) is not None:
+                name = module_name(path[:-1], getattr(model, "lora_prefix", ""))
+                split = hasattr(model.get_submodule(name), "_dft_tp")
+            flags.append(split)
+        elif isinstance(tree, Mapping):
+            for key in sorted(tree):
+                if key != "scale" and tree[key] is not None:
+                    walk(tree[key], model, path + (key,))
+
+    for key in sorted(params):
+        if params[key] is not None:
+            walk(params[key], models.get(key), ())
+    return flags
+
+
+def reduce_gradients(params: Mapping[str, Any], loss: torch.Tensor, mesh,
+                     split: List[bool]) -> torch.Tensor:
+    """Sum the trainable tensors' gradients and the loss shares over the
+    mesh, in place, with one all-reduce of a flat buffer (the trainable set
+    is LoRA and TI rows, small).  Over ``data`` the ranks' gradients of
+    their loss shares add up to the global gradient; over ``tp`` a split
+    layer's leaf (``split``) adds its zero-padded partials, and every other
+    leaf, the same on each ``tp`` rank, is counted once, from ``tp`` rank 0,
+    as is the loss.  Returns the global loss."""
+    tensors = list(trainable_tensors(params))
+    keep = mesh.index("tp") == 0
+    parts = [t.grad.reshape(-1) if t.grad is not None and (s or keep)
+             else torch.zeros(t.numel(), dtype=t.dtype, device=t.device)
+             for t, s in zip(tensors, split)]
+    share = loss.detach().float().reshape(1)
+    flat = torch.cat(parts + [share if keep else torch.zeros_like(share)])
+    mesh_lib.all_reduce(flat, mesh.group)
+    for t, g in zip(tensors, flat[:-1].split([t.numel() for t in tensors])):
+        if t.grad is None:
+            t.grad = g.view_as(t).clone()
+        else:
+            t.grad.copy_(g.view_as(t))
+    return flat[-1]
+
+
 def build_train_step(*, unet, text_encoder, vae, scheduler, optimizer: MultiGroupOptimizer,
                      partition: TrainablePartition, t_mutliplier: float = 1.0,
                      with_prior_preservation: bool = False, prior_loss_weight: float = 1.0,
                      clip_ti_decay: bool = True, ti_lr_schedule: Optional[Callable] = None,
                      grad_accum_steps: int = 1) -> Callable:
-    """``step(state, batch, generator=None, draws=None) -> (state, metrics)``;
-    ``metrics["loss"]`` is a 0-d tensor on the device (reading it syncs).
-    ``draws`` hands ``loss_step`` its random draws; ``step.draws(batch,
-    generator)`` makes the ones a call with ``generator`` would make.
-    ``ti_lr_schedule`` is called on the 0-d device step count."""
+    """``step(state, batch, generator=None, draws=None, mesh=None) -> (state,
+    metrics)``; ``metrics["loss"]`` is a 0-d tensor on the device (reading
+    it syncs).  ``draws`` hands ``loss_step`` its random draws;
+    ``step.draws(batch, generator, mesh=None)`` makes the ones a call with
+    ``generator`` would make.  ``ti_lr_schedule`` is called on the 0-d
+    device step count.
+
+    With ``mesh`` (``parallel.mesh``; bound by :func:`jit_train_step` and
+    :class:`FusedDispatcher`) ``batch`` is this rank's rows of the global
+    batch: the loss is the rank's share of the global loss (the global
+    batch's draws, global denominators; ``training/loss.py``), and between
+    ``backward`` and the update the gradients are summed over the mesh
+    (:func:`reduce_gradients`), before the TI row mask and the clip, in a
+    fixed order.  ``metrics["loss"]`` is then the global loss."""
     if partition.ti and partition.ti_constrained and clip_ti_decay and ti_lr_schedule is None:
         raise ValueError(
             "clip_ti_decay needs ti_lr_schedule (lambda = min(1, 100*lr)); "
@@ -131,7 +203,8 @@ def build_train_step(*, unet, text_encoder, vae, scheduler, optimizer: MultiGrou
     partition = dataclasses.replace(partition)
     constrained = partition.ti and partition.ti_constrained
 
-    def step(state, batch, generator: Optional[torch.Generator] = None, draws=None):
+    def step(state, batch, generator: Optional[torch.Generator] = None, draws=None,
+             mesh=None):
         params = state["params"]
         grads = [t.grad for t in trainable_tensors(params) if t.grad is not None]
         if grads:
@@ -141,8 +214,12 @@ def build_train_step(*, unet, text_encoder, vae, scheduler, optimizer: MultiGrou
             unet_lora=params.get("unet_lora"), text_lora=params.get("text_lora"),
             token_embedding=params["ti_embeddings"] if partition.ti else None,
             t_mutliplier=t_mutliplier, with_prior_preservation=with_prior_preservation,
-            prior_loss_weight=prior_loss_weight, generator=generator, draws=draws)
+            prior_loss_weight=prior_loss_weight, generator=generator, draws=draws,
+            shard=None if mesh is None else _row_shard(mesh, batch))
         loss.backward()
+        if mesh is not None:
+            loss = reduce_gradients(params, loss, mesh, _split_flags(
+                params, {"unet_lora": unet, "text_lora": text_encoder}))
         emb = params["ti_embeddings"]
         if constrained and emb.grad is not None:
             # frozen vocab rows get zero gradient (JAX :171-178)
@@ -164,8 +241,9 @@ def build_train_step(*, unet, text_encoder, vae, scheduler, optimizer: MultiGrou
         state["step"] += 1
         return state, {"loss": loss.detach()}
 
-    step.draws = lambda batch, generator=None: draw_inputs(
-        batch, vae=vae, scheduler=scheduler, t_mutliplier=t_mutliplier, generator=generator)
+    step.draws = lambda batch, generator=None, mesh=None: draw_inputs(
+        batch, vae=vae, scheduler=scheduler, t_mutliplier=t_mutliplier, generator=generator,
+        shard=None if mesh is None else _row_shard(mesh, batch))
     step.device = next(unet.parameters()).device
     return step
 
@@ -200,9 +278,12 @@ def _index(tree: Optional[Mapping[str, Any]], i: int):
     return None if tree is None else {k: None if v is None else v[i] for k, v in tree.items()}
 
 
-def stack_batches(batches):
+def stack_batches(batches, mesh=None):
     """Stack a list of host batches along a new leading axis (the input of
-    :func:`multi_step`): numpy arrays with numpy, tensors with torch."""
+    :func:`multi_step`): numpy arrays with numpy, tensors with torch.  With
+    ``mesh``, each batch's rows of this rank (``parallel.mesh.local_rows``)."""
+    if mesh is not None:
+        batches = [mesh_lib.local_rows(b, mesh) for b in batches]
     first = batches[0]
     return {k: None if first[k] is None else
             (torch.stack([b[k] for b in batches]) if isinstance(first[k], torch.Tensor)
@@ -221,10 +302,23 @@ class _Steps:
     stacked inputs (``stacked``) or on one batch, with fp32 state rounded to
     ``carry_dtype`` before each step and after the last (JAX's hoisted scan
     carry, :308-321).  On the card: one CUDA graph per batch layout and
-    state, captured on first use, replayed after."""
+    state, captured on first use, replayed after (``cuda_graphs`` off:
+    eagerly).  ``mesh`` is passed to the step; a gloo mesh's collectives
+    cannot be captured, so it needs ``cuda_graphs=False`` on the card."""
 
-    def __init__(self, step_fn: Callable, k: int, carry_dtype, stacked: bool):
+    def __init__(self, step_fn: Callable, k: int, carry_dtype, stacked: bool, mesh=None,
+                 cuda_graphs: bool = True):
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, not {type(mesh).__name__}")
         self.step_fn, self.k, self.carry_dtype, self.stacked = step_fn, k, carry_dtype, stacked
+        self.mesh, self.cuda_graphs = mesh, cuda_graphs
+        self._kw = {} if mesh is None else {"mesh": mesh}
+
+    def local(self, batches):
+        """This rank's rows of node batches (stacked: along axis 1)."""
+        if self.mesh is None:
+            return batches
+        return mesh_lib.local_rows(batches, self.mesh, 1 if self.stacked else 0)
 
     def _eager(self, state, batches, generator, draws) -> torch.Tensor:
         floats = ([t for t in carried_tensors(state) if t.dtype == torch.float32]
@@ -240,7 +334,7 @@ class _Steps:
             carry()
             batch, d = ((_index(batches, i), _index(draws, i)) if self.stacked
                         else (batches, draws))
-            state, m = self.step_fn(state, batch, generator, draws=d)
+            state, m = self.step_fn(state, batch, generator, draws=d, **self._kw)
             losses.append(m["loss"])
         carry()
         return torch.stack(losses) if self.stacked else losses[0]
@@ -252,24 +346,27 @@ class _Steps:
             raise ValueError("a captured step needs its draws: pass draws=, or a step "
                              "function with a draws(batch, generator) method")
         if not self.stacked:
-            return make(batches, generator)
-        per_step = [make(_index(batches, i), generator) for i in range(self.k)]
+            return make(batches, generator, **self._kw)
+        per_step = [make(_index(batches, i), generator, **self._kw) for i in range(self.k)]
         return {key: torch.stack([d[key] for d in per_step]) for key in per_step[0]}
 
     def _key(self, state, batches, draws) -> Hashable:
         tensors = carried_tensors(state) + _leaves(state.get("static"))
-        return ((self.k, self.stacked, str(self.carry_dtype)), kernel_switches(),
+        return ((self.k, self.stacked, str(self.carry_dtype), self.mesh), kernel_switches(),
                 _signature(batches), _signature(draws), tuple(map(id, tensors)))
 
     def __call__(self, state, batches, generator=None, draws=None, capture_only=False):
         """Run the steps; returns (state, losses): (k,) when stacked, else
         0-d.  ``capture_only`` captures (on the card) and steps nothing."""
         device = state["device_step"].device
-        if device.type != "cuda":
+        if device.type != "cuda" or not self.cuda_graphs:
             if capture_only:
                 return state, None
             loss = self._eager(state, batches, generator, draws)
             return state, loss
+        if self.mesh is not None and self.mesh.backend == "gloo":
+            raise ValueError("a gloo collective cannot be captured in a CUDA graph; pass "
+                             "cuda_graphs=False for a gloo mesh on the card")
         graphs = _graphs(self.step_fn, device)
         if draws is None:
             draws = self._draws(batches, torch.Generator(device).manual_seed(0)
@@ -299,36 +396,41 @@ class _Steps:
         return state, loss.clone()
 
 
-def jit_train_step(step_fn: Callable, mesh=None) -> Callable:
-    """``(state, batch, generator=None, draws=None) -> (state, metrics)``:
-    ``step_fn`` captured into a CUDA graph on the first call of a batch
-    layout and state, replayed after (JAX :508, the jit boundary).  Its
-    ``aot_compile(state, batch)`` captures without stepping the state (the
-    draws it captures with come from a generator of its own).  Memoised per
-    step function.  Only ``mesh=None``: the port has no ``parallel/`` yet
-    (ROADMAP Queue A item 11)."""
-    if mesh is not None:
-        raise NotImplementedError("jit_train_step(mesh=...) needs the port of parallel/ "
-                                  "(ROADMAP Queue A item 11)")
-    cache = _per_fn_cache(step_fn, "_dft_jit_cache")
-    if "jit" in cache:
-        return cache["jit"]
-    steps = _Steps(step_fn, 1, None, stacked=False)
+def jit_train_step(step_fn: Callable, mesh=None, cuda_graphs: bool = True) -> Callable:
+    """``(state, batch, generator=None, draws=None, local=False) -> (state,
+    metrics)``: ``step_fn`` captured into a CUDA graph on the first call of a
+    batch layout and state, replayed after (JAX :508, the jit boundary).
+    Its ``aot_compile(state, batch)`` captures without stepping the state
+    (the draws it captures with come from a generator of its own).
 
-    def wrapper(state, batch, generator=None, draws=None):
-        state, loss = steps(state, batch, generator, draws)
+    With ``mesh`` (``parallel.mesh``) the step is data- and tensor-parallel
+    over it: ``batch`` is the node's host batch, of which this rank takes
+    its rows (``local=True``: it holds them already), and ``draws``, when
+    given, the global batch's.  Under NCCL the gradient all-reduce is
+    captured in the graph (the warm-up makes the communicator first); a gloo
+    mesh needs ``cuda_graphs=False`` on the card.  Memoised per step
+    function, mesh and ``cuda_graphs``."""
+    cache = _per_fn_cache(step_fn, "_dft_jit_cache")
+    memo = ("jit", mesh, cuda_graphs)
+    if memo in cache:
+        return cache[memo]
+    steps = _Steps(step_fn, 1, None, stacked=False, mesh=mesh, cuda_graphs=cuda_graphs)
+
+    def wrapper(state, batch, generator=None, draws=None, local=False):
+        state, loss = steps(state, batch if local else steps.local(batch), generator, draws)
         return state, {"loss": loss}
 
     def aot_compile(state, batch, generator=None):
-        steps(state, batch, capture_only=True)
+        steps(state, steps.local(batch), capture_only=True)
         return wrapper
 
     wrapper.aot_compile = aot_compile
-    cache["jit"] = wrapper
+    cache[memo] = wrapper
     return wrapper
 
 
-def multi_step(step_fn: Callable, k: int, carry_dtype=None) -> Callable:
+def multi_step(step_fn: Callable, k: int, carry_dtype=None, mesh=None,
+               cuda_graphs: bool = True) -> Callable:
     """Fuse ``k`` train steps into ONE CUDA graph (JAX :274, ``lax.scan``):
     ``(state, batches, generator=None, draws=None) -> (state, metrics)``,
     every ``batches`` leaf (and ``draws`` leaf, when given) ``(k, ...)``,
@@ -339,16 +441,18 @@ def multi_step(step_fn: Callable, k: int, carry_dtype=None) -> Callable:
     of the carried state -- parameters, moments, accumulator, LR scales --
     at that dtype between the k steps and after them, as JAX's hoisted
     carry does; unlike JAX (ROADMAP Queue C) it applies whether or not the
-    state has a ``static`` entry.  Memoised per ``(step_fn, k,
-    carry_dtype)``."""
+    state has a ``static`` entry.  ``mesh``, ``cuda_graphs`` and ``local``
+    as in :func:`jit_train_step` (the batches' second axis holds the rows).
+    Memoised per ``(step_fn, k, carry_dtype, mesh, cuda_graphs)``."""
     cache = _per_fn_cache(step_fn, "_dft_multi_step_cache")
-    memo = (k, None if carry_dtype is None else str(carry_dtype))
+    memo = (k, None if carry_dtype is None else str(carry_dtype), mesh, cuda_graphs)
     if memo in cache:
         return cache[memo]
-    steps = _Steps(step_fn, k, carry_dtype, stacked=True)
+    steps = _Steps(step_fn, k, carry_dtype, stacked=True, mesh=mesh, cuda_graphs=cuda_graphs)
 
-    def fused(state, batches, generator=None, draws=None):
-        state, losses = steps(state, batches, generator, draws)
+    def fused(state, batches, generator=None, draws=None, local=False):
+        state, losses = steps(state, batches if local else steps.local(batches), generator,
+                              draws)
         return state, {"loss": losses}
 
     cache[memo] = fused
@@ -361,15 +465,15 @@ class FusedDispatcher:
     (the run's tail) runs step by step through :func:`jit_train_step`, and a
     recurring group size gets its own graph on its second sight.  A group
     draws the same random numbers either way, so it gives the same result.
-    Only ``mesh=None`` (ROADMAP Queue A item 11)."""
+    ``mesh`` and ``cuda_graphs`` as in :func:`jit_train_step`: the groups
+    are the node's host batches, each rank steps on its rows."""
 
-    def __init__(self, step_fn: Callable, spd: int = 1, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("FusedDispatcher(mesh=...) needs the port of "
-                                      "parallel/ (ROADMAP Queue A item 11)")
+    def __init__(self, step_fn: Callable, spd: int = 1, mesh=None, cuda_graphs: bool = True):
         self.spd = max(1, spd)
         self._step_fn = step_fn
-        self.jitted = jit_train_step(step_fn) if self.spd == 1 else multi_step(step_fn, self.spd)
+        self.mesh, self.cuda_graphs = mesh, cuda_graphs
+        self.jitted = (jit_train_step(step_fn, mesh, cuda_graphs) if self.spd == 1
+                       else multi_step(step_fn, self.spd, mesh=mesh, cuda_graphs=cuda_graphs))
         self._fused = {self.spd: self.jitted} if self.spd > 1 else {}
         self._size_seen: Dict[int, int] = {}
         self._tail = self.jitted if self.spd == 1 else None
@@ -385,7 +489,8 @@ class FusedDispatcher:
         print(f"FusedDispatcher: compiling a second fused executable for recurring group "
               f"size {n} (spd={self.spd}); pick steps_per_dispatch dividing the save/eval "
               f"window to avoid the extra compile")
-        fn = self._fused[n] = multi_step(self._step_fn, n)
+        fn = self._fused[n] = multi_step(self._step_fn, n, mesh=self.mesh,
+                                         cuda_graphs=self.cuda_graphs)
         return fn
 
     def prepare(self, group):
@@ -398,7 +503,7 @@ class FusedDispatcher:
         n = len(group)
         if self.spd == 1 or n <= 1 or n not in self._fused:
             return None
-        batches = stack_batches(group)
+        batches = stack_batches(group, self.mesh)
         device = getattr(self._step_fn, "device", None)
         if device is None or device.type != "cuda":
             return (n, batches, None, None)
@@ -457,12 +562,13 @@ class FusedDispatcher:
                         if t is not None:
                             t.record_stream(stream)
             else:
-                batches = stack_batches(group)
+                batches = stack_batches(group, self.mesh)
             state, metrics = fn(state, batches, generator,
-                                draws=None if draws is None else stack_batches(draws))
+                                draws=None if draws is None else stack_batches(draws),
+                                local=True)
             return state, metrics["loss"]
         if self._tail is None:
-            self._tail = jit_train_step(self._step_fn)
+            self._tail = jit_train_step(self._step_fn, self.mesh, self.cuda_graphs)
         losses = []
         for i, batch in enumerate(group):
             state, metrics = self._tail(state, batch, generator,

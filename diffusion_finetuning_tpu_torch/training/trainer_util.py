@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..models import hf_loading
+from ..parallel.mesh import is_main_process
 from ..models.clip_text import TOKEN_EMBEDDING
 from ..models.vae import AutoencoderKL
 from ..models.weights import load_module
@@ -88,12 +89,16 @@ def enable_gradient_checkpointing(pipe) -> None:
     pipe.unet.config = pipe.unet_config
 
 
-def check_tensor_parallel(tensor_parallel: int) -> None:
-    if tensor_parallel > 1:
-        raise ValueError(
-            f"tensor_parallel={tensor_parallel}: splitting the frozen projections over "
-            "a tp mesh axis needs the port of parallel/ (ROADMAP Queue A item 11); "
-            "the port trains on one device")
+def main_print(*args, **kwargs) -> None:
+    """``print`` on global rank 0 only (the trainers' I/O gating)."""
+    if is_main_process():
+        print(*args, **kwargs)
+
+
+def mesh_graphs(mesh) -> bool:
+    """Whether a trainer's steps may be captured in CUDA graphs on this
+    mesh: not under gloo, whose collectives cannot be captured."""
+    return mesh is None or mesh.backend != "gloo"
 
 
 def compute_dtype(mixed_precision: Optional[str]) -> torch.dtype:

@@ -20,9 +20,13 @@ surface 168-483 and main 486-1003).
 
 Run: ``python -m diffusion_finetuning_tpu_torch.training_scripts.train_lora_dreambooth
 --pretrained_model_name_or_path MODEL --instance_data_dir DIR --instance_prompt
-"a photo of sks dog" [--flag value ...]``.  One device (the card; ``main(args,
-device="cpu")`` runs the plain versions on the CPU); ``--tensor_parallel`` > 1
-raises.
+"a photo of sks dog" [--flag value ...]`` on one card (``main(args,
+device="cpu")`` runs the plain versions on the CPU), ``torchrun
+--nproc_per_node N -m diffusion_finetuning_tpu_torch.training_scripts.
+train_lora_dreambooth ...`` on N: the ranks form ``trainer_mesh`` (``data``
+over as many ranks as the per-step batch divides, ``--tensor_parallel``
+ranks splitting the frozen UNet/CLIP projections), each steps on its rows of
+the batch, and rank 0 alone prints, logs and saves.
 """
 
 from __future__ import annotations
@@ -39,18 +43,19 @@ import numpy as np
 import torch
 
 from .. import lora as lora_lib
-from .. import resolve_device
 from ..data.dataset import DataLoader, DreamBoothDataset, PromptDataset
 from ..models.clip_text import text_encoder_lora_targets
 from ..models.schedulers import DDPMScheduler
 from ..models.unet import unet_lora_targets
+from ..parallel import mesh as mesh_lib
+from ..parallel import tp as tp_lib
 from ..pipelines.pipeline import StableDiffusionPipeline
 from ..training import checkpoint as ckpt_lib
 from ..training.optim import ParamGroup, lr_schedule, multi_group_optimizer
 from ..training.train_step import (FusedDispatcher, TrainablePartition, build_train_step,
                                    init_train_state)
-from ..training.trainer_util import (DispatchLog, check_tensor_parallel, compute_dtype,
-                                     enable_gradient_checkpointing, host_tree, load_vae)
+from ..training.trainer_util import (DispatchLog, compute_dtype, enable_gradient_checkpointing,
+                                     host_tree, load_vae, main_print, mesh_graphs)
 from ..utils.profiling import MetricLogger, StepTimer
 
 
@@ -91,7 +96,7 @@ def parse_args(input_args=None):
     a("--steps_per_dispatch", type=int, default=1)
     a("--tensor_parallel", type=int, default=1,
       help="split the frozen UNet/CLIP projections over a tp mesh axis of "
-           "this size (needs the port of parallel/; only 1 runs)")
+           "this size (ranks: torchrun --nproc_per_node)")
     a("--gradient_checkpointing", action="store_true")
     a("--lora_rank", type=int, default=4)
     a("--learning_rate", type=float, default=5e-6)
@@ -166,9 +171,14 @@ def synthesize_class_images(args, pipe: StableDiffusionPipeline):
 def main(args, device="cuda"):
     """Train; returns the final train state, with ``state["log"]``: the
     dispatch summary (``trainer_util.DispatchLog``), the full-state
-    checkpoint save and restore ms, and the step a resumed run started at."""
-    check_tensor_parallel(args.tensor_parallel)
-    dev = resolve_device(device)
+    checkpoint save and restore ms, and the step a resumed run started at.
+    Under a process group (torchrun) every rank calls it."""
+    dev = mesh_lib.rank_device(device)
+    # the data axis over as many ranks as the per-step batch divides (prior
+    # preservation doubles it); tensor_parallel ranks split the projections
+    eff_batch = args.train_batch_size * (2 if args.with_prior_preservation else 1)
+    mesh = mesh_lib.trainer_mesh(eff_batch, args.tensor_parallel, device=dev)
+    print = main_print  # rank 0 alone prints
     if args.seed is not None:
         np.random.seed(args.seed)
     generator = torch.Generator(device=dev).manual_seed(args.seed or 0)
@@ -188,7 +198,9 @@ def main(args, device="cuda"):
               "build has no hub access; outputs stay in --output_dir.")
 
     if args.with_prior_preservation:
-        synthesize_class_images(args, pipe)
+        if mesh_lib.is_main_process():
+            synthesize_class_images(args, pipe)
+        mesh_lib.barrier("class images")
 
     if args.gradient_checkpointing:
         enable_gradient_checkpointing(pipe)
@@ -233,9 +245,11 @@ def main(args, device="cuda"):
     num_train_epochs = math.ceil(args.max_train_steps / steps_per_epoch)
 
     if args.scale_lr:
-        lr = args.learning_rate * args.gradient_accumulation_steps * args.train_batch_size
+        nodes = mesh_lib.process_count()
+        lr = (args.learning_rate * args.gradient_accumulation_steps * args.train_batch_size
+              * nodes)
         lr_text = (args.learning_rate_text * args.gradient_accumulation_steps
-                   * args.train_batch_size)
+                   * args.train_batch_size * nodes)
     else:
         lr, lr_text = args.learning_rate, args.learning_rate_text
 
@@ -270,11 +284,15 @@ def main(args, device="cuda"):
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             run_log["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    tp_lib.shard_models(mesh, pipe.unet, pipe.text_encoder)
+    if mesh is not None:
+        state = mesh_lib.shard_tree(state, mesh_lib.tp_state_shardings(mesh, state), mesh)
     params = state["params"]
 
-    dispatcher = FusedDispatcher(step_fn, spd=spd)
+    dispatcher = FusedDispatcher(step_fn, spd=spd, mesh=mesh, cuda_graphs=mesh_graphs(mesh))
 
-    total_batch = args.train_batch_size * args.gradient_accumulation_steps
+    total_batch = (args.train_batch_size * mesh_lib.process_count()
+                   * args.gradient_accumulation_steps)
     print("***** Running training *****")
     print(f"  Num examples = {len(train_dataset)}")
     print(f"  Num Epochs = {num_train_epochs}")
@@ -292,7 +310,8 @@ def main(args, device="cuda"):
 
     # loss/lr scalars to tensorboard (reference: accelerator.log,
     # train_lora_dreambooth.py:959-961) and rolling step-time statistics
-    logger = MetricLogger(log_dir=os.path.join(args.output_dir, args.logging_dir))
+    logger = MetricLogger(log_dir=os.path.join(args.output_dir, args.logging_dir)
+                          if mesh_lib.is_main_process() else None)
     timer = StepTimer()
     lr_now = lr_schedule(args.lr_scheduler, lr, args.lr_warmup_steps, args.max_train_steps)
 
@@ -349,7 +368,8 @@ def main(args, device="cuda"):
                   f"loss={loss:.4f} ({timer.steps_per_sec:.2f} steps/s)")
             logger.log({"loss": loss, "lr": float(lr_now(global_step)),
                         "steps_per_sec": timer.steps_per_sec}, global_step)
-        if args.save_steps and global_step - last_save >= args.save_steps:
+        if (args.save_steps and global_step - last_save >= args.save_steps
+                and mesh_lib.is_main_process()):
             save_periodic(epoch, global_step)
             if args.full_state_checkpoint_dir:
                 t0 = time.perf_counter()
@@ -359,12 +379,16 @@ def main(args, device="cuda"):
             last_save = global_step
         log.resume()
 
+    mesh_lib.barrier("end of training")
     logger.close()
     run_log["dispatch"] = log.summary()
     del dispatcher, step_fn
     gc.collect()
     print("\n\nLora TRAINING DONE!\n\n")
 
+    if not mesh_lib.is_main_process():
+        state["log"] = run_log
+        return state
     if args.output_format in ("pt", "both"):
         lora_lib.save_lora_weight(params["unet_lora"], unet_targets,
                                   args.output_dir + "/lora_weight.pt")

@@ -21,7 +21,9 @@ LoRA, TI embeddings):
 
 Run: ``python -m diffusion_finetuning_tpu_torch.training_scripts.train_lora_w_ti
 --pretrained_model_name_or_path MODEL --instance_data_dir DIR --placeholder_token
-"<krk>" --initializer_token dog [--flag value ...]``.
+"<krk>" --initializer_token dog [--flag value ...]``; ``torchrun
+--nproc_per_node N -m ...`` spreads it over N ranks as the DreamBooth
+trainer does (``trainer_mesh``, rank 0's I/O only).
 """
 
 from __future__ import annotations
@@ -34,16 +36,17 @@ import os
 import torch
 
 from .. import lora as lora_lib
-from .. import resolve_device
 from ..data.dataset import DataLoader, DreamBoothTiDataset
 from ..models.clip_text import TOKEN_EMBEDDING, resize_token_embeddings, text_encoder_lora_targets
 from ..models.schedulers import DDPMScheduler
 from ..models.unet import unet_lora_targets
+from ..parallel import mesh as mesh_lib
+from ..parallel import tp as tp_lib
 from ..pipelines.pipeline import StableDiffusionPipeline
 from ..training.optim import ParamGroup, StepGate, lr_schedule, multi_group_optimizer
 from ..training.train_step import (FusedDispatcher, TrainablePartition, build_train_step,
                                    init_train_state)
-from ..training.trainer_util import (DispatchLog, check_tensor_parallel, compute_dtype,
+from ..training.trainer_util import (DispatchLog, compute_dtype, main_print, mesh_graphs,
                                      enable_gradient_checkpointing, host_tree,
                                      install_token_table, load_vae, token_table)
 from ..utils.profiling import MetricLogger, StepTimer
@@ -89,7 +92,7 @@ def parse_args(input_args=None):
     a("--steps_per_dispatch", type=int, default=1)
     a("--tensor_parallel", type=int, default=1,
       help="split the frozen UNet/CLIP projections over a tp mesh axis of "
-           "this size (needs the port of parallel/; only 1 runs)")
+           "this size (ranks: torchrun --nproc_per_node)")
     a("--gradient_checkpointing", action="store_true")
     a("--lora_rank", type=int, default=4)
     a("--learning_rate", type=float, default=5e-6)
@@ -129,8 +132,10 @@ def main(args, dataset_cls=None, device="cuda"):
     dispatch summary)."""
     if dataset_cls is None:
         dataset_cls = DreamBoothTiDataset
-    check_tensor_parallel(args.tensor_parallel)
-    dev = resolve_device(device)
+    dev = mesh_lib.rank_device(device)
+    eff_batch = args.train_batch_size * (2 if args.with_prior_preservation else 1)
+    mesh = mesh_lib.trainer_mesh(eff_batch, args.tensor_parallel, device=dev)
+    print = main_print  # rank 0 alone prints
     generator = torch.Generator(device=dev).manual_seed(args.seed or 0)
     pipe = StableDiffusionPipeline.from_pretrained(
         args.pretrained_model_name_or_path, dtype=compute_dtype(args.mixed_precision),
@@ -144,7 +149,9 @@ def main(args, dataset_cls=None, device="cuda"):
         load_vae(pipe, args.pretrained_vae_name_or_path)
     if args.with_prior_preservation:
         # synthesize the shortfall of class images (reference 671-688)
-        synthesize_class_images(args, pipe)
+        if mesh_lib.is_main_process():
+            synthesize_class_images(args, pipe)
+        mesh_lib.barrier("class images")
     tokenizer = pipe.tokenizer
 
     # install the placeholder token, its row from the (single-token) initializer
@@ -196,7 +203,8 @@ def main(args, dataset_cls=None, device="cuda"):
 
     lr, lr_text, lr_ti = args.learning_rate, args.learning_rate_text, args.learning_rate_ti
     if args.scale_lr:
-        scale = args.gradient_accumulation_steps * args.train_batch_size
+        scale = (args.gradient_accumulation_steps * args.train_batch_size
+                 * mesh_lib.process_count())
         lr, lr_text, lr_ti = lr * scale, lr_text * scale, lr_ti * scale
 
     unfreeze = args.unfreeze_lora_step
@@ -233,8 +241,12 @@ def main(args, dataset_cls=None, device="cuda"):
     state = init_train_state(optimizer, unet_lora=unet_lora, text_lora=text_lora,
                              ti_embeddings=emb, index_updates=index_updates, device=dev)
     del unet_lora, text_lora
+    tp_lib.shard_models(mesh, pipe.unet, pipe.text_encoder)
+    if mesh is not None:
+        state = mesh_lib.shard_tree(state, mesh_lib.tp_state_shardings(mesh, state), mesh)
     params = state["params"]
-    dispatcher = FusedDispatcher(step_fn, spd=max(1, args.steps_per_dispatch))
+    dispatcher = FusedDispatcher(step_fn, spd=max(1, args.steps_per_dispatch), mesh=mesh,
+                                 cuda_graphs=mesh_graphs(mesh))
 
     print("***** Running training *****")
     print(f"  Num examples = {len(train_dataset)}")
@@ -246,7 +258,8 @@ def main(args, dataset_cls=None, device="cuda"):
 
     # loss, per-group lr and steps/s to tensorboard (reference
     # train_lora_w_ti.py:645, 1161)
-    logger = MetricLogger(log_dir=os.path.join(args.output_dir, args.logging_dir))
+    logger = MetricLogger(log_dir=os.path.join(args.output_dir, args.logging_dir)
+                          if mesh_lib.is_main_process() else None)
     timer = StepTimer()
     base_lrs = {name: lr_schedule(args.lr_scheduler, value, args.lr_warmup_steps,
                                   args.max_train_steps)
@@ -319,16 +332,21 @@ def main(args, dataset_cls=None, device="cuda"):
                   f"loss={loss:.4f} ({timer.steps_per_sec:.2f} steps/s)")
             logger.log({"loss": loss, "steps_per_sec": timer.steps_per_sec,
                         **lrs_at(global_step)}, global_step)
-        if args.save_steps and global_step - last_save >= args.save_steps:
+        if (args.save_steps and global_step - last_save >= args.save_steps
+                and mesh_lib.is_main_process()):
             save_periodic(epoch, global_step)
             last_save = global_step
         log.resume()
 
+    mesh_lib.barrier("end of training")
     logger.close()
     run_log = {"dispatch": log.summary()}
     del dispatcher, step_fn
     gc.collect()
     print("\n\nLora TRAINING DONE!\n\n")
+    state["log"] = run_log
+    if not mesh_lib.is_main_process():
+        return state
 
     row = placeholder_row()
     if args.output_format in ("pt", "both"):
@@ -342,7 +360,6 @@ def main(args, dataset_cls=None, device="cuda"):
         lora_lib.save_all(host_tree(params["unet_lora"]), host_tree(params["text_lora"]),
                           unet_targets, text_targets, {args.placeholder_token: row},
                           args.output_dir + "/lora_weight.safetensors")
-    state["log"] = run_log
     return state
 
 

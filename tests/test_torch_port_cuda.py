@@ -1685,3 +1685,102 @@ def test_lora_distill_refuses_to_start_without_a_card(card, monkeypatch, tmp_pat
         cli_svd.svd_distill(str(tmp_path / "absent"), str(tmp_path / "absent"),
                             save_path=str(tmp_path / "x.pt"))
     assert not (tmp_path / "x.pt").exists()
+
+
+# ---------------------------------------------------------------------------
+# K2 on tensor-parallel shards (parallel/tp.py): two gloo ranks on one card
+# ---------------------------------------------------------------------------
+
+# (kind, M, K, N, halves): column layers (to_q at 64^2, attn2's to_k on the
+# 77x2 text rows, GEGLU's proj with its [hidden; gate] halves) and row layers
+# (to_out at the three widths)
+TP_K2_CASES = [("col", 8192, 320, 320, 1), ("col", 154, 768, 320, 1),
+               ("col", 8192, 320, 2560, 2), ("row", 8192, 320, 320, 1),
+               ("row", 2048, 640, 640, 1), ("row", 512, 1280, 1280, 1)]
+
+
+def tp_k2_rank(rank, work, device="cuda:0"):
+    """One rank of :func:`test_tp_k2_shards_sum_to_the_unsplit_call`: each
+    case's LoRALinear split for this rank (the gloo tp group of 2, both
+    ranks on cuda:0) and run through its tensor-parallel forward (K2 on the
+    shard; a row layer's halves all-reduced); a column layer's output is
+    gathered.  Rank 0 also writes the unsplit K2 call and the plain
+    version."""
+    from diffusion_finetuning_tpu_torch.parallel import mesh as mesh_lib
+    from diffusion_finetuning_tpu_torch.parallel import tp as tp_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh_lib.initialize_distributed(f"file://{work}/rendezvous", 2, rank, backend="gloo",
+                                    device=device)
+    mesh = mesh_lib.make_mesh(2, ("data", "tp"), (1, 2), device=device)
+    out = {}
+    launched = tlm.launches
+    for i, (kind, m, kdim, n, halves) in enumerate(TP_K2_CASES):
+        x, w, b, up, down = _lora_inputs(torch.device(device), m, kdim, n, 4, 40 + i)
+        lin = LoRALinear(kdim, n).to(device, torch.bfloat16)
+        with torch.no_grad():
+            lin.weight.copy_(w)
+            lin.bias.copy_(b)
+        lin.set_lora(up, down, 0.8)
+        with torch.inference_mode():
+            if rank == 0:
+                out[f"full{i}"] = lin(x).float().cpu().numpy()
+                out[f"plain{i}"] = tlm.lora_dense_plain(x, w, b, up, down,
+                                                        0.8).float().cpu().numpy()
+            tp_lib._split(lin, kind, tp_lib._blocks(n if kind == "col" else kdim, 2, rank,
+                                                    halves), mesh.groups["tp"])
+            xs = x if kind == "col" else x[:, lin._dft_tp.index.to(x.device)]
+            y = lin(xs)
+            if kind == "col":  # each rank's columns into their places
+                buf = torch.zeros((m, n), dtype=y.dtype, device=y.device)
+                buf[:, lin._dft_tp.index.to(y.device)] = y
+                y = mesh_lib.all_reduce(buf, mesh.groups["tp"])
+        out[f"split{i}"] = y.float().cpu().numpy()
+    out["launches"] = np.array(tlm.launches - launched)
+    np.savez(f"{work}/rank{rank}.npz", **out)
+    mesh_lib.barrier()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_k2_shards_sum_to_the_unsplit_call(card, tmp_path):
+    """K2 on column and row shards (tp = 2, two gloo ranks sharing the
+    card), gathered or summed, against the unsplit K2 call and the plain
+    version, as max |err| in bf16 ulps of the largest reference value (one
+    ulp is at most 2^-7 of a value) and 2e-2 relative L2.  A column shard
+    computes the unsplit call's sums, maybe in another split of K: two ulps
+    (each side within one of the plain sums).  A row layer's two halves each
+    round to bf16, their bf16 sum and the bias add round again, where the
+    unsplit call rounds once: three ulps."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # by path: an installed package named "tests" may shadow the repo's
+    code = (f"import sys; sys.path.insert(0, {os.path.join(repo, 'tests')!r}); "
+            "from test_torch_port_cuda import tp_k2_rank; "
+            f"tp_k2_rank(int(sys.argv[1]), {str(tmp_path)!r})")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], cwd=repo,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], "\n".join(logs)
+    r0, r1 = (np.load(tmp_path / f"rank{r}.npz") for r in range(2))
+    faults = []
+    for i, case in enumerate(TP_K2_CASES):
+        got = r0[f"split{i}"]
+        if not np.array_equal(got, r1[f"split{i}"]):
+            faults.append(f"{case}: the ranks' results differ")
+        ulps = 2 if case[0] == "col" else 3
+        for name in ("full", "plain"):
+            ref = r0[f"{name}{i}"]
+            err, bound = float(np.abs(got - ref).max()), ulps * 2 ** -7 * np.abs(ref).max()
+            rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+            if not (err <= bound and rel <= 2e-2):
+                faults.append(f"{case} vs {name}: max |err| {err:.4g} (bound {bound:.4g}), "
+                              f"rel L2 {rel:.3g}")
+    assert not faults, "\n".join(faults)
+    # every case launched K2 once on each rank (and the unsplit call on rank 0)
+    assert int(r0["launches"]) == 2 * len(TP_K2_CASES)
+    assert int(r1["launches"]) == len(TP_K2_CASES)

@@ -189,10 +189,12 @@ def test_fused_dispatcher_drive_matches_jax(setup, capsys):
 
 
 def test_dispatcher_and_jit_reject_a_mesh(setup):
+    """A mesh must be the port's ``parallel.mesh.Mesh`` (a JAX mesh, say, is
+    refused); the port's own meshes run in tests/test_torch_port_parallel.py."""
     _, tstep, _ = setup
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="parallel.mesh"):
         ttrain.FusedDispatcher(tstep, spd=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(TypeError, match="parallel.mesh"):
         ttrain.jit_train_step(tstep, mesh=object())
 
 
