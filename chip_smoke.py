@@ -148,7 +148,24 @@ Phases, each fatal on failure:
      PAR_TP_REL_L2, each rank launching 32 K1 and 144 K2; (c) one graphed
      DreamBooth step through a one-rank NCCL mesh passed to
      ``FusedDispatcher`` (the gradient all-reduce captured in the CUDA
-     graph), equal bit for bit to the mesh-free graphed step.
+     graph), equal bit for bit to the mesh-free graphed step;
+ 12. SD 2.1 (stabilityai/stable-diffusion-2-1, 768-v) at its published
+     widths (``sd21_configs``: heads of 64 in every block, cross-attention
+     width 1024, linear proj_in/proj_out, OpenCLIP ViT-H text tower,
+     v-prediction), seeded random weights rounded to bf16 once, a rank-4
+     LoRA: (a) ``save_pretrained`` / ``from_pretrained`` (every SD2 field
+     read back, every tensor equal); (b) a CFG UNet step at 96x96 latents,
+     eager (32 K1, 144 K2) and graphed (equal), against the CPU fp32 UNet
+     within UNET_REL_L2; (c) 128^2 3-step txt2img against the CPU fp32 pipe
+     within PIPE_MEAN_ABS; (d) the 768^2 50-step image, SD21_EAGER eager and
+     SD21_GRAPHED graphed calls after the capturing one, every graphed image
+     equal to the eager one; (e) one bf16 ``loss_step`` + backward at 768^2
+     under the v target against the CPU fp32 one within TRAIN_GRAD_REL_L2,
+     then ``jit_train_step``: the capture and SD21_TRAIN_REPLAYS timed
+     replays; (f) ``train_lora_dreambooth`` from (a)'s directory at 768^2 in
+     fp32, SD21_DB_STEPS steps at SD21_DB_SPD a graph.  Launches exact in
+     each; phase 2's ``sd21_rows`` time K1, K3 and K2 (bf16 and fp32) at
+     these shapes in rows of their own.
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -554,7 +571,189 @@ def phase_kernels():
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
     results["lora_dense"] = lora_rows(gen, flush, iters)
     results.update(fp32_rows(gen, flush, iters))
+    for name, rows in sd21_rows(gen, flush, iters).items():
+        results[name] += rows
     return results
+
+
+# SD 2.1 at 768^2 (96x96 latents): every transformer block has heads of 64
+# (5, 10, 20, 20 heads at widths 320, 640, 1280, 1280), cross-attention over
+# 77 OpenCLIP tokens of width 1024.  (BH, Sq, Skv, d, calls) of a CFG UNet
+# step (batch 2); a train step runs the same calls at batch 1
+SD21_FLASH = []
+# (M, K, N, calls) of the LoRA'd projections of a CFG UNet step, as
+# LORA_SHAPES; and of a train step (batch 1)
+SD21_LORA, SD21_LORA_TRAIN = [], []
+for _s, _h, _c, _blocks in ((9216, 5, 320, 5), (2304, 10, 640, 5), (576, 20, 1280, 5),
+                            (144, 20, 1280, 1)):
+    SD21_FLASH += [(2 * _h, _s, _s, 64, _blocks), (2 * _h, _s, 77, 64, _blocks)]
+    for _b, _shapes in ((2, SD21_LORA), (1, SD21_LORA_TRAIN)):
+        _shapes += [(_b * _s, _c, _c, 6 * _blocks), (77 * _b, 1024, _c, 2 * _blocks),
+                    (_b * _s, _c, 8 * _c, _blocks)]
+assert sum(r[4] for r in SD21_FLASH) == FLASH_PER_STEP
+assert sum(r[3] for r in SD21_LORA) == sum(r[3] for r in SD21_LORA_TRAIN) == LORA_PER_STEP
+
+
+def sd21_rows(gen, flush, iters):
+    """K1, K3 and K2, bf16 and fp32, at SD 2.1's shapes (phase 12's path):
+    rows of their own (``model`` "sd21"; ``per_step`` 0, so the SD1.5 sums
+    keep their meaning; ``sd21_per_step`` the calls of a 768^2 CFG UNet
+    step, or of a train step for K3, and K2's ``sd21_train_per_step``).
+    Each against its plain version within the gate of its SD1.5 rows, a
+    second run equal bit for bit; its time beside the plain version's, one
+    library call's (SDPA, SDPA's backward, ``addmm`` plus the low-rank
+    product) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
+    from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
+
+    dev = torch.device("cuda")
+    out = {name: [] for name in ("flash_attention_fwd", "flash_attention_fwd_fp32",
+                                 "flash_attention_bwd", "flash_attention_bwd_fp32",
+                                 "lora_dense", "lora_dense_fp32")}
+
+    def finish(name, row, errs_ok, desc):
+        row.update(model="sd21", per_step=0)
+        out[name].append(row)
+        log(f"sd21 {name} {desc}: max_abs={row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} "
+            f"repeat equal {row['repeat_equal']} ms={row['ms']:.4f} plain={row['plain_ms']:.3f} "
+            f"library={row['library_ms']:.4f} bound={row['bound_ms']:.4f} ({row['bound_by']}) "
+            f"{'ok' if errs_ok else 'FAIL'}")
+        if not errs_ok:
+            fail(f"{name} disagrees with its plain version at SD 2.1's {row['shape']}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        for bh, sq, skv, d, count in SD21_FLASH:
+            q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev, dtype=dtype)
+                       for n in (sq, skv, skv))
+            with torch.inference_mode():
+                o, lse = fa.flash_fwd(q, k, v, d ** -0.5, head_pack=1)
+                again = fa.flash_fwd(q, k, v, d ** -0.5, head_pack=1)
+                o_ref, lse_ref = fa.flash_attention_plain(q, k, v, d ** -0.5)
+                torch.cuda.synchronize()
+                mx, rel = errors(o, o_ref)
+                lse_err = float((lse - lse_ref).abs().max())
+                tol = FLASH_F32_TOL if f32 else FLASH_TOL
+                same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+                ok = (same and mx <= tol["max_abs"] and rel <= tol["rel_l2"]
+                      and lse_err <= tol["lse_abs"] and bool(torch.isfinite(o).all()))
+                ms = cuda_time(lambda: fa._fwd_cuda(q, k, v, d ** -0.5), iters, flush)
+                plain_ms = cuda_time(lambda: fa.flash_attention_plain(q, k, v, d ** -0.5), 3,
+                                     flush, hide_host=False)
+                q4, k4, v4 = (t.reshape(2, bh // 2, -1, d) for t in (q, k, v))
+                lib_ms = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4), iters,
+                                   flush)
+            flops = 4 * bh * sq * skv * d
+            nbytes = q.element_size() * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq
+            b_ms, by = bound_f32(flops, nbytes)[:2] if f32 else bound(flops, nbytes)
+            finish("flash_attention_fwd_fp32" if f32 else "flash_attention_fwd",
+                   dict(shape=[bh, sq, skv, d], sd21_per_step=count, max_abs_err=mx, rel_l2=rel,
+                        lse_abs_err=lse_err, repeat_equal=same, ms=ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
+                        q_tile=fa.fwd_q_tile(bh, sq)), ok,
+                   f"BH={bh} Sq={sq} Skv={skv} d={d} x{count}")
+            del q, k, v, o, lse, again, o_ref, lse_ref, q4, k4, v4
+        for bh2, sq, skv, d, count in SD21_FLASH:
+            bh = bh2 // 2  # a train step: batch 1
+            q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev, dtype=dtype)
+                           for n in (sq, skv, skv, sq))
+            with torch.inference_mode():
+                o, lse = fa.flash_fwd(q, k, v, d ** -0.5)
+                delta = fa._delta(o, do)
+                got = fa.flash_bwd(q, k, v, o, lse, do, d ** -0.5)
+                again = fa.flash_bwd(q, k, v, o, lse, do, d ** -0.5)
+                want = fa.flash_backward_plain(q, k, v, o, lse, do, d ** -0.5)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                errs = [rel_errors(a, b) for a, b in zip(got, want)]
+                ok = f32_ok(errs, FLASH_BWD_F32_TOL if f32 else FLASH_BWD_TOL, same,
+                            *(bool(torch.isfinite(a).all()) for a in got))
+                ms = cuda_time(lambda: fa._bwd_cuda(q, k, v, lse, delta, do, d ** -0.5), iters,
+                               flush)
+                plain_ms = cuda_time(lambda: fa.flash_backward_plain(q, k, v, o, lse, do,
+                                                                     d ** -0.5),
+                                     3, flush, hide_host=False)
+            q4, k4, v4 = (t.reshape(1, bh, -1, d).detach().requires_grad_(True)
+                          for t in (q, k, v))
+            out4 = F.scaled_dot_product_attention(q4, k4, v4)
+            do4 = do.reshape(1, bh, sq, d)
+            lib_ms = cuda_time(lambda: torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                                           retain_graph=True), iters, flush)
+            flops = 10 * bh * sq * skv * d
+            nbytes = q.element_size() * bh * (3 * sq + 4 * skv) * d + 8 * bh * sq
+            b_ms, by = bound_f32(flops, nbytes)[:2] if f32 else bound(flops, nbytes)
+            finish("flash_attention_bwd_fp32" if f32 else "flash_attention_bwd",
+                   dict(shape=[bh, sq, skv, d], sd21_per_step=count,
+                        max_abs_err=max(e[0] for e in errs), rel_l2=max(e[2] for e in errs),
+                        errors={n: dict(max_abs=e[0], max_rel=e[1], rel_l2=e[2])
+                                for n, e in zip(("dq", "dk", "dv"), errs)},
+                        repeat_equal=same, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=by,
+                        q_splits=fa.bwd_q_splits(bh, sq, skv, d,
+                                                 fa.bwd_q_rows_f32(d) if f32 else None)),
+                   ok, f"BH={bh} Sq={sq} Skv={skv} d={d} x{count} (train step)")
+            del q, k, v, do, o, lse, delta, got, again, want, q4, k4, v4, out4
+        for kind, shapes in (("serve", SD21_LORA), ("train", SD21_LORA_TRAIN)):
+            for m, kdim, n, count in shapes:
+                x = torch.randn((m, kdim), generator=gen, device=dev).to(dtype)
+                w = (torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5).to(dtype)
+                b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(dtype)
+                up = (torch.randn((n, LORA_RANK), generator=gen, device=dev) * 0.1).to(dtype)
+                down = (torch.randn((LORA_RANK, kdim), generator=gen, device=dev)
+                        / LORA_RANK).to(dtype)
+                scale = torch.tensor(0.8, device=dev)
+                with torch.inference_mode():
+                    y = lm.lora_dense(x, w, b, up, down, scale)
+                    again = lm.lora_dense(x, w, b, up, down, scale)
+                    y_ref = lm.lora_dense_plain(x, w, b, up, down, scale)
+                    torch.cuda.synchronize()
+                    same = torch.equal(y, again)
+                    top = float(y_ref.float().abs().max())
+                    if f32:
+                        err = rel_errors(y, y_ref)
+                        ok = f32_ok([err], LORA_F32_TOL, same, bool(torch.isfinite(y).all()))
+                        mx, rel = err[0], err[2]
+                    else:
+                        mx, rel = errors(y, y_ref)
+                        # LORA_TOL's 5e-2 was set at |y| up to 4 (1.6 bf16 ulps
+                        # there); the same gate relative to larger outputs
+                        top = float(y_ref.float().abs().max())
+                        ok = (same and mx <= LORA_TOL["max_abs"] * max(1.0, top / 4)
+                              and rel <= LORA_TOL["rel_l2"] and bool(torch.isfinite(y).all()))
+                    ms = cuda_time(lambda: lm.lora_dense(x, w, b, up, down, scale), iters,
+                                   flush)
+                    plain_ms = cuda_time(lambda: lm.lora_dense_plain(x, w, b, up, down, scale),
+                                         iters, flush)
+                    lib_ms = cuda_time(
+                        lambda: torch.addmm(b, x, w.t()).add_((x @ down.t()) @ up.t(),
+                                                              alpha=0.8), iters, flush)
+                flops = 2 * m * n * kdim + 2 * m * kdim * LORA_RANK + 2 * m * LORA_RANK * n
+                nbytes = x.element_size() * (m * kdim + n * kdim + m * n + n + n * LORA_RANK
+                                             + LORA_RANK * kdim) + 4
+                b_ms, by = bound_f32(flops, nbytes)[:2] if f32 else bound(flops, nbytes)
+                plan = lm.plan_f32(m, n, kdim) if f32 else lm.plan(m, n, kdim)
+                finish("lora_dense_fp32" if f32 else "lora_dense",
+                       dict(shape=[m, kdim, n, LORA_RANK],
+                            sd21_per_step=count if kind == "serve" else 0,
+                            sd21_train_per_step=count if kind == "train" else 0,
+                            max_abs_err=mx, max_abs_ref=top, rel_l2=rel, repeat_equal=same,
+                            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                            bound_by=by, plan=list(plan)), ok,
+                       f"M={m} K={kdim} N={n} r={LORA_RANK} x{count} {kind} plan {plan}")
+                del x, w, b, up, down, y, again, y_ref
+    for name, rows in out.items():
+        for per in ("sd21_per_step", "sd21_train_per_step"):
+            if any(r.get(per) for r in rows):
+                tot = {k: sum(r[k] * r.get(per, 0) for r in rows)
+                       for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                log(f"sd21 {name} summed over a{' train' if 'train' in per or 'bwd' in name else ' CFG UNet'} "
+                    f"step's calls: {tot['ms']:.4f} ms, library {tot['library_ms']:.4f} "
+                    f"(x{tot['ms'] / tot['library_ms']:.3f}), bound {tot['bound_ms']:.4f} "
+                    f"(x{tot['ms'] / tot['bound_ms']:.2f}), plain {tot['plain_ms']:.3f}")
+    return out
 
 
 def fp32_rows(gen, flush, iters):
@@ -1308,14 +1507,14 @@ def tree_to(tree, device):
             for k, v in tree.items()}
 
 
-def build_pipe(ucfg, vcfg, tcfg, sds, dtype, device):
+def build_pipe(ucfg, vcfg, tcfg, sds, dtype, device, scheduler=None):
     from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
     from diffusion_finetuning_tpu_torch.models.schedulers import SchedulerConfig
     from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
 
     return StableDiffusionPipeline(
         ucfg, sds[0], vcfg, sds[1], tcfg, sds[2],
-        CLIPTokenizer.tiny(["photo", "of", "sks", "person"]), SchedulerConfig(),
+        CLIPTokenizer.tiny(["photo", "of", "sks", "person"]), scheduler or SchedulerConfig(),
         dtype=dtype, device=device)
 
 
@@ -1635,23 +1834,25 @@ TRAIN_STEPS = 10
 TRAIN_WARMUP = 2
 
 
-def train_batch(tokenizer, seed=SEED + 40):
-    """One 512^2 uint8 example and its prompt ids (the trainers' wire format)."""
+def train_batch(tokenizer, seed=SEED + 40, side=IMAGE):
+    """One ``side``^2 uint8 example and its prompt ids (the trainers' wire format)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     ids = tokenizer(["a photo of sks person"], padding="max_length", max_length=77,
                     return_tensors="np")["input_ids"].astype(np.int32)
-    return {"pixel_values": rng.integers(0, 256, (1, IMAGE, IMAGE, 3), dtype=np.uint8),
+    return {"pixel_values": rng.integers(0, 256, (1, side, side, 3), dtype=np.uint8),
             "input_ids": ids}
 
 
 def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="cuda",
-                          cpu_ref=None):
-    """One loss_step and its backward: bf16 on the card against fp32 on the
-    CPU, from the same cached latent moments (the card's VAE encode) and the
-    same draws.  ``cpu_ref`` (loss, gradient) of an earlier call stands in
-    for the CPU run.  Returns the numbers and (CPU loss, CPU gradient)."""
+                          cpu_ref=None, cpu_models=None):
+    """One loss_step and its backward under the pipe's scheduler config: bf16
+    on the card against fp32 on the CPU, from the same cached latent moments
+    (the card's VAE encode) and the same draws.  ``cpu_ref`` (loss,
+    gradient) of an earlier call stands in for the CPU run; ``cpu_models``
+    (UNet, text encoder, VAE in fp32 on the CPU) for loading them from
+    ``sds``.  Returns the numbers and (CPU loss, CPU gradient)."""
     import numpy as np
     import torch
 
@@ -1667,7 +1868,7 @@ def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="
 
     cached = LatentMomentCache(pipe.vae, device=device).transform(batch)
     rng = np.random.default_rng(SEED + 41)
-    side = IMAGE // pipe.vae_scale_factor
+    side = batch["pixel_values"].shape[1] // pipe.vae_scale_factor
     draws = {"sample": rng.standard_normal((1, side, side, 4)).astype(np.float32),
              "noise": rng.standard_normal((1, side, side, 4)).astype(np.float32),
              "timesteps": np.array([rng.integers(0, 1000)])}
@@ -1675,7 +1876,8 @@ def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="
     def run(unet, text_encoder, vae, device):
         master = master_tree(lora_cpu, device)
         loss = loss_step(cached, unet=unet, text_encoder=text_encoder, vae=vae,
-                         scheduler=DDPMScheduler(), unet_lora=master, draws=draws)
+                         scheduler=DDPMScheduler(pipe.scheduler_config), unet_lora=master,
+                         draws=draws)
         loss.backward()
         grad = torch.cat([t.grad.float().cpu().reshape(-1) for t in trainable_tensors(master)])
         return float(loss.detach()), grad
@@ -1684,7 +1886,7 @@ def phase_train_reference(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch, device="
     torch.cuda.synchronize()
     t0 = time.time()
     if cpu_ref is None:
-        cpu = [load_module(cls, cfg, sd, torch.float32, "cpu") for cls, cfg, sd in (
+        cpu = cpu_models or [load_module(cls, cfg, sd, torch.float32, "cpu") for cls, cfg, sd in (
             (UNet2DConditionModel, ucfg, sds[0]), (CLIPTextModel, tcfg, sds[2]),
             (AutoencoderKL, vcfg, sds[1]))]
         cpu_ref = run(*cpu, "cpu")
@@ -2016,7 +2218,8 @@ def phase_switched(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, lora_dev, unet_ref, re
 # phase 7
 # ---------------------------------------------------------------------------
 
-GRAPH_REPEATS = 10  # timed calls of each graphed path, and of each eager train path
+GRAPH_REPEATS = 5  # timed calls of each graphed path, and of each eager train path (10 before
+# phase 12 joined the script: its walls repeat within 3%, PERF.md §5)
 # timed eager requests of each serving path: one takes 2-4 s, host-bound, and
 # ten of every path would cost 2-3 minutes on a slow host (the whole script
 # took 956 s of its 1200 on one, with 5)
@@ -2044,7 +2247,7 @@ def spread(ms):
 
 
 def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
-                 eager_repeats=GRAPH_REPEATS):
+                 eager_repeats=GRAPH_REPEATS, graphed_repeats=GRAPH_REPEATS):
     """One path eager and graphed: ``eager()`` / ``graphed()`` run one call
     (a request, or a dispatch of ``units`` train steps); ``same()`` checks,
     after the first call of each, that they agree bit for bit.  The first
@@ -2074,7 +2277,7 @@ def graphed_path(label, eager, graphed, same, per_call, units, profile_dir=None,
     # (half of them redone by every replay)
     copies = cv.tap_major_copies - copies
     equal = same()
-    g_walls = walls_ms(graphed, GRAPH_REPEATS)
+    g_walls = walls_ms(graphed, graphed_repeats)
     replayed = counts()
     g_peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
@@ -2315,15 +2518,16 @@ def random_text_lora(tcfg, seed):
     return tree
 
 
-def phase_model_dir(pipe, tmp):
-    """The pipe written with ``save_pretrained`` in bf16 and read back with
-    ``from_pretrained``: every tensor equal.  Returns the loaded pipe."""
+def phase_model_dir(pipe, tmp, name="sd15"):
+    """The pipe written with ``save_pretrained`` in bf16 into ``tmp``/``name``
+    and read back with ``from_pretrained``: every tensor equal, the same
+    configs.  Returns the loaded pipe."""
     import torch
 
     from diffusion_finetuning_tpu_torch.models.hf_export import save_pretrained
     from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
 
-    d = os.path.join(tmp, "sd15")
+    d = os.path.join(tmp, name)
     t0 = time.perf_counter()
     save_pretrained(pipe, d, dtype=torch.bfloat16)
     write_s = time.perf_counter() - t0
@@ -2333,18 +2537,18 @@ def phase_model_dir(pipe, tmp):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     n = 0
-    for name in ("unet", "vae", "text_encoder"):
-        a, b = getattr(pipe, name).state_dict(), getattr(loaded, name).state_dict()
+    for part in ("unet", "vae", "text_encoder"):
+        a, b = getattr(pipe, part).state_dict(), getattr(loaded, part).state_dict()
         if a.keys() != b.keys():
-            fail(f"from_pretrained's {name} has other tensors than the pipe's")
+            fail(f"from_pretrained's {part} has other tensors than the pipe's")
         for k, v in a.items():
             n += 1
             if not torch.equal(v, b[k]):
-                fail(f"from_pretrained's {name}.{k} differs from the pipe's")
-    if (loaded.unet_config, loaded.vae_config, loaded.scheduler_config) != (
-            pipe.unet_config, pipe.vae_config, pipe.scheduler_config):
+                fail(f"from_pretrained's {part}.{k} differs from the pipe's")
+    configs = ("unet_config", "vae_config", "text_config", "scheduler_config")
+    if [getattr(loaded, c) for c in configs] != [getattr(pipe, c) for c in configs]:
         fail("from_pretrained read other configs than the pipe's")
-    log(f"model dir: save_pretrained bf16 {size / 2**30:.3f} GiB in {write_s:.2f} s, "
+    log(f"model dir {name}: save_pretrained bf16 {size / 2**30:.3f} GiB in {write_s:.2f} s, "
         f"from_pretrained {load_s:.2f} s; {n} tensors equal")
     return loaded, {"bytes": size, "write_s": write_s, "load_s": load_s, "tensors": n}
 
@@ -2701,14 +2905,14 @@ def add_counts(*dicts):
     return out
 
 
-def train_images(folder, seed, n):
-    """``n`` seeded 512^2 PNGs: smooth colour fields with noise."""
+def train_images(folder, seed, n, side=IMAGE):
+    """``n`` seeded ``side``^2 PNGs: smooth colour fields with noise."""
     import numpy as np
     from PIL import Image
 
     os.makedirs(folder, exist_ok=True)
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:IMAGE, 0:IMAGE] / IMAGE
+    yy, xx = np.mgrid[0:side, 0:side] / side
     for i in range(n):
         base = np.stack([np.sin(6 * xx + i), np.cos(5 * yy - i), xx * yy], -1)
         px = (base * 0.35 + 0.5 + rng.normal(0, 0.08, base.shape)) * 255
@@ -3989,6 +4193,296 @@ def phase_parallel(model_dir, tmp):
     return launches, {"dp": dp, "tp": tp, "nccl_graph_equal": equal}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: SD 2.1 (768-v) at full width
+# ---------------------------------------------------------------------------
+
+SD21_IMAGE = 768         # 96x96 latents, the model's sample_size
+SD21_EAGER = 3           # timed eager 50-step requests
+SD21_GRAPHED = 5         # timed graphed ones after the capturing call
+SD21_TRAIN_REPLAYS = 5   # timed graphed train steps after the capturing one
+SD21_DB_STEPS = 4
+SD21_DB_SPD = 2          # the trainer's first dispatch captures, the second replays
+
+
+def sd21_configs():
+    """stabilityai/stable-diffusion-2-1: the UNet of its unet/config.json
+    (heads (5, 10, 20, 20) of 64, cross-attention width 1024, linear
+    proj_in/proj_out, sample_size 96), OpenCLIP ViT-H's text tower (23
+    layers of width 1024, 16 heads, gelu), the SD VAE, v-prediction."""
+    import dataclasses
+
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig
+    from diffusion_finetuning_tpu_torch.models.schedulers import SchedulerConfig
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import VAEConfig
+
+    return (dataclasses.replace(UNetConfig.sd21(), sample_size=SD21_IMAGE // 8),
+            VAEConfig.sd15(), CLIPTextConfig.sd21(),
+            SchedulerConfig(prediction_type="v_prediction"))
+
+
+def sd21_model_dir(pipe, tmp):
+    """(a) ``phase_model_dir`` of the SD 2.1 pipe, and every SD2 field of the
+    configs ``from_pretrained`` read.  Returns the loaded pipe, its
+    directory and the row."""
+    loaded, row = phase_model_dir(pipe, tmp, "sd21")
+    u, t, sc = loaded.unet_config, loaded.text_config, loaded.scheduler_config
+    fields = {"use_linear_projection": u.use_linear_projection,
+              "attention_head_dim": tuple(u.attention_head_dim),
+              "cross_attention_dim": u.cross_attention_dim, "sample_size": u.sample_size,
+              "text hidden_act": t.hidden_act, "text layers": t.num_hidden_layers,
+              "text width": t.hidden_size, "text heads": t.num_attention_heads,
+              "prediction_type": sc.prediction_type}
+    want = {"use_linear_projection": True, "attention_head_dim": (5, 10, 20, 20),
+            "cross_attention_dim": 1024, "sample_size": 96, "text hidden_act": "gelu",
+            "text layers": 23, "text width": 1024, "text heads": 16,
+            "prediction_type": "v_prediction"}
+    log(f"sd21 (a) SD2 fields read back: {fields}")
+    if fields != want:
+        fail(f"from_pretrained read the SD 2.1 directory as {fields}, want {want}")
+    return loaded, os.path.join(tmp, "sd21"), dict(row, fields=fields)
+
+
+def sd21_unet_step(pipe, ref_unet, lora_cpu, lora_dev):
+    """(b) One CFG UNet step at 96x96 latents, bf16, dynamic LoRA: 32 K1 and
+    144 K2, eager and through a CUDA graph (equal bit for bit), held against
+    the same UNet in fp32 on the CPU (the kernels' plain versions)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.graph import Graphs
+
+    side = SD21_IMAGE // pipe.vae_scale_factor
+    g = torch.Generator().manual_seed(SEED + 120)
+    x = torch.randn((2, 4, side, side), generator=g).bfloat16()
+    ctx = torch.randn((2, 77, pipe.unet_config.cross_attention_dim), generator=g).bfloat16()
+    t = torch.tensor([500, 500])
+    xd, td, cd = x.cuda(), t.cuda(), ctx.cuda()
+    unet = pipe.unet
+    per_step = want_counts(flash_attention_fwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP)
+    with torch.inference_mode():
+        with lora_lib.attached(unet, lora_dev):
+            reset_counts()
+            out = unet(xd, td, cd)
+            torch.cuda.synchronize()
+            eager_counts = counts()
+            eager_ms = wall_ms(lambda: unet(xd, td, cd), 5)
+            reset_counts()
+            entry = Graphs(pipe.device).capture("sd21 unet step", lambda: unet(xd, td, cd))
+            capture_counts = counts()
+            equal = torch.equal(entry.replay(), out)
+            graphed_ms = wall_ms(entry.replay, 10)
+            replay_counts = counts()
+        base = unet(xd, td, cd)
+    log(f"sd21 (b) unet step 96x96: launches eager {eager_counts} (want {per_step}), at capture "
+        f"{capture_counts}, after the replays {replay_counts}; ms eager {eager_ms:.3f}, graphed "
+        f"{graphed_ms:.3f}; replay equal to eager {equal}")
+    if eager_counts != per_step or capture_counts != captured(per_step, 1) or (
+            replay_counts != capture_counts):
+        fail("the SD 2.1 UNet step's launches are off")
+    if not equal or not bool(torch.isfinite(out).all()):
+        fail("the graphed SD 2.1 UNet step differs from the eager one, or is not finite")
+    t0 = time.time()
+    with torch.inference_mode(), lora_lib.attached(ref_unet, lora_cpu):
+        ref = ref_unet(x.float(), t, ctx.float())
+    _, rel = errors(out.cpu(), ref)
+    _, lora_effect = errors(out.cpu(), base.cpu())
+    log(f"sd21 (b) unet step, card bf16 vs CPU fp32 (plain versions): rel_l2={rel:.3e} (limit "
+        f"{UNET_REL_L2}); the LoRA moves it by rel_l2={lora_effect:.3e}; CPU reference "
+        f"{time.time() - t0:.1f} s")
+    if not rel <= UNET_REL_L2:
+        fail(f"the SD 2.1 UNet step disagrees with the CPU fp32 reference: {rel:.3e}")
+    if not lora_effect > 4 * rel:
+        fail("the LoRA barely moves the SD 2.1 UNet output: the comparison would not see it")
+    return {"eager_ms": eager_ms, "graphed_ms": graphed_ms, "rel_l2": rel,
+            "lora_effect_rel_l2": lora_effect, "launches": eager_counts,
+            "capture_launches": capture_counts}
+
+
+def sd21_serving(pipe, lora_dev):
+    """(d) 768^2, 50 DDIM v-prediction steps, CFG 7.5, dynamic LoRA: eager
+    requests, then the request graph (captured by the first graphed call)
+    and SD21_GRAPHED timed replays, every graphed image equal to the eager
+    one; first-call s, walls, peak memory, idle share, launches."""
+    import torch
+
+    pipe.unet_lora, pipe.materialize_lora = lora_dev, False
+    kw = dict(seed=1, num_inference_steps=STEPS, guidance_scale=GUIDANCE, height=SD21_IMAGE,
+              width=SD21_IMAGE, output_type="device")
+    out = {"graphed": []}
+
+    def run(graphs):
+        old, pipe.cuda_graphs = pipe.cuda_graphs, graphs
+        try:
+            img = pipe("a photo of sks person", **kw)
+        finally:
+            pipe.cuda_graphs = old
+        if graphs:
+            out["graphed"].append(img)
+        else:
+            out["eager"] = img
+
+    per_call = want_counts(flash_attention_fwd=FLASH_PER_STEP * STEPS,
+                           lora_dense=LORA_PER_STEP * STEPS)
+    row = graphed_path("sd21_txt2img_768", lambda: run(False), lambda: run(True),
+                       lambda: torch.equal(out["eager"], out["graphed"][-1]), per_call, 1,
+                       eager_repeats=SD21_EAGER, graphed_repeats=SD21_GRAPHED)
+    equal = [torch.equal(im, out["eager"]) for im in out["graphed"]]
+    img = out["eager"]
+    log(f"sd21 (d) {len(equal)} graphed images equal to the eager one: {sum(equal)}; image "
+        f"{tuple(img.shape)} std {float(img.float().std()):.2f}")
+    if len(equal) < 1 + SD21_GRAPHED or not all(equal):
+        fail("a graphed SD 2.1 image differs from the eager one")
+    if tuple(img.shape) != (1, SD21_IMAGE, SD21_IMAGE, 3) or not float(img.float().std()) > 0:
+        fail("the SD 2.1 image is constant or misshapen")
+    row["graphed_equal"] = len(equal)
+    pipe.release_graphs()
+    return row
+
+
+def sd21_train(pipe, ucfg, vcfg, tcfg, sds, lora_cpu, ref_pipe):
+    """(e) The bf16 train step at 768^2, batch 1, under the v-prediction
+    target: one ``loss_step`` and backward against the CPU fp32 one (LoRA
+    gradient rel L2), then ``build_train_step`` through ``jit_train_step``:
+    the capture (twice a step's 32 K1, 32 K3, 144 K2) and timed replays
+    (none), ms a step, peak memory, finite losses."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models.schedulers import DDPMScheduler
+    from diffusion_finetuning_tpu_torch.training.optim import ParamGroup, multi_group_optimizer
+    from diffusion_finetuning_tpu_torch.training.train_step import (
+        TrainablePartition, build_train_step, init_train_state, jit_train_step)
+
+    batch = train_batch(pipe.tokenizer, seed=SEED + 140, side=SD21_IMAGE)
+    reference, _ = phase_train_reference(
+        pipe, ucfg, vcfg, tcfg, sds, lora_cpu, batch,
+        cpu_models=(ref_pipe.unet, ref_pipe.text_encoder, ref_pipe.vae))
+    opt = multi_group_optimizer({"unet_lora": ParamGroup(lr=TRAIN_LR)}, max_grad_norm=1.0)
+    step = build_train_step(unet=pipe.unet, text_encoder=pipe.text_encoder, vae=pipe.vae,
+                            scheduler=DDPMScheduler(pipe.scheduler_config), optimizer=opt,
+                            partition=TrainablePartition(unet_lora=True))
+    state = init_train_state(opt, unet_lora=lora_cpu)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    fused = jit_train_step(step)
+    losses = []
+
+    def one():
+        losses.append(fused(state, batch, gen)[1]["loss"])
+
+    per_step = want_counts(flash_attention_fwd=FLASH_PER_STEP,
+                           flash_attention_bwd=FLASH_PER_STEP, lora_dense=LORA_PER_STEP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    at_capture = counts()
+    walls = walls_ms(one, SD21_TRAIN_REPLAYS)
+    after = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    med = spread(walls)["median"]
+    log(f"sd21 (e) graphed train step 768^2 batch 1 v-prediction: first call (capture) "
+        f"{first_s:.2f} s, then ms {med:.3f} ({min(walls):.3f}-{max(walls):.3f}), "
+        f"{1e3 / med:.3f} steps/s, peak memory {peak / 2**30:.3f} GiB; launches at capture "
+        f"{at_capture} (want {captured(per_step, 1)}), after the replays {after}; losses "
+        f"{[round(x, 5) for x in losses]}")
+    if at_capture != captured(per_step, 1) or after != at_capture:
+        fail("the SD 2.1 graphed train step's launches are off")
+    if not all(math.isfinite(x) for x in losses):
+        fail("an SD 2.1 train loss is not finite")
+    return at_capture, {"reference": reference, "first_call_s": first_s,
+                        "step_ms": spread(walls), "steps_per_s": 1e3 / med,
+                        "peak_bytes": peak, "losses": losses}
+
+
+def sd21_dreambooth(model_dir, tmp):
+    """(f) ``train_lora_dreambooth`` from the SD 2.1 directory at 768^2 in
+    its default fp32, batch 1, SD21_DB_STEPS steps at SD21_DB_SPD a graph:
+    finite losses, exact fp32 launches (the capture's; the replay's none),
+    steps/s after the capture, peak memory."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.training_scripts import train_lora_dreambooth as db
+
+    inst = os.path.join(tmp, "sd21_instance")
+    train_images(inst, SEED + 160, 2, side=SD21_IMAGE)
+    args = ["--pretrained_model_name_or_path", model_dir, "--instance_data_dir", inst,
+            "--instance_prompt", "a photo of sks person",
+            "--output_dir", os.path.join(tmp, "sd21_dreambooth"),
+            "--resolution", str(SD21_IMAGE), "--train_batch_size", "1",
+            "--max_train_steps", str(SD21_DB_STEPS), "--save_steps", str(SD21_DB_STEPS),
+            "--steps_per_dispatch", str(SD21_DB_SPD), "--learning_rate", "1e-4",
+            "--lr_warmup_steps", "0", "--lora_rank", str(LORA_RANK), "--seed", str(SEED)]
+    per_step = want_counts(flash_attention_fwd_fp32=FLASH_PER_STEP,
+                           flash_attention_bwd_fp32=FLASH_PER_STEP,
+                           lora_dense_fp32=LORA_PER_STEP)
+    want = captured(per_step, SD21_DB_SPD)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = db.main(db.parse_args(args))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    row = {"wall_s": wall, "train": check_phase_log(state["log"]["dispatch"],
+                                                     "sd21 (f) DreamBooth fp32 768^2", want)}
+    if got != want:
+        fail(f"the SD 2.1 fp32 DreamBooth run launched {got}, want {want}")
+    if state["step"] != SD21_DB_STEPS:
+        fail(f"the SD 2.1 fp32 DreamBooth run reached step {state['step']}")
+    log(f"sd21 (f) DreamBooth fp32: {wall:.1f} s")
+    return got, row
+
+
+def phase_sd21(tmp):
+    """Phase 12: SD 2.1 (768-v) at its published widths, random weights from
+    fixed seeds rounded to bf16 once, a rank-4 LoRA on the default targets,
+    through the entry points: (a) save_pretrained / from_pretrained, (b) a
+    CFG UNet step against the CPU fp32 one, (c) txt2img at 128^2 against
+    the CPU fp32 pipe, (d) the 768^2 50-step image eager and graphed, (e) a
+    bf16 graphed train step, (f) the fp32 DreamBooth trainer.  Returns the
+    launches of each path and the numbers."""
+    import torch
+
+    t0 = time.time()
+    ucfg, vcfg, tcfg, sched = sd21_configs()
+    sds = random_weights(ucfg, vcfg, tcfg, seed=SEED + 100)
+    lora_cpu = random_lora(ucfg, seed=SEED + 110)
+    lora_dev = tree_to(lora_cpu, "cuda")
+    built = build_pipe(ucfg, vcfg, tcfg, sds, torch.bfloat16, "cuda", sched)
+    log(f"phase 12 models: {time.time() - t0:.1f} s")
+    rows, launches = {}, {}
+    pipe, model_dir, rows["model_dir"] = sd21_model_dir(built, tmp)
+    del built
+    pipe.cuda_graphs = False
+    ref_pipe = build_pipe(ucfg, vcfg, tcfg, sds, torch.float32, "cpu", sched)
+    log(f"phase 12 (a): {time.time() - t0:.1f} s")
+    rows["unet_step"] = sd21_unet_step(pipe, ref_pipe.unet, lora_cpu, lora_dev)
+    launches["sd21_unet_step"] = add_counts(rows["unet_step"]["launches"],
+                                            rows["unet_step"]["capture_launches"])
+    log(f"phase 12 (b): {time.time() - t0:.1f} s")
+    reset_counts()
+    phase_pipeline_reference(pipe, ref_pipe, lora_cpu, lora_dev)
+    launches["sd21_txt2img_reference"] = counts()
+    log(f"phase 12 (c): {time.time() - t0:.1f} s")
+    rows["serving"] = sd21_serving(pipe, lora_dev)
+    launches["sd21_serving"] = rows["serving"]["launches_at_capture"]
+    log(f"phase 12 (d): {time.time() - t0:.1f} s")
+    launches["sd21_train"], rows["train"] = sd21_train(pipe, ucfg, vcfg, tcfg, sds, lora_cpu,
+                                                       ref_pipe)
+    del pipe, ref_pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 (e): {time.time() - t0:.1f} s")
+    launches["sd21_dreambooth_fp32"], rows["dreambooth_fp32"] = sd21_dreambooth(model_dir, tmp)
+    log(f"phase 12 (f): {time.time() - t0:.1f} s")
+    return launches, rows
+
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
@@ -4028,13 +4522,22 @@ def kernels_line(results, launches):
         ops_bound = sum(r["bound_ms"] * r["per_step"] for r in rows
                         if r["bound_by"] == "operations")
         by_path = {path: n.get(name, 0) for path, n in launches.items()}
-        out.append(dict(
+        entry = dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in rows),
             ms=step("ms"), plain_ms=step("plain_ms"), bound_ms=step("bound_ms"),
             bound_by="operations" if ops_bound > step("bound_ms") / 2 else "bytes",
-            library_ms=step("library_ms"), per=per, shapes=rows))
+            library_ms=step("library_ms"), per=per, shapes=rows)
+        # SD 2.1's rows (phase 12's path), summed over a 768^2 CFG UNet step
+        # (a train step for the backward kernels) apart from the SD1.5 sums
+        for key, sd21_per in (("sd21", per), ("sd21_train", "train_step")):
+            n = "sd21_per_step" if key == "sd21" else "sd21_train_per_step"
+            sd21 = [r for r in rows if r.get(n)]
+            if sd21:
+                entry[key] = dict(per=sd21_per, **{k: sum(r[k] * r[n] for r in sd21) for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")})
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -4126,18 +4629,23 @@ def main():
         t0 = time.time()
         parallel_launches, parallel = phase_parallel(os.path.join(tmp, "sd15"), tmp)
         log(f"phase 11: {time.time() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        sd21_launches, sd21 = phase_sd21(tmp)
+        log(f"phase 12: {time.time() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
                     "graphed": graphed, "serving_entry": entry, "trainers": trainers,
-                    "rest_of_card": rest, "parallel": parallel}))
+                    "rest_of_card": rest, "parallel": parallel, "sd21": sd21}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
         graphed=graphed_launches, **entry_launches,
         **{f"trainer_{k}": v for k, v in trainer_launches.items()}, **rest_launches,
-        **parallel_launches))))
+        **parallel_launches, **sd21_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,10 +26,20 @@ callers copy them out right after a replay.
 A failed capture or replay raises :class:`GraphError` naming the key.
 Nothing runs eagerly in its place on the card.  On the CPU there are no
 CUDA graphs; the callers run their functions directly there.
+
+Captures run in CUDA's global error mode, in which destroying a CUDA graph
+(``CUDAGraph::reset``: ``cudaGraphExecDestroy``) while any capture is under
+way is "not permitted when stream is capturing" and invalidates that
+capture.  A graph's owner can die at any time: a train-step function and
+its memoised steps form a reference cycle, which Python's cyclic collector
+frees at whatever allocation triggers it, inside another owner's capture
+too.  So a :class:`Graph` released while a capture is under way hands its
+CUDA graph to :data:`_DEFERRED`, and the capture, once ended, destroys them.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 import weakref
 from typing import Any, Callable, Dict, Hashable, Optional
@@ -48,6 +58,29 @@ class GraphError(RuntimeError):
     """A CUDA-graph capture or replay failed; the message names its key."""
 
 
+# captures under way in this process, and the CUDA graphs released meanwhile
+# (destroyed when the count is back to 0); _STATE guards both, so no capture
+# begins while a released graph is being destroyed
+_STATE = threading.Lock()
+_captures = 0
+_DEFERRED: list = []
+
+
+def _begin_capture() -> None:
+    global _captures
+    with _STATE:
+        _captures += 1
+
+
+def _end_capture() -> None:
+    global _captures
+    with _STATE:
+        _captures -= 1
+        if not _captures:
+            while _DEFERRED:
+                _DEFERRED.pop().reset()
+
+
 class Graph:
     """One captured graph and what its capture returned."""
 
@@ -56,6 +89,23 @@ class Graph:
         self.replays = 0
         self.signature: Optional[Hashable] = None  # of the ParamBuffers it reads
         self.capture_s = 0.0  # host seconds of its warm-up and capture, both complete
+
+    def __del__(self):
+        # may run inside a capture (the cyclic collector) or on another
+        # thread; a thread that holds _STATE already defers too
+        graph = self.__dict__.get("graph")
+        if graph is None:
+            return
+        if not _STATE.acquire(blocking=False):
+            _DEFERRED.append(graph)
+            return
+        try:
+            if _captures:
+                _DEFERRED.append(graph)
+            else:
+                graph.reset()
+        finally:
+            _STATE.release()
 
     def replay(self) -> Any:
         """Replay on the current stream; returns the capture's output
@@ -149,6 +199,7 @@ class Graphs:
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             (warmup or fn)()
         graph = torch.cuda.CUDAGraph()
+        _begin_capture()
         try:
             with torch.cuda.device(self.device):
                 with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
@@ -156,6 +207,7 @@ class Graphs:
         except Exception as e:
             raise GraphError(f"capture of CUDA graph {key!r} failed: {e}") from e
         finally:
+            _end_capture()
             cur.wait_stream(self.stream)
         if len(self.graphs) >= MAX_GRAPHS:
             self.graphs.pop(next(iter(self.graphs)))

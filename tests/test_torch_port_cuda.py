@@ -53,7 +53,8 @@ def _max_err(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160)])
+@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160),
+                                      (2304, 2304, 64), (576, 77, 64), (1000, 1000, 64)])
 def test_flash_kernel_matches_plain(card, sq, skv, d):
     g = torch.Generator(device=card).manual_seed(0)
     q, k, v = (torch.randn((16, s, d), generator=g, device=card, dtype=torch.bfloat16)
@@ -129,7 +130,8 @@ def _bwd_inputs(card, bh, sq, skv, d, dtype, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160)])
+@pytest.mark.parametrize("sq,skv,d", [(4096, 4096, 40), (1024, 77, 80), (64, 64, 160),
+                                      (2304, 2304, 64), (576, 77, 64), (333, 77, 64)])
 def test_flash_bwd_kernel_matches_plain(card, sq, skv, d):
     q, k, v, o, lse, do = _bwd_inputs(card, 8, sq, skv, d, torch.bfloat16, 0)
     before = tfa.bwd_launches
@@ -270,7 +272,8 @@ def _moved(before):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,d", [(333, 77, 40), (200, 129, 72), (130, 77, 80), (70, 90, 160),
-                                      (1024, 1024, 40), (77, 200, 100)])
+                                      (1024, 1024, 40), (77, 200, 100), (2304, 2304, 64),
+                                      (576, 77, 64), (333, 77, 64)])
 def test_flash_fp32_kernel_matches_plain(card, sq, skv, d):
     """K1's fp32 kernel (split products on the tensor cores) at ragged Sq and
     Skv (77 included) and head dims 40/72/80/100/160: O and lse within the
@@ -308,7 +311,8 @@ def test_packed_flash_fp32_equals_k1(card, pack, sq, skv, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_splits", [None, 1, 3])
 @pytest.mark.parametrize("sq,skv,d", [(333, 77, 40), (200, 129, 72), (130, 77, 80), (70, 90, 160),
-                                      (1024, 1024, 40)])
+                                      (1024, 1024, 40), (2304, 2304, 64), (576, 77, 64),
+                                      (333, 77, 64)])
 def test_flash_bwd_fp32_kernel_matches_plain(card, sq, skv, d, q_splits):
     """K3's fp32 pair at ragged Sq and Skv and head dims 40/72/80/160, at its
     q-split rule and at 1 and 3 splits: dQ, dK and dV within the fp32 gate,
@@ -349,7 +353,8 @@ def test_attention_backward_fp32_runs_the_fp32_pair(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,kdim,n", [(8192, 320, 320), (154, 768, 640), (512, 1280, 10240)])
+@pytest.mark.parametrize("m,kdim,n", [(8192, 320, 320), (154, 768, 640), (512, 1280, 10240),
+                                      (18432, 320, 320), (154, 1024, 320), (154, 1024, 1280)])
 def test_lora_kernel_matches_plain(card, m, kdim, n):
     g = torch.Generator(device=card).manual_seed(0)
     x = torch.randn((m, kdim), generator=g, device=card).bfloat16()
@@ -456,7 +461,8 @@ def _f32_close(y, y_ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,kdim,n,r,bias", [
     (100, 72, 90, 3, False), (100, 70, 90, 1, True), (33, 7, 17, 16, True),
-    (100, 72, 90, 16, True), (154, 768, 768, 4, True), (8192, 320, 320, 4, True)])
+    (100, 72, 90, 16, True), (154, 768, 768, 4, True), (8192, 320, 320, 4, True),
+    (18432, 320, 320, 4, True), (154, 1024, 640, 4, True)])
 def test_lora_kernel_fp32_matches_plain(card, m, kdim, n, r, bias):
     """K2 in fp32 at ragged M and N, K not a multiple of 4 (70, 7: W through
     the prep pass) or of 32, ranks 1, 3, 4 and 16, with and without a bias,
@@ -1436,6 +1442,93 @@ def test_failed_capture_raises_and_runs_nothing_eagerly(small_pipe):
         assert torch.equal(x, y)
     s, m = step(s, batches[0], torch.Generator(device="cuda").manual_seed(0))
     assert s["step"] == 1 and bool(torch.isfinite(m["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["collected", "released"])
+def test_graphs_released_during_a_capture_leave_it_valid(card, how):
+    """Another owner's graphs released inside a capture -- their owner, a
+    reference cycle, collected by Python's cyclic GC at an allocation there,
+    or dropped by refcount -- would be destroyed there, which CUDA's global
+    capture mode refuses ("operation not permitted when stream is
+    capturing", CUDAGraph::reset) and which invalidates the capture.  They
+    are destroyed after it ends: the capture holds, replays right, and the
+    released graphs are gone once it returns."""
+    import gc
+    import weakref
+
+    from diffusion_finetuning_tpu_torch import graph
+
+    x = torch.arange(4.0, device=card)
+    old = graph.Graphs(card)
+    old.run("k", lambda static: static["x"] * 2, {"x": x})
+    gone = weakref.ref(old.graphs["k"].graph)
+    if how == "collected":
+        holder = {"graphs": old}
+        holder["self"] = holder  # only the cyclic collector frees it
+        del holder
+        release = gc.collect
+    else:
+        box = [old]
+        release = box.clear
+    del old
+    new = graph.Graphs(card)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        out = new.run("k", lambda static: (release(), static["x"] + 1)[1], {"x": x},
+                      warmup=lambda static: static["x"] + 1)
+    finally:
+        if enabled:
+            gc.enable()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x + 1)
+    assert gone() is None and not graph._DEFERRED
+    assert torch.equal(new.run("k", None, {"x": x + 3}), x + 4)
+
+
+@pytest.mark.cuda
+def test_request_capture_after_dropped_fused_train_graphs(small_pipe):
+    """The sequence of chip_smoke's phase 7 where a capture failed once:
+    graphed spd-4 train steps through FusedDispatcher (prepare staging each
+    group in pinned memory), the step function then dropped -- a cycle with
+    its memoised graphs -- and at once a request's capture, with Python's
+    collector run inside it (where it once ran on its own), three times:
+    every capture holds and every graphed image equals the eager one."""
+    import gc
+
+    from diffusion_finetuning_tpu_torch.training import train_step as ts
+
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = _small_lora(pipe.unet_config, 5, "cuda"), False
+    kw = dict(height=32, width=32, num_inference_steps=3, guidance_scale=7.5,
+              output_type="device")
+
+    def collect_in_capture(*_):
+        if torch.cuda.is_current_stream_capturing():
+            gc.collect()
+
+    for round_ in range(3):
+        step, state, batches = _train_setup(pipe)
+        disp = ts.FusedDispatcher(step, spd=4)
+        s = state()
+        groups = lambda i: [batches[(i + j) % len(batches)] for j in range(4)]
+        for s, losses, _, _ in disp.drive(s, torch.Generator(device="cuda").manual_seed(0),
+                                          groups, 8):
+            assert bool(torch.isfinite(losses).all())
+        (graphs,) = step._dft_graphs.values()
+        assert [g.replays for g in graphs.graphs.values()] == [2]
+        del graphs
+        del step, state, disp, s
+        pipe._graphs = None
+        hook = pipe.unet.register_forward_pre_hook(collect_in_capture)
+        try:
+            got = pipe("photo of sks", seed=round_, **kw)
+        finally:
+            hook.remove()
+        want = _eager(pipe, lambda: pipe("photo of sks", seed=round_, **kw))
+        assert torch.equal(got, want)
+    pipe.unet_lora = None
 
 
 # ---------------------------------------------------------------------------

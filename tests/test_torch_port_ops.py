@@ -151,6 +151,12 @@ def test_flash_grid_plans_at_sd15_shapes(sq, skv, d, bh):
     one wave (132 CTAs) wherever Sq has the q tiles for it, and two waves
     (264) unless a split would then hold fewer than 4 q tiles, with the
     fewest splits that do so."""
+    check_flash_plans(sq, skv, d, bh)
+
+
+def check_flash_plans(sq, skv, d, bh):
+    """The invariants of K1's q tile and K3's q splits at one call (see
+    :func:`test_flash_grid_plans_at_sd15_shapes`)."""
     tile = tfa.fwd_q_tile(bh, sq)
     assert tile == (128 if -(-sq // 128) * bh >= 66 else 64)
     n = tfa.bwd_q_splits(bh, sq, skv, d)
@@ -235,20 +241,26 @@ def test_lora_plan_at_sd15_shapes(batch):
     contiguous runs of at least 8, none empty, only where 64 x 64 tiles
     fill under half a wave, and no more than one wave needs."""
     for m, k, n in _sd15_lora_shapes(batch):
-        bm, bn, splits = tlm.plan(m, n, k)
-        assert (bm, bn) in tlm.TILES
-        assert _grid.cdiv(m, bm) * bm >= m and _grid.cdiv(n, bn) * bn >= n
-        tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
-        larger = tlm.TILES[:tlm.TILES.index((bm, bn))]
-        assert all(_grid.cdiv(m, tm) * _grid.cdiv(n, tn) < 132 for tm, tn in larger)
-        assert tiles >= 132 or (bm, bn) == (64, 64)
-        steps = _grid.cdiv(k, tlm.K_STEP)
-        runs = _grid.split_steps(steps, splits)
-        assert runs[0][0] == 0 and runs[-1][1] == steps
-        assert all(b - a >= 8 for a, b in runs) or splits == 1
-        assert all(runs[i][1] == runs[i + 1][0] for i in range(splits - 1))
-        assert splits == 1 or tiles < 66
-        assert splits == 1 or tiles * (splits - 1) < 132, (m, k, n)
+        check_lora_plan(m, k, n)
+
+
+def check_lora_plan(m, k, n):
+    """The invariants of ``tlm.plan`` at one (M, K, N) call (see
+    :func:`test_lora_plan_at_sd15_shapes`)."""
+    bm, bn, splits = tlm.plan(m, n, k)
+    assert (bm, bn) in tlm.TILES
+    assert _grid.cdiv(m, bm) * bm >= m and _grid.cdiv(n, bn) * bn >= n
+    tiles = _grid.cdiv(m, bm) * _grid.cdiv(n, bn)
+    larger = tlm.TILES[:tlm.TILES.index((bm, bn))]
+    assert all(_grid.cdiv(m, tm) * _grid.cdiv(n, tn) < 132 for tm, tn in larger)
+    assert tiles >= 132 or (bm, bn) == (64, 64)
+    steps = _grid.cdiv(k, tlm.K_STEP)
+    runs = _grid.split_steps(steps, splits)
+    assert runs[0][0] == 0 and runs[-1][1] == steps
+    assert all(b - a >= 8 for a, b in runs) or splits == 1
+    assert all(runs[i][1] == runs[i + 1][0] for i in range(splits - 1))
+    assert splits == 1 or tiles < 66
+    assert splits == 1 or tiles * (splits - 1) < 132, (m, k, n)
 
 
 def test_lora_plan_examples():

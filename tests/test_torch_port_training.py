@@ -85,9 +85,11 @@ def _jax_draws(key, b, t_max):
             "timesteps": np.array(jax.random.randint(r_t, (b,), 0, t_max))}
 
 
-@pytest.mark.parametrize("checkpointing", [False, True], ids=["plain", "checkpointed"])
-def test_unet_lora_grads_match_jax(models, checkpointing):
-    jax_side, port, trees = models
+@pytest.fixture(scope="module")
+def unet_grads(models):
+    """The UNet inputs and cotangent of the LoRA-gradient tests, and JAX's
+    LoRA gradient of <UNet(x), cot> (computed once for both cases)."""
+    jax_side, _, trees = models
     rng = np.random.default_rng(0)
     x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
     t = np.array([981, 1], np.int32)
@@ -100,7 +102,13 @@ def test_unet_lora_grads_match_jax(models, checkpointing):
                          jnp.asarray(t), jnp.asarray(ctx))
         return jnp.sum(out * cot)
 
-    want = jax.jit(jax.grad(jfn))(to_jax(trees["unet"]))
+    return (x, t, ctx, cot), jax.jit(jax.grad(jfn))(to_jax(trees["unet"]))
+
+
+@pytest.mark.parametrize("checkpointing", [False, True], ids=["plain", "checkpointed"])
+def test_unet_lora_grads_match_jax(models, unet_grads, checkpointing):
+    _, port, trees = models
+    (x, t, ctx, cot), want = unet_grads
     pu = port["unet"]
     pu.config = dataclasses.replace(pu.config, gradient_checkpointing=checkpointing)
     try:

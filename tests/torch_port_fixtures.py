@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from diffusion_finetuning_tpu.models.clip_text import CLIPTextConfig, CLIPTextModel
 from diffusion_finetuning_tpu.models.unet import UNet2DConditionModel, UNetConfig
@@ -19,6 +20,14 @@ from diffusion_finetuning_tpu.models.vae import AutoencoderKL, VAEConfig
 from diffusion_finetuning_tpu.tree_util import tree_set
 
 from tests.jitutil import jit_init
+
+# One torch intra-op thread in every process that imports this module: the
+# suite runs its files in several worker processes at once, and torch's
+# OpenMP threads, one per core in each of them, spin-wait for each other in
+# every parallel region of the tiny models' many small ops (one PTI trainer
+# test took 615 s in such a run against 11 s alone, and 4.5 s with one
+# thread on a loaded machine)
+torch.set_num_threads(1)
 
 _MEMO = {}
 
@@ -67,8 +76,6 @@ def training_models():
     """JAX modules + numpy params, the port's frozen fp32 CPU modules
     holding the same weights, and numpy UNet and text LoRA trees (rank 2,
     non-zero up): the training tests' models."""
-    import torch
-
     from diffusion_finetuning_tpu import lora as jlora
     from diffusion_finetuning_tpu.models import clip_text as jclip
     from diffusion_finetuning_tpu.models import unet as junet
@@ -115,7 +122,6 @@ def trainer_dirs(tmp_path_factory):
     """A diffusers directory of the port's tiny pipe (torch's default
     initialisation under a seed, fp32: no JAX init to trace and compile),
     2 instance and 2 class images: the trainer tests' inputs."""
-    import torch
     from PIL import Image
 
     from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
@@ -197,8 +203,6 @@ def given_draws_dispatcher(phase_draws):
 
 def flat_lora(tree, targets):
     """A LoRA tree of either package as its flat fp32 numpy list."""
-    import torch
-
     from diffusion_finetuning_tpu import lora as jlora
 
     def host(node):
