@@ -1,0 +1,7 @@
+"""Images per dispatched batch over the server's max_batch (open-loop serving)."""
+
+from h100_bench.harness import readers as R
+
+
+def read(m):
+    return R.batch_occupancy(m)
