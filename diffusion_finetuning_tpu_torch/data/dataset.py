@@ -36,6 +36,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 from PIL import Image, ImageEnhance, ImageFilter
 
+from ..utils import profiling
+
 OBJECT_TEMPLATE = [
     "a photo of a {}",
     "a rendering of a {}",
@@ -770,7 +772,10 @@ class DataLoader:
     A worker thread assembles the next batch (image decode runs in the
     native C++ thread pool, off the GIL) while the device executes the
     current step — the reference's torch DataLoader(num_workers) role,
-    double-buffered so the accelerator never waits on input."""
+    double-buffered so the accelerator never waits on input.  Each epoch
+    (each ``iter``) starts its own worker.  While torch's profiler is on,
+    each wait on the queue is a ``data.wait`` span (``utils/profiling.py``),
+    with ``miss`` where the queue was empty and ``epoch_start``."""
 
     def __init__(self, dataset, batch_size: int, pad_token_id: int,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
@@ -847,8 +852,13 @@ class DataLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
+            epoch_start = True
             while True:
-                item = q.get()
+                with profiling.span("data.wait", epoch_start=epoch_start) as span:
+                    if span:
+                        span["miss"] = q.empty()
+                    item = q.get()
+                epoch_start = False
                 if item is _END:
                     break
                 if isinstance(item, tuple) and len(item) == 2 and item[0] is _END:

@@ -27,6 +27,11 @@ A failed capture or replay raises :class:`GraphError` naming the key.
 Nothing runs eagerly in its place on the card.  On the CPU there are no
 CUDA graphs; the callers run their functions directly there.
 
+Captures and replays are counted process-wide (:data:`captures`,
+:data:`replays`); the host work of each capture, parameter refill, input
+fill and replay is a span (``utils/profiling.py``) while torch's profiler
+is on.
+
 Captures run in CUDA's global error mode, in which destroying a CUDA graph
 (``CUDAGraph::reset``: ``cudaGraphExecDestroy``) while any capture is under
 way is "not permitted when stream is capturing" and invalidates that
@@ -47,11 +52,17 @@ from typing import Any, Callable, Dict, Hashable, Optional
 import torch
 
 from .ops import conv3x3
+from .utils import profiling
 
 
 # graphs kept per owner, oldest dropped first: the JAX package's bound on
 # its executable caches (pipelines/pipeline.py:319, training/train_step.py:116)
 MAX_GRAPHS = 64
+
+# captures and replays so far in this process, of every owner's graphs (the
+# ops' launch counters read 0 on replays)
+captures = 0
+replays = 0
 
 
 class GraphError(RuntimeError):
@@ -110,11 +121,14 @@ class Graph:
     def replay(self) -> Any:
         """Replay on the current stream; returns the capture's output
         tensors (in the pool: copy them out before the next replay)."""
-        try:
-            self.graph.replay()
-        except RuntimeError as e:
-            raise GraphError(f"replay of CUDA graph {self.key!r} failed: {e}") from e
+        global replays
+        with profiling.span("graph.replay", key=self.key):
+            try:
+                self.graph.replay()
+            except RuntimeError as e:
+                raise GraphError(f"replay of CUDA graph {self.key!r} failed: {e}") from e
         self.replays += 1
+        replays += 1
         return self.output
 
 
@@ -184,7 +198,8 @@ class Graphs:
         if entry is None:
             entry = self.params[signature] = ParamBuffers(sources)
         else:
-            entry.fill(sources)
+            with profiling.span("graph.refill", key=signature) as sp:
+                sp["bytes"] = entry.fill(sources)
         return entry.buffers
 
     def capture(self, key: Hashable, fn: Callable[[], Any],
@@ -193,27 +208,30 @@ class Graphs:
         then capture ``fn()`` there into a graph of the shared pool, store
         it under ``key`` (dropping the oldest graph beyond
         :data:`MAX_GRAPHS`) and return it (not yet replayed)."""
-        t0 = time.perf_counter()
-        cur = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(cur)
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            (warmup or fn)()
-        graph = torch.cuda.CUDAGraph()
-        _begin_capture()
-        try:
-            with torch.cuda.device(self.device):
-                with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                    output = fn()
-        except Exception as e:
-            raise GraphError(f"capture of CUDA graph {key!r} failed: {e}") from e
-        finally:
-            _end_capture()
-            cur.wait_stream(self.stream)
-        if len(self.graphs) >= MAX_GRAPHS:
-            self.graphs.pop(next(iter(self.graphs)))
-        entry = self.graphs[key] = Graph(key, graph, output)
-        entry.capture_s = time.perf_counter() - t0
-        return entry
+        global captures
+        with profiling.span("graph.capture", key=key):
+            t0 = time.perf_counter()
+            cur = torch.cuda.current_stream(self.device)
+            self.stream.wait_stream(cur)
+            with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+                (warmup or fn)()
+            graph = torch.cuda.CUDAGraph()
+            _begin_capture()
+            try:
+                with torch.cuda.device(self.device):
+                    with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+                        output = fn()
+            except Exception as e:
+                raise GraphError(f"capture of CUDA graph {key!r} failed: {e}") from e
+            finally:
+                _end_capture()
+                cur.wait_stream(self.stream)
+            if len(self.graphs) >= MAX_GRAPHS:
+                self.graphs.pop(next(iter(self.graphs)))
+            entry = self.graphs[key] = Graph(key, graph, output)
+            entry.capture_s = time.perf_counter() - t0
+            captures += 1
+            return entry
 
     def run(self, key: Hashable, fn: Callable[[Dict], Any], inputs: Dict,
             warmup: Optional[Callable[[Dict], None]] = None, holds: Any = None,
@@ -238,7 +256,8 @@ class Graphs:
             for sig in [s for s in self.params if s not in used]:
                 del self.params[sig]
         elif replay:
-            _fill(entry.inputs, inputs)
+            with profiling.span("graph.fill_inputs", key=key):
+                _fill(entry.inputs, inputs)
         return entry.replay() if replay else None
 
 

@@ -95,6 +95,7 @@ from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
 from ..models.weights import load_module
 from ..parallel import mesh as mesh_lib
 from ..parallel import tp as tp_lib
+from ..utils import profiling
 
 # merged LoRA sets kept for explicit adapters (the server's per-request
 # trees), least recently used dropped first: the JAX pipeline's bound (:51-54)
@@ -573,20 +574,22 @@ class StableDiffusionPipeline:
         steps = num_inference_steps
         params = (adapter_params if adapter_params is not None
                   else self._generation_params())
-        ids = self._token_ids(negs + prompts)
-        self._check_ids_in_vocab(ids, params[2])
-        x, drawn = self._initial_latents(b, height, width, latents, seed,
-                                         steps if ancestral and noise is None else 0)
-        inputs = {"ids": self._to_device(ids, torch.long), "latents": x,
-                  "guidance": self._guidance(guidance_scale)}
-        if ancestral:
-            if noise is not None:
-                n = noise if isinstance(noise, torch.Tensor) else torch.from_numpy(
-                    np.asarray(noise, np.float32))
-                drawn = n.to(self.device, torch.float32).permute(0, 1, 4, 2, 3).contiguous()
-                if tuple(drawn.shape) != (steps,) + tuple(x.shape):
-                    raise ValueError(f"noise {tuple(drawn.shape)} != {(steps,) + tuple(x.shape)}")
-            inputs["noise"] = drawn
+        with profiling.span("pipe.prepare"):
+            ids = self._token_ids(negs + prompts)
+            self._check_ids_in_vocab(ids, params[2])
+            x, drawn = self._initial_latents(b, height, width, latents, seed,
+                                             steps if ancestral and noise is None else 0)
+            inputs = {"ids": self._to_device(ids, torch.long), "latents": x,
+                      "guidance": self._guidance(guidance_scale)}
+            if ancestral:
+                if noise is not None:
+                    n = noise if isinstance(noise, torch.Tensor) else torch.from_numpy(
+                        np.asarray(noise, np.float32))
+                    drawn = n.to(self.device, torch.float32).permute(0, 1, 4, 2, 3).contiguous()
+                    if tuple(drawn.shape) != (steps,) + tuple(x.shape):
+                        raise ValueError(
+                            f"noise {tuple(drawn.shape)} != {(steps,) + tuple(x.shape)}")
+                inputs["noise"] = drawn
         images = self._generate(
             ("txt2img", steps, height, width, scheduler, b),
             lambda p, inp: self._txt2img(p, inp, steps, scheduler), inputs, params)

@@ -23,12 +23,19 @@ is rounded up to multiples of the ``data`` size, the server runs on rank
 0, and each dispatched batch's call (prompts, seeds, steps, sampler,
 adapter name) is broadcast to the other ranks, which run :func:`follow`
 until the server stops.
+
+While torch's profiler is on, the worker records a ``server.request`` span
+for each request (its time queued and carried), ``server.batch`` (with
+``server.coalesce`` and the pipe's ``pipe.prepare``) and
+``server.resolve`` (with ``server.copy_wait``); ``utils/profiling.py``
+lists them.  The idle poll of an empty queue is no span.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -36,6 +43,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .parallel import mesh as mesh_lib
+from .utils import profiling
 
 
 @dataclass
@@ -50,15 +58,37 @@ class _Request:
     seed: int
     adapter: Optional[str] = None
     future: Future = field(default_factory=Future)
+    # time.perf_counter_ns of submit (0 unless spans were being recorded
+    # then), of being taken off the queue and of its batch's dispatch, and
+    # the id of its batch's span
+    t_submit: int = 0
+    t_taken: int = 0
+    t_dispatch: int = 0
+    batch_span: Optional[int] = None
 
     def batch_key(self) -> Tuple:
         # one batch = one LoRA tree set
         return (self.adapter, self.height, self.width, self.steps,
                 self.guidance_scale, self.scheduler)
 
+    def taken(self) -> None:
+        if self.t_submit:
+            self.t_taken = time.perf_counter_ns()
+
+    def _record(self, failed: bool) -> None:
+        """The request's ``server.request`` span, ending now."""
+        if not self.t_submit:
+            return
+        taken, sent = self.t_taken, self.t_dispatch
+        profiling.record("server.request", self.t_submit, time.perf_counter_ns(),
+                         queued_s=(taken - self.t_submit) / 1e9 if taken else None,
+                         carried_s=(sent - taken) / 1e9 if taken and sent else None,
+                         batch=self.batch_span, adapter=self.adapter, failed=failed)
+
     def resolve(self, result) -> None:
         """set_result, tolerating a future the caller cancelled: it must
         not poison the rest of its batch."""
+        self._record(False)
         try:
             self.future.set_result(result)
         except InvalidStateError:
@@ -67,6 +97,7 @@ class _Request:
     def fail(self, exc: BaseException) -> None:
         try:
             if not self.future.done():
+                self._record(True)
                 self.future.set_exception(exc)
         except InvalidStateError:
             pass
@@ -156,6 +187,8 @@ class GenerationServer:
             raise KeyError(f"unknown adapter {adapter!r}; register_adapter first")
         req = _Request(prompt, negative_prompt, height, width, steps, guidance_scale,
                        scheduler, seed, adapter)
+        if profiling.recording():
+            req.t_submit = time.perf_counter_ns()
         with self._submit_lock:
             if self._stop.is_set():
                 raise RuntimeError("GenerationServer is closed")
@@ -185,24 +218,25 @@ class GenerationServer:
             r.fail(RuntimeError("server closed"))
 
     # -- worker --------------------------------------------------------------
-    def _collect(self, block: bool = True) -> List[_Request]:
+    def _take(self, block: bool) -> Optional[_Request]:
+        """The next batch's first request: the oldest carried one, else
+        the queue's head, waited for up to 0.1 s with ``block``."""
         if self._carry:
-            first = self._carry.pop(0)
-        elif block:
-            try:
-                first = self._q.get(timeout=0.1)
-            except queue.Empty:
-                return []
-        else:
-            # a batch is in flight on the card: take what is queued now
-            # (its generation time is the coalescing window)
-            try:
-                first = self._q.get_nowait()
-            except queue.Empty:
-                return []
+            return self._carry.pop(0)
+        try:
+            # without block a batch is in flight on the card: take what is
+            # queued now (its generation time is the coalescing window)
+            first = self._q.get(timeout=0.1) if block else self._q.get_nowait()
+        except queue.Empty:
+            return None
+        first.taken()
+        return first
+
+    def _collect(self, first: _Request, block: bool) -> List[_Request]:
         batch = [first]
         if block and len(self._carry) + self._q.qsize() < self.max_batch - 1:
-            self._stop.wait(self.max_wait_s)  # the coalescing window
+            with profiling.span("server.coalesce"):
+                self._stop.wait(self.max_wait_s)  # the coalescing window
         while len(batch) < self.max_batch:
             if self._carry:
                 # carried requests are older than anything queued
@@ -214,6 +248,7 @@ class GenerationServer:
                 nxt = self._q.get_nowait()
             except queue.Empty:
                 break
+            nxt.taken()
             if nxt.batch_key() == first.batch_key():
                 batch.append(nxt)
             else:
@@ -230,57 +265,70 @@ class GenerationServer:
         return self.allowed_batches[-1]
 
     def _resolve(self, pending) -> None:
-        batch, n, (host, event) = pending
+        batch, n, (host, event), batch_span = pending
+        with profiling.span("server.resolve", batch=batch_span):
+            try:
+                if event is not None:
+                    with profiling.span("server.copy_wait"):
+                        event.synchronize()
+                images = self.pipe._postprocess(host, "pil")
+                for r, img in zip(batch, images[:n]):
+                    r.resolve(img)
+            except Exception as e:
+                for r in batch:
+                    r.fail(e)
+
+    def _dispatch(self, batch: List[_Request], span) -> Tuple[Optional[List[_Request]], Any]:
+        """Enqueue ``batch`` (split down the ladder, padded to it) on the
+        card; (the requests dispatched, their images' host copy), or
+        (None, None) when the call failed (its requests failed too)."""
+        r0 = batch[0]
+        n = len(batch)
+        down = max((b for b in self.allowed_batches if b <= n), default=None)
+        if down is not None and down < n:
+            # the rest goes to the front of the carry: it keeps its place
+            # before a parked next-shape head
+            self._carry[:0] = batch[down:]
+            batch = batch[:down]
+            n = down
+        nb = self._rounded(n)
+        span["images"], span["rows"] = n, nb
+        prompts = [r.prompt for r in batch] + [r0.prompt] * (nb - n)
+        negs = [r.negative_prompt for r in batch] + [r0.negative_prompt] * (nb - n)
+        seeds = [r.seed for r in batch] + [r0.seed] * (nb - n)
+        call = dict(prompt=prompts, negative_prompt=negs, height=r0.height, width=r0.width,
+                    num_inference_steps=r0.steps, guidance_scale=r0.guidance_scale,
+                    scheduler=r0.scheduler, seed=seeds)
         try:
-            if event is not None:
-                event.synchronize()
-            images = self.pipe._postprocess(host, "pil")
-            for r, img in zip(batch, images[:n]):
-                r.resolve(img)
+            if self.mesh is not None:  # the other ranks make the same call
+                mesh_lib.broadcast_object(dict(call, adapter=r0.adapter), self.mesh)
+            params = self._adapter_params(r0.adapter)
+            if span:
+                now = time.perf_counter_ns()
+                for r in batch:
+                    r.t_dispatch, r.batch_span = now, span.id
+            dev = self.pipe(**call, output_type="device", adapter_params=params)
+            return batch, _to_host(dev)
         except Exception as e:
             for r in batch:
                 r.fail(e)
+            return None, None
 
     def _loop(self):
         pending = None
         try:
             while not self._stop.is_set():
-                batch = self._collect(block=pending is None)
-                out = None
-                if batch:
-                    r0 = batch[0]
-                    n = len(batch)
-                    down = max((b for b in self.allowed_batches if b <= n), default=None)
-                    if down is not None and down < n:
-                        # the rest goes to the front of the carry: it keeps
-                        # its place before a parked next-shape head
-                        self._carry[:0] = batch[down:]
-                        batch = batch[:down]
-                        n = down
-                    nb = self._rounded(n)
-                    prompts = [r.prompt for r in batch] + [r0.prompt] * (nb - n)
-                    negs = [r.negative_prompt for r in batch] + [r0.negative_prompt] * (nb - n)
-                    seeds = [r.seed for r in batch] + [r0.seed] * (nb - n)
-                    call = dict(prompt=prompts, negative_prompt=negs, height=r0.height,
-                                width=r0.width, num_inference_steps=r0.steps,
-                                guidance_scale=r0.guidance_scale, scheduler=r0.scheduler,
-                                seed=seeds)
-                    try:
-                        if self.mesh is not None:  # the other ranks make the same call
-                            mesh_lib.broadcast_object(dict(call, adapter=r0.adapter),
-                                                      self.mesh)
-                        dev = self.pipe(**call, output_type="device",
-                                        adapter_params=self._adapter_params(r0.adapter))
-                        out = _to_host(dev)
-                    except Exception as e:
-                        for r in batch:
-                            r.fail(e)
-                        batch = None
+                block = pending is None
+                first = self._take(block)
+                batch = out = None
+                if first is not None:
+                    with profiling.span("server.batch", adapter=first.adapter) as span:
+                        batch, out = self._dispatch(self._collect(first, block), span)
                 if pending is not None:
                     self._resolve(pending)
                     pending = None
                 if batch and out is not None:
-                    pending = (batch, len(batch), out)
+                    pending = (batch, len(batch), out, span.id)
         finally:
             if pending is not None:
                 self._resolve(pending)

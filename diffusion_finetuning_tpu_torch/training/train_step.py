@@ -55,6 +55,7 @@ from ..graph import Graphs
 from ..lora import module_name
 from ..models.layers import kernel_switches
 from ..parallel import mesh as mesh_lib
+from ..utils import profiling
 from .loss import RowShard, draw_inputs, loss_step
 from .optim import MultiGroupOptimizer, apply_ti_constraints, trainable_tensors
 
@@ -351,9 +352,11 @@ class _Steps:
         return {key: torch.stack([d[key] for d in per_step]) for key in per_step[0]}
 
     def _key(self, state, batches, draws) -> Hashable:
-        tensors = carried_tensors(state) + _leaves(state.get("static"))
-        return ((self.k, self.stacked, str(self.carry_dtype), self.mesh), kernel_switches(),
-                _signature(batches), _signature(draws), tuple(map(id, tensors)))
+        with profiling.span("train.key", steps=self.k):
+            tensors = carried_tensors(state) + _leaves(state.get("static"))
+            return ((self.k, self.stacked, str(self.carry_dtype), self.mesh),
+                    kernel_switches(), _signature(batches), _signature(draws),
+                    tuple(map(id, tensors)))
 
     def __call__(self, state, batches, generator=None, draws=None, capture_only=False):
         """Run the steps; returns (state, losses): (k,) when stacked, else
@@ -524,22 +527,29 @@ class FusedDispatcher:
         stepped, step)`` after each dispatch, the next group's transfer
         already staged.  ``rng``: the ``torch.Generator`` the steps draw
         from; ``draws(step) -> draws`` hands each step's draws in instead
-        (the parity tests)."""
+        (the parity tests).  While torch's profiler is on, each dispatch
+        is a ``train.dispatch`` span, the group's steps and then the next
+        group's ``train.take`` and ``train.stage``."""
         gs = start_step
-        group = take_group(gs)
-        prepared = self.prepare(group)
+        group, prepared = self._take(take_group, gs)
         while gs < total_steps and group:
-            given = None if draws is None else [draws(gs + i) for i in range(len(group))]
-            state, losses = self.run(state, group, rng, prepared=prepared, draws=given)
-            stepped = len(group)
-            gs += stepped
-            if gs < total_steps:
-                nxt = take_group(gs)
-                prepared = self.prepare(nxt)
-            else:
-                nxt = []
+            with profiling.span("train.dispatch", steps=len(group)):
+                given = None if draws is None else [draws(gs + i) for i in range(len(group))]
+                state, losses = self.run(state, group, rng, prepared=prepared, draws=given)
+                stepped = len(group)
+                gs += stepped
+                nxt, prepared = (self._take(take_group, gs) if gs < total_steps
+                                 else ([], None))
             yield state, losses, stepped, gs
             group = nxt
+
+    def _take(self, take_group, gs):
+        """The group of step ``gs`` and its staging (:meth:`prepare`)."""
+        with profiling.span("train.take") as span:
+            group = take_group(gs)
+            span["steps"] = len(group)
+        with profiling.span("train.stage"):
+            return group, self.prepare(group)
 
     def run(self, state, group, generator=None, prepared=None, draws=None):
         """Run ``len(group)`` (<= spd) steps; returns (state, losses (n,)).

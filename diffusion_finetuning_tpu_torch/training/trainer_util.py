@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import graph as graph_lib
 from ..models import hf_loading
 from ..parallel.mesh import is_main_process
 from ..models.clip_text import TOKEN_EMBEDDING
@@ -131,7 +132,8 @@ class DispatchLog:
     the later ones (host clock, after a device sync); ``wall_s`` is the
     whole run's; ``launches`` are the kernel launches the run made (a
     captured graph's count at its warm-up and capture, none at its
-    replays)."""
+    replays); ``graph_captures`` and ``graph_replays`` the CUDA graphs it
+    captured and replayed (``graph.captures``, ``graph.replays``)."""
 
     def __init__(self, label: str, device: torch.device):
         self.label, self.device = label, device
@@ -140,6 +142,7 @@ class DispatchLog:
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
         self.launches0 = kernel_launches()
+        self.graphs0 = (graph_lib.captures, graph_lib.replays)
         self.start = self.t0 = time.perf_counter()
         self.walls: List[float] = []
         self.stepped: List[int] = []
@@ -169,7 +172,9 @@ class DispatchLog:
                           if self._losses else np.zeros(0, np.float32)),
                "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
                               if self.cuda else None),
-               "launches": {k: n - self.launches0[k] for k, n in kernel_launches().items()}}
+               "launches": {k: n - self.launches0[k] for k, n in kernel_launches().items()},
+               "graph_captures": graph_lib.captures - self.graphs0[0],
+               "graph_replays": graph_lib.replays - self.graphs0[1]}
         sps = "n/a" if out["steps_per_s"] is None else f"{out['steps_per_s']:.3f}"
         peak = ("" if out["peak_bytes"] is None
                 else f", peak memory {out['peak_bytes'] / 2**30:.2f} GiB")

@@ -10,17 +10,196 @@ synchronous tfevents writer, else ``torch.utils.tensorboard``, else
 reference's ``accelerator.log`` and wandb usage
 (train_lora_dreambooth.py:959-961, cli_lora_pti.py:390-402).  Every sink is
 optional: without one, logging is a no-op.
+
+**Spans.**  The port records spans where its host work happens, exactly
+while torch's profiler is on in the process (``trace`` below, or any
+``torch.profiler.profile``), from every thread; otherwise :func:`span` is
+one check of the profiler's process-wide flag and returns a shared no-op.
+Each span also opens a ``record_function`` range of its name, so the
+Chrome trace that :func:`trace` writes shows them on the device's clock;
+torch's profiler keeps only the ranges of the thread that started it
+(torch 2.11, CPU and CUDA builds), so the in-memory record, :func:`spans`,
+is the one that holds every thread's.  The spans:
+
+* ``server.request`` (``serving.GenerationServer``): one per request, from
+  its submit to its resolve or failure; ``queued_s`` (submit until the
+  worker took it off the queue), ``carried_s`` (taken off until its batch
+  was dispatched: held behind another adapter's batch, split down the
+  batch ladder, or in its batch's coalescing wait), ``batch`` (the id of its ``server.batch`` span),
+  ``adapter``.  Its times are the request's, recorded by the worker.
+* ``server.batch``: from taking a batch's first request to the launch of
+  its generation; ``images``, ``rows`` (after padding to the ladder),
+  ``adapter``.  Children: ``server.coalesce`` (the worker waiting for more
+  requests to join) and ``pipe.prepare`` (``StableDiffusionPipeline``:
+  tokenising, the vocabulary check, latents, copies to the device).
+* ``server.resolve``: a finished batch's images to the callers, ``batch``;
+  child ``server.copy_wait`` (the host waiting for the images' copy).
+* ``graph.capture``, ``graph.refill`` (``ParamBuffers.fill``; ``bytes``
+  copied), ``graph.fill_inputs`` (inputs copied into a graph's static
+  buffers), ``graph.replay``; each with ``key``.  ``graph.captures`` and
+  ``graph.replays`` count captures and replays whether or not spans are
+  recorded.
+* ``train.dispatch`` (``FusedDispatcher.drive``: one group's steps, then
+  the next group's take and staging; ``steps``), ``train.take`` (the
+  trainer's ``take_group``), ``train.stage`` (``FusedDispatcher.prepare``),
+  ``train.key`` (the graph key of the train state).
+* ``data.wait`` (``DataLoader``): the consumer waiting on the prefetch
+  queue; ``miss`` (the queue was empty), ``epoch_start``.
+
+Times are ``time.perf_counter_ns``.  The record is bounded
+(:data:`MAX_SPANS`); :func:`spans` returns None once any span was dropped,
+until :func:`clear`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
+import threading
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
+
+
+# -- spans --------------------------------------------------------------------
+
+MAX_SPANS = 1 << 17  # spans kept until clear(); later ones are counted, not kept
+
+# the profiler's process-wide flag (torch.autograd._profiler_enabled() is
+# per thread: it reads False on threads other than the profiler's)
+_profiler = torch.autograd.profiler
+_ids = itertools.count(1)
+_local = threading.local()
+_lock = threading.Lock()
+_kept: List["Span"] = []
+_dropped = 0
+
+
+def recording() -> bool:
+    """Whether spans are recorded: while torch's profiler is on."""
+    return _profiler._is_profiler_enabled
+
+
+def _stack() -> List["Span"]:
+    try:
+        return _local.stack
+    except AttributeError:
+        _local.stack = []
+        return _local.stack
+
+
+def _keep(s: "Span") -> None:
+    global _dropped
+    with _lock:
+        if len(_kept) < MAX_SPANS:
+            _kept.append(s)
+        else:
+            _dropped += 1
+
+
+class Span:
+    """One span: ``name``, ``id``, ``parent`` (the id of the span open
+    around it on its thread, or None), ``thread`` (``threading.get_ident``),
+    ``start`` and ``end`` (``time.perf_counter_ns``) and ``attrs``, which
+    ``span[key] = value`` adds to inside the ``with`` block."""
+
+    __slots__ = ("name", "id", "parent", "thread", "start", "end", "attrs", "_range")
+
+    def __init__(self, name: str, attrs: dict, start: int = 0, end: int = 0):
+        self.name, self.attrs, self.start, self.end = name, attrs, start, end
+        self.id = next(_ids)
+        self.parent = None
+        self.thread = threading.get_ident()
+        self._range = None
+
+    def __setitem__(self, key: str, value) -> None:
+        self.attrs[key] = value
+
+    def __enter__(self) -> "Span":
+        stack = _stack()
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end = time.perf_counter_ns()
+        self._range.__exit__(None, None, None)
+        self._range = None
+        stack = _stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        _keep(self)
+        return False
+
+
+class _Off:
+    """What :func:`span` returns while nothing is recorded: a falsy no-op,
+    shared, whose attributes are dropped."""
+
+    __slots__ = ()
+    id = None
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def __setitem__(self, key, value) -> None:
+        pass
+
+    def __bool__(self) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str, **attrs):
+    """``with span("layer.what", key=value) as s:`` records the block while
+    torch's profiler is on (``s`` is the :class:`Span`; test it before
+    computing an attribute only a record needs); otherwise a shared no-op
+    that reads no clock."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return Span(name, attrs)
+
+
+def record(name: str, start: int, end: int, **attrs) -> Optional[Span]:
+    """Record a span whose times (``time.perf_counter_ns``) the caller
+    held, such as a request's, which crosses threads: its attributes name
+    its cause (no parent is taken from the stack).  None while nothing is
+    recorded."""
+    if not _profiler._is_profiler_enabled:
+        return None
+    s = Span(name, attrs, start, end)
+    _keep(s)
+    return s
+
+
+def spans() -> Optional[List[Span]]:
+    """The spans recorded since :func:`clear`, in the order they ended;
+    None if any was dropped (more than :data:`MAX_SPANS`)."""
+    with _lock:
+        return None if _dropped else list(_kept)
+
+
+def dropped() -> int:
+    """Spans dropped since :func:`clear`."""
+    return _dropped
+
+
+def clear() -> None:
+    global _dropped
+    with _lock:
+        _kept.clear()
+        _dropped = 0
 
 
 @contextlib.contextmanager
