@@ -61,7 +61,10 @@ Phases, each fatal on failure:
      which needs no gradient, is not recomputed).  Phase 2 also holds K5
      against its plain version at every routed SD1.5 conv shape (batch 2
      and 1), and K4 (G = 2 and 4, at both q tiles) equal to K1 bit for bit
-     at every flash shape, timed beside K1 in the same run;
+     at every flash shape, timed beside K1 in the same run; and the NHWC
+     GroupNorm (no TPU counterpart) at every GroupNorm shape of an SD1.5
+     UNet step, an SD 2.1 768^2 batch-8 UNet step and a 768^2 VAE decode of
+     4 images, beside PyTorch's GroupNorm + SiLU on NCHW;
   7. graphed: the main paths through their CUDA graphs (``graph.py``), each
      beside its eager run -- 512^2 txt2img (50 DDIM steps, CFG 7.5) at
      batches 1 and 2 with the LoRA merged and dynamic (``__call__``), the
@@ -329,6 +332,96 @@ def unet_conv3x3_calls(ucfg, batch, side, only=None, itemsize=2):
     return calls
 
 
+def unet_group_norm_calls(ucfg, batch, side):
+    """{(B, C, H, W, add, silu): calls} of the GroupNorms of one UNet call
+    at ``side``^2 latents: each ResnetBlock2D's norm1 (+SiLU) and norm2
+    (time-embedding add, +SiLU), each transformer's norm, conv_norm_out
+    (+SiLU)."""
+    from diffusion_finetuning_tpu_torch.models.unet import _resnet_channel_map
+
+    levels = len(ucfg.block_out_channels)
+    calls = {}
+
+    def add(c, level, has_add, silu):
+        hw = side >> level
+        key = (batch, c, hw, hw, has_add, silu)
+        calls[key] = calls.get(key, 0) + 1
+
+    for prefix, cin, cout in _resnet_channel_map(ucfg):
+        part = prefix.split("_")
+        level = (int(part[2]) if part[0] == "down" else
+                 levels - 1 - int(part[2]) if part[0] == "up" else levels - 1)
+        add(cin, level, False, True)
+        add(cout, level, True, True)
+    chans = list(ucfg.block_out_channels)
+    for i, btype in enumerate(ucfg.down_block_types):
+        if btype == "CrossAttnDownBlock2D":
+            for _ in range(ucfg.layers_per_block):
+                add(chans[i], i, False, False)
+    add(chans[-1], levels - 1, False, False)  # the mid block's
+    for i, btype in enumerate(ucfg.up_block_types):
+        if btype == "CrossAttnUpBlock2D":
+            for _ in range(ucfg.layers_per_block + 1):
+                add(chans[levels - 1 - i], levels - 1 - i, False, False)
+    add(chans[0], 0, False, True)
+    return calls
+
+
+def vae_decoder_group_norm_calls(vcfg, batch, side):
+    """{(B, C, H, W, add, silu): calls} of the GroupNorms of one VAE decode
+    of ``side``^2 latents: the mid block's resnets (+SiLU) and attention
+    norm, each up block's resnets (+SiLU) at its size, conv_norm_out (+SiLU)."""
+    chans = list(reversed(vcfg.block_out_channels))
+    calls = {}
+
+    def add(c, hw, silu):
+        key = (batch, c, hw, hw, False, silu)
+        calls[key] = calls.get(key, 0) + 1
+
+    for _ in range(4):  # two mid resnets' norm1 and norm2
+        add(chans[0], side, True)
+    add(chans[0], side, False)
+    prev, hw = chans[0], side
+    for i, ch in enumerate(chans):
+        for j in range(vcfg.layers_per_block + 1):
+            add(prev if j == 0 else ch, hw, True)
+            add(ch, hw, True)
+        prev = ch
+        if i < len(chans) - 1:
+            hw *= 2
+    add(chans[-1], hw, True)
+    return calls
+
+
+def request_norms(ucfg, vcfg, unet_calls, encode=False):
+    """NHWC GroupNorm calls (``group_norm`` launches) of one generation
+    request on the card: each GroupNorm of each of its ``unet_calls`` UNet
+    calls, of the VAE decode and, for img2img (``encode``), of the VAE
+    encode runs the kernel once, whatever the batch.  The encoder's: two in
+    each down block's resnets, four in the mid block's two resnets, its
+    attention's, conv_norm_out's."""
+    unet = sum(unet_group_norm_calls(ucfg, 1, 8).values())
+    decode = sum(vae_decoder_group_norm_calls(vcfg, 1, 8).values())
+    encoder = 2 * vcfg.layers_per_block * len(vcfg.block_out_channels) + 4 + 1 + 1
+    return unet_calls * unet + decode + (encoder if encode else 0)
+
+
+def pipe_norms(pipe, unet_calls, encode=False):
+    """:func:`request_norms` of ``pipe``'s models."""
+    return request_norms(pipe.unet_config, pipe.vae.config, unet_calls, encode)
+
+
+def check_no_fallbacks(label):
+    """No GroupNorm of the generation path so far fell back to PyTorch's
+    (``ops/channels_last.py``: only a call that needs a gradient does)."""
+    from diffusion_finetuning_tpu_torch.ops import channels_last
+
+    log(f"{label}: channels-last calls so far {channels_last.calls}, GroupNorm fallbacks "
+        f"{channels_last.fallbacks} (want 0)")
+    if channels_last.fallbacks:
+        fail(f"{channels_last.fallbacks} GroupNorms of the generation path ran PyTorch's")
+
+
 # H100 SXM published dense peaks
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -361,6 +454,12 @@ FLASH_BWD_TOL = {"max_rel": 2e-2, "rel_l2": 1e-2}
 # and rel L2 (the 9*C-term fp32 sums run in another order, then both round)
 CONV_TOL = {"max_rel": 2 ** -7, "rel_l2": 1e-2}
 LORA_TOL = {"max_abs": 5e-2, "rel_l2": 1e-2}
+# NHWC GroupNorm vs its plain version on the same inputs: both round one fp32
+# value once (bf16: within one bf16 ulp of the largest value; fp32: a few fp32
+# roundings), from statistics summed in another order; a lost tile or group
+# moves y by its whole scale
+GN_TOL = {"max_rel": 2 ** -7, "rel_l2": 1e-3}
+GN_F32_TOL = {"max_rel": 1e-5, "rel_l2": 1e-6}
 UNET_REL_L2 = 5e-2  # bf16 card run vs fp32 CPU run of the whole UNet
 TRAIN_GRAD_REL_L2 = 1e-1  # bf16 card vs fp32 CPU: the whole LoRA gradient of one step
 
@@ -569,6 +668,7 @@ def phase_kernels():
     results["flash_attention_fwd_packed"] = flash_packed_rows(gen, flush, iters, rows)
     results["flash_attention_bwd"] = flash_bwd_rows(gen, flush, iters)
     results["conv3x3"] = conv3x3_rows(gen, flush, iters)
+    results["group_norm"] = group_norm_rows(gen, flush, iters)
     results["lora_dense"] = lora_rows(gen, flush, iters)
     results.update(fp32_rows(gen, flush, iters))
     for name, rows in sd21_rows(gen, flush, iters).items():
@@ -1343,6 +1443,107 @@ def conv3x3_rows(gen, flush, iters):
     return rows
 
 
+GN_SETS = (  # (label, per-call key of the row, model, batch, latent side)
+    ("sd15 UNet, 512^2 CFG batch 2", "per_step", "sd15", 2, 64),
+    ("sd21 UNet, 768^2 batch 8 (4 images, CFG)", "sd21_per_step", "sd21", 8, 96),
+    ("VAE decode, 768^2 batch 4", "vae_per_decode", "vae", 4, 96),
+)
+
+
+def group_norm_rows(gen, flush, iters):
+    """The NHWC GroupNorm (``ops/group_norm.py``, no TPU counterpart) at
+    every distinct GroupNorm shape of an SD1.5 512^2 CFG UNet step (batch
+    2), an SD 2.1 768^2 UNet step at batch 8 and a 768^2 VAE decode of 4
+    images, bf16 channels-last, with the resnets' add and SiLU where they
+    take them: error against the plain version, a second run equal bit for
+    bit, its time, the plain version's, PyTorch's GroupNorm (+ add, + SiLU)
+    on the NCHW tensor as the modules ran before (``library_ms``, never
+    called by the port) and the bound (x read and y written once, 3.35
+    TB/s).  Then once in fp32.  ``per_step`` holds the SD1.5 step's calls,
+    ``sd21_per_step`` and ``vae_per_decode`` the others'."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import VAEConfig
+    from diffusion_finetuning_tpu_torch.ops import group_norm as gn
+
+    dev = torch.device("cuda")
+    cl = torch.channels_last
+    log(f"limits, NHWC GroupNorm kernel vs plain version: bf16 {GN_TOL}, fp32 {GN_F32_TOL}")
+    rows = []
+    for label, per, model, batch, side in GN_SETS:
+        calls = (vae_decoder_group_norm_calls(VAEConfig.sd15(), batch, side) if model == "vae"
+                 else unet_group_norm_calls(UNetConfig.sd15() if model == "sd15"
+                                            else UNetConfig.sd21(), batch, side))
+        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for (b, c, h, w, has_add, silu), count in sorted(calls.items()):
+            x = (torch.randn((b, c, h, w), generator=gen, device=dev) * 2 + 0.5).bfloat16()
+            xc = x.contiguous(memory_format=cl)
+            wt = (1 + 0.1 * torch.randn((c,), generator=gen, device=dev)).bfloat16()
+            bias = (0.1 * torch.randn((c,), generator=gen, device=dev)).bfloat16()
+            add = (torch.randn((b, c), generator=gen, device=dev).bfloat16() if has_add
+                   else None)
+            args = (32, wt, bias, 1e-5, add, silu)
+
+            def library():
+                h_ = x if add is None else x + add[:, :, None, None]
+                y_ = F.group_norm(h_, 32, wt, bias, 1e-5)
+                return F.silu(y_) if silu else y_
+
+            with torch.inference_mode():
+                y = gn._group_norm_cuda(xc, *args)
+                again = gn._group_norm_cuda(xc, *args)
+                y_ref = gn.group_norm_plain(xc, *args)
+                torch.cuda.synchronize()
+                mx, rel = errors(y, y_ref)
+                peak = float(y_ref.float().abs().max())
+                same = torch.equal(y, again)
+                ok = (same and y.is_contiguous(memory_format=cl) and mx <= GN_TOL["max_rel"] * peak
+                      and rel <= GN_TOL["rel_l2"] and bool(torch.isfinite(y).all()))
+                ms = cuda_time(lambda: gn._group_norm_cuda(xc, *args), iters, flush)
+                plain_ms = cuda_time(lambda: gn.group_norm_plain(xc, *args), 3, flush,
+                                     hide_host=False)
+                lib_ms = cuda_time(library, iters, flush)
+            nbytes = 2 * (2 * x.numel() + (0 if add is None else add.numel()) + 2 * c)
+            bound_ms, by = bound(0, nbytes)
+            p = gn.plan(b, h * w, c)
+            row = dict(shape=[b, c, h, w], add=has_add, silu=silu, model=model,
+                       per_step=count if per == "per_step" else 0,
+                       **({per: count} if per != "per_step" else {}),
+                       max_abs_err=mx, max_rel_err=mx / peak, rel_l2=rel, repeat_equal=same,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=by, plan=p._asdict(), bytes_share=bound_ms / ms if ms else None)
+            rows.append(row)
+            for k in tot:
+                tot[k] += row[k] * count
+            log(f"group_norm {model} B={b} C={c:4d} {h:3d}x{w:3d} add={int(has_add)} "
+                f"silu={int(silu)} x{count:2d} plan threads={p.threads} tile={p.tile} "
+                f"tiles={p.tiles}: max_abs={mx:.3e} rel_l2={rel:.3e} repeat equal {same} "
+                f"ms={ms:.4f} plain={plain_ms:.3f} torch={lib_ms:.4f} bound={bound_ms:.4f} "
+                f"({100 * bound_ms / ms if ms else 0:.1f}% of it) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"group_norm kernel disagrees at {row['shape']} add={has_add} silu={silu}")
+            del x, xc, y, again, y_ref
+        log(f"group_norm {label}, summed over its calls: {tot['ms']:.4f} ms, torch "
+            f"{tot['library_ms']:.4f} (x{tot['ms'] / tot['library_ms']:.3f}), bound "
+            f"{tot['bound_ms']:.4f} ({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), plain "
+            f"{tot['plain_ms']:.3f}")
+    # fp32 once, ragged: a 12x11 image, 640 channels, the add and SiLU
+    x = torch.randn((2, 640, 12, 11), generator=gen, device=dev).contiguous(memory_format=cl)
+    wt, bias = (torch.randn((640,), generator=gen, device=dev) for _ in range(2))
+    add = torch.randn((2, 640), generator=gen, device=dev)
+    with torch.inference_mode():
+        y = gn._group_norm_cuda(x, 32, wt, bias, 1e-6, add, True)
+        y_ref = gn.group_norm_plain(x, 32, wt, bias, 1e-6, add, True)
+        mx, rel = errors(y, y_ref)
+    peak = float(y_ref.abs().max())
+    log(f"group_norm fp32 (2, 640, 12x11) add silu: max_rel={mx / peak:.3e} rel_l2={rel:.3e}")
+    if not (mx <= GN_F32_TOL["max_rel"] * peak and rel <= GN_F32_TOL["rel_l2"]):
+        fail("fp32 group_norm kernel disagrees")
+    return rows
+
+
 def flash_bwd_rows(gen, flush, iters):
     """K3 at every training shape (BH = 8): dQ, dK, dV against the plain
     version on the same bf16 inputs (O and lse from K1); all three repeat
@@ -1529,6 +1730,8 @@ COUNTERS = {
     "lora_dense_fp32": ("lora_matmul", "fp32_launches"),
     "conv3x3": ("conv3x3", "launches"),
     "conv3x3_fp32": ("conv3x3", "fp32_launches"),
+    # calls, each of two kernels (statistics, then normalisation), as K3's
+    "group_norm": ("group_norm", "launches"),
 }
 
 
@@ -1655,7 +1858,8 @@ KERNEL_KINDS = (  # (kind, substrings of the device kernel's name), first match 
 
 
 # device kernel -> the launch counter of its wrapper, and the kernels one
-# launch runs (K3: its dK/dV kernel and its dQ kernel; the fp32 kernels'
+# launch runs (K3: its dK/dV kernel and its dQ kernel; the NHWC GroupNorm:
+# its statistics kernel and its normalisation kernel; the fp32 kernels'
 # split copies are not counted); first match wins
 DEVICE_KERNELS = (("flash_fwd_bf16_packed", "flash_attention_fwd_packed", 1),
                   ("flash_fwd_f32", "flash_attention_fwd_fp32", 1),
@@ -1666,7 +1870,9 @@ DEVICE_KERNELS = (("flash_fwd_bf16_packed", "flash_attention_fwd_packed", 1),
                   ("lora_dense_f32", "lora_dense_fp32", 1),
                   ("lora_dense", "lora_dense", 1),
                   ("conv3x3_f32", "conv3x3_fp32", 1),
-                  ("conv3x3", "conv3x3", 1))
+                  ("conv3x3", "conv3x3", 1),
+                  ("group_norm_stats", "group_norm", 1),
+                  ("group_norm_apply", None, 0))
 
 
 def profile_step(fn, label, out_dir, cpu=True, warm=True):
@@ -1804,10 +2010,12 @@ def phase_serving(pipe, lora_dev):
 
     n_dynamic = sum(1 for *_, mat in requests if not mat)
     want = want_counts(flash_attention_fwd=FLASH_PER_STEP * STEPS * len(requests),
-                       lora_dense=LORA_PER_STEP * STEPS * n_dynamic)
+                       lora_dense=LORA_PER_STEP * STEPS * n_dynamic,
+                       group_norm=pipe_norms(pipe, STEPS) * len(requests))
     log(f"serving launches {launched} (want {want})")
     if launched != want:
         fail(f"the main path launched {launched}, want {want}")
+    check_no_fallbacks("serving")
     for imgs, (prompt, *_rest) in zip(images, requests):
         b = 1 if isinstance(prompt, str) else len(prompt)
         if imgs.shape != (b, IMAGE, IMAGE, 3) or imgs.dtype != np.uint8:
@@ -2109,6 +2317,7 @@ def phase_img2img(pipe, lora_dev, per_step):
     launched = counts()
     hook.remove()
     want = {name: n * unet_steps * len(requests) for name, n in per_step.items()}
+    want["group_norm"] = pipe_norms(pipe, unet_steps, encode=True) * len(requests)
     log(f"img2img launches {launched} (want {want})")
     if launched != want:
         fail(f"the img2img path launched {launched}, want {want}")
@@ -2148,9 +2357,9 @@ def phase_merged_conv_cache(pipe, ucfg, per_step):
             torch.cuda.synchronize()
             launched = {k: v - launched[k] for k, v in counts().items()}
             copies.append(cv.tap_major_copies - before)
-            if launched != dict(per_step, lora_dense=0):
-                fail(f"a merged switched request launched {launched}, want "
-                     f"{dict(per_step, lora_dense=0)}")
+            want = dict(per_step, lora_dense=0, group_norm=pipe_norms(pipe, 1))
+            if launched != want:
+                fail(f"a merged switched request launched {launched}, want {want}")
     finally:
         pipe.unet_lora, pipe.materialize_lora = old
         pipe.invalidate_merged_cache()
@@ -2375,6 +2584,7 @@ def phase_graphed_serving(pipe, lora_dev, per_step, profile_dir=None):
 
             per_call = {k: n * STEPS for k, n in per_step.items()
                         if k != "lora_dense" or not mat}
+            per_call["group_norm"] = pipe_norms(pipe, STEPS)
             label = f"txt2img_b{b}_{'merged' if mat else 'dynamic'}"
             rows.append(graphed_path(
                 label, lambda: run(False), lambda: run(True),
@@ -2406,9 +2616,10 @@ def phase_graphed_img2img(pipe, lora_dev, per_step):
             pipe.cuda_graphs = old
 
     unet_steps = STEPS - img2img_start(STEPS, STRENGTH)
+    per_call = {k: n * unet_steps for k, n in per_step.items()}
+    per_call["group_norm"] = pipe_norms(pipe, unet_steps, encode=True)
     return graphed_path("img2img_switched", lambda: run(False), lambda: run(True),
-                        lambda: torch.equal(out[False], out[True]),
-                        {k: n * unet_steps for k, n in per_step.items()}, 1,
+                        lambda: torch.equal(out[False], out[True]), per_call, 1,
                         eager_repeats=EAGER_REQUESTS)
 
 
@@ -2480,6 +2691,7 @@ def phase_graphed(pipe, ucfg, lora_cpu, lora_dev, profile_dir=None):
         rows += phase_graphed_train(pipe, lora_cpu, switched_train_step, "train_switched")
     finally:
         set_switches(False)
+    check_no_fallbacks("phase 7")
     launches = {}
     for r in rows:
         for k, n in r["launches_at_capture"].items():
@@ -2744,16 +2956,17 @@ def _burst(server, requests):
     return out, lat, wall
 
 
-def _graph_launches(keys, per_step):
-    """The wrapper launches of capturing the request graphs ``keys``:
-    twice (warm-up and capture) each UNet step's K1 calls, and K2's where
-    the UNet LoRA is dynamic, plus the text encoder's K2 calls where its
-    LoRA is."""
+def _graph_launches(keys, per_step, pipe):
+    """The wrapper launches of capturing the request graphs ``keys`` of
+    ``pipe``: twice (warm-up and capture) each UNet step's K1 calls, and
+    K2's where the UNet LoRA is dynamic, plus the text encoder's K2 calls
+    where its LoRA is, and the request's GroupNorms."""
     total = want_counts()
     for key in keys:
         steps, sig = key[1], key[7]
         parts = {k[0][0] for k in sig}
         total["flash_attention_fwd"] += 2 * per_step["flash_attention_fwd"] * steps
+        total["group_norm"] += 2 * pipe_norms(pipe, steps)
         total["lora_dense"] += 2 * (per_step["lora_dense"] * steps * (1 in parts)
                                     + TEXT_LORA_PER_ENCODE * (3 in parts))
     return total
@@ -2798,7 +3011,7 @@ def phase_server(pipe, paths, per_step):
             torch.cuda.synchronize()
             got = counts()
             new = [k for k in pipe._graphs.graphs if k not in before]
-            want = _graph_launches(new, per_step)
+            want = _graph_launches(new, per_step, pipe)
             launched[f"server_burst{burst}"] = got
             arrays = [np.asarray(im) for im in images]
             diffs = []
@@ -3042,7 +3255,8 @@ def phase_pti_serving(pipe):
     pipe.unet_lora, pipe.text_encoder_lora = unet_lora, text_lora
     torch.cuda.synchronize()
     got = counts()
-    want = captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), PTI_SERVE_STEPS, graphs=2)
+    want = add_counts(captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), PTI_SERVE_STEPS,
+                               graphs=2), {"group_norm": 2 * 2 * pipe_norms(pipe, PTI_SERVE_STEPS)})
     diff = float(np.abs(with_lora.astype(np.float32) - without).mean()) / 255
     log(f"PTI pipe serving: first request (capture) {first_s:.2f} s, replay {replay_s:.3f} s; "
         f"mean |diff| against no LoRA {diff:.4f}; launches {got} (want {want})")
@@ -3130,7 +3344,8 @@ def phase_dreambooth(model_dir, tmp):
         ckpt_lib.save_train_state, ckpt_lib.restore_train_state = real_save, real_restore
 
     class_files = sorted(os.listdir(os.path.join(tmp, "class")))
-    synth = captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), CLASS_STEPS)
+    synth = add_counts(captured(want_counts(flash_attention_fwd=FLASH_PER_STEP), CLASS_STEPS),
+                       {"group_norm": 2 * request_norms(*sd15_configs()[:2], CLASS_STEPS)})
     row = {"wall_s": wall, "resume_wall_s": resume_wall, "class_images": class_files,
            "train": check_phase_log(first["log"]["dispatch"], "DreamBooth",
                                     captured(lora_step, TRAINER_SPD)),
@@ -3513,7 +3728,8 @@ def phase_img2img_samplers(pipe):
     for sch in IMG2IMG_SAMPLERS:
         n = img2img_unet_steps(sch, SAMPLER_STEPS, SAMPLER_STRENGTH)
         per_call = want_counts(flash_attention_fwd=FLASH_PER_STEP * n,
-                               lora_dense=LORA_PER_STEP * n + TEXT_LORA_PER_ENCODE)
+                               lora_dense=LORA_PER_STEP * n + TEXT_LORA_PER_ENCODE,
+                               group_norm=pipe_norms(pipe, n, encode=True))
         kw = dict(strength=SAMPLER_STRENGTH, num_inference_steps=SAMPLER_STEPS,
                   guidance_scale=GUIDANCE, scheduler=sch, output_type="device")
         graphs_before = 0 if pipe._graphs is None else len(pipe._graphs.graphs)
@@ -3799,7 +4015,8 @@ def phase_scripts(model_dir, paths, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["run_img2img"] = got = counts()
-    want = want_counts(flash_attention_fwd=2 * FLASH_PER_STEP * n)
+    want = want_counts(flash_attention_fwd=2 * FLASH_PER_STEP * n,
+                       group_norm=2 * request_norms(*sd15_configs()[:2], n, encode=True))
     img = np.asarray(Image.open(out))
     rows["run_img2img"] = {"s": wall, "unet_steps": n, "launches": got}
     log(f"run_img2img: {wall:.2f} s (load, patch A, capture, one request); launches {got} "
@@ -3833,7 +4050,8 @@ def phase_scripts(model_dir, paths, tmp):
         pipeline_mod.StableDiffusionPipeline.from_pretrained = real
     launches["visualize_progress"] = got = counts()
     graphs = len(made[0]._graphs.graphs)
-    want = want_counts(flash_attention_fwd_fp32=2 * FLASH_PER_STEP * VIS_STEPS * graphs)
+    want = want_counts(flash_attention_fwd_fp32=2 * FLASH_PER_STEP * VIS_STEPS * graphs,
+                       group_norm=2 * request_norms(*sd15_configs()[:2], VIS_STEPS) * graphs)
     arr = np.asarray(Image.open(grid))
     rows["visualize_progress"] = {"s": wall, "graphs": graphs, "launches": got}
     log(f"visualize_training_progress: {wall:.2f} s for 2 checkpoints ({graphs} graph "
@@ -4324,7 +4542,7 @@ def sd21_serving(pipe, lora_dev):
             out["eager"] = img
 
     per_call = want_counts(flash_attention_fwd=FLASH_PER_STEP * STEPS,
-                           lora_dense=LORA_PER_STEP * STEPS)
+                           lora_dense=LORA_PER_STEP * STEPS, group_norm=pipe_norms(pipe, STEPS))
     row = graphed_path("sd21_txt2img_768", lambda: run(False), lambda: run(True),
                        lambda: torch.equal(out["eager"], out["graphed"][-1]), per_call, 1,
                        eager_repeats=SD21_EAGER, graphed_repeats=SD21_GRAPHED)
@@ -4471,6 +4689,7 @@ def phase_sd21(tmp):
     log(f"phase 12 (c): {time.time() - t0:.1f} s")
     rows["serving"] = sd21_serving(pipe, lora_dev)
     launches["sd21_serving"] = rows["serving"]["launches_at_capture"]
+    check_no_fallbacks("phase 12")
     log(f"phase 12 (d): {time.time() - t0:.1f} s")
     launches["sd21_train"], rows["train"] = sd21_train(pipe, ucfg, vcfg, tcfg, sds, lora_cpu,
                                                        ref_pipe)
@@ -4506,6 +4725,8 @@ KERNEL_META = {
                 "diffusion_finetuning_tpu/ops/conv_pallas.py:72", "unet_step"),
     "conv3x3_fp32": ("cuda", "diffusion_finetuning_tpu_torch/csrc/conv3x3.cu",
                      "diffusion_finetuning_tpu/ops/conv_pallas.py:72", "unet_step"),
+    "group_norm": ("cuda", "diffusion_finetuning_tpu_torch/csrc/group_norm.cu",
+                   "none: no TPU counterpart (XLA's GroupNorm)", "unet_step"),
 }
 
 

@@ -11,8 +11,9 @@ function), keyed by the caller.  They share one capture stream and one
 memory pool.  A capture first runs a warm-up eagerly on that stream: it
 allocates what kernels allocate on first use (the split kernels' arrival
 counters, ``ops/_grid.py``, are kept per stream; the fused conv's tap-major
-weights, ``ops/conv3x3.py``, per weight) and loads every kernel, so that the
-capture itself allocates none of them (both raise if asked to while a
+weights, ``ops/conv3x3.py``, and the channels-last filters,
+``ops/channels_last.py``, per weight) and loads every kernel, so that the
+capture itself allocates none of them (each raises if asked to while a
 capture runs).  A graph runs only while every tensor it reads sits where it
 sat at capture: callers copy their inputs into the static buffers they
 captured with, and either key graphs on the identity of whatever else the
@@ -51,7 +52,7 @@ from typing import Any, Callable, Dict, Hashable, Optional
 
 import torch
 
-from .ops import conv3x3
+from .ops import channels_last, conv3x3
 from .utils import profiling
 
 
@@ -154,9 +155,10 @@ class ParamBuffers:
 
     def fill(self, sources: Dict[Hashable, torch.Tensor]) -> int:
         """Copy each source that is not the one its buffer holds, on the
-        current stream; returns the bytes copied.  A refilled 3x3 conv
-        weight has its cached tap-major copy, which a graph reads in its
-        place, rewritten in place too."""
+        current stream; returns the bytes copied.  A refilled conv weight
+        has its cached copies, which a graph reads in its place, rewritten
+        in place too: a 3x3 one's tap-major copy, any one's channels-last
+        copy."""
         copied = 0
         with torch.inference_mode(False), torch.no_grad():
             for k, src in sources.items():
@@ -165,8 +167,10 @@ class ParamBuffers:
                     continue
                 buf = self.buffers[k]
                 buf.copy_(src)
-                if buf.ndim == 4 and tuple(buf.shape[2:]) == (3, 3):
-                    conv3x3.refresh_tap_major(buf)
+                if buf.ndim == 4:
+                    channels_last.refresh(buf)
+                    if tuple(buf.shape[2:]) == (3, 3):
+                        conv3x3.refresh_tap_major(buf)
                 self.held[k] = _ident(src)
                 copied += buf.numel() * buf.element_size()
         return copied

@@ -18,17 +18,28 @@ the card, its plain version on the CPU), as JAX ``LoRAConv.conv`` routes
 up conv is 1x1).
 
 The LoRA buffers are not persistent: state dicts hold the base weights only.
+
+:class:`Conv2d` (the UNet's and VAE's other convolutions), :class:`LoRAConv2d`
+and :class:`GroupNorm` follow the memory format of the activation they get
+inside ``ops.channels_last.scope`` (the pipeline's generation calls on the
+card): a channels-last one keeps its layout, through a cached channels-last
+filter and the NHWC GroupNorm (``ops/group_norm.py``, which folds in the
+resnets' time-embedding add and SiLU).  An NCHW one, or any outside the
+scope, runs the NCHW code: the same operations in the same order as before.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import channels_last as cl
 from ..ops import conv3x3 as conv3x3_op
+from ..ops import group_norm as group_norm_op
 from ..ops import attention, flash_attention
 from ..ops.lora_matmul import lora_dense
 
@@ -72,7 +83,30 @@ class LoRALinear(_LoRAMixin, nn.Linear):
                           self.lora_scale)
 
 
-class LoRAConv2d(_LoRAMixin, nn.Conv2d):
+def _nhwc_filter(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The filter a conv of ``x`` reads: the cached channels-last copy where
+    it runs channels-last (counted), else ``weight``."""
+    if not cl.takes_nhwc(x):
+        return weight
+    cl.calls += 1
+    return cl.channels_last_filter(weight)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that reads a channels-last copy of its filter where it
+    runs channels-last."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _nhwc_filter(x, self.weight), self.bias)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        # a load copies into the weight in place: a CUDA graph reads the
+        # cached channels-last copy, rewritten here
+        cl.refresh(self.weight)
+
+
+class LoRAConv2d(_LoRAMixin, Conv2d):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = 0):
         super().__init__(in_channels, out_channels, kernel_size, stride, padding)
@@ -81,12 +115,15 @@ class LoRAConv2d(_LoRAMixin, nn.Conv2d):
     def _conv(self, x: torch.Tensor, weight: torch.Tensor, bias, stride, padding):
         """One conv of the layer.  Routed: the fused 3x3 conv without a bias
         (JAX passes zeros, the same sum), then ``bias`` added in the
-        activations' dtype, as JAX ``LoRAConv`` (:208-217, :234-238).
-        Otherwise torch's conv."""
+        activations' dtype, as JAX ``LoRAConv`` (:208-217, :234-238); it
+        takes an NCHW copy of a channels-last x and gives NCHW, copied back
+        to channels-last where the layer runs channels-last.  Otherwise
+        torch's conv."""
         if CONV_KERNEL and conv3x3_op.routes(x, weight, stride, padding):
             y = conv3x3_op.conv3x3(x, weight)
-            return y if bias is None else y + bias.to(y.dtype)[:, None, None]
-        return F.conv2d(x, weight, bias, stride, padding)
+            y = y if bias is None else y + bias.to(y.dtype)[:, None, None]
+            return y.contiguous(memory_format=torch.channels_last) if cl.takes_nhwc(x) else y
+        return F.conv2d(x, _nhwc_filter(x, weight), bias, stride, padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self._conv(x, self.weight, self.bias, self.stride, self.padding)
@@ -94,6 +131,38 @@ class LoRAConv2d(_LoRAMixin, nn.Conv2d):
             return y
         h = self._conv(x, self.lora_down, None, self.stride, self.padding)
         return y + self.lora_scale.to(y.dtype) * self._conv(h, self.lora_up, None, 1, 0)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` with an optional per-(batch, channel) ``add`` (B, C)
+    before it and an optional SiLU after it.  Where it runs channels-last
+    the NHWC GroupNorm (the kernel on the card, its plain version on the
+    CPU), y channels-last; on the card a call that needs a gradient runs
+    PyTorch's (the kernel is forward only) and is counted
+    (``channels_last.fallbacks``), and one the kernel does not take raises.
+    Otherwise the add, ``F.group_norm`` and ``F.silu`` as separate
+    operations."""
+
+    def _torch(self, x, add, silu):
+        if add is not None:
+            x = x + add[:, :, None, None]
+        y = F.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        return F.silu(y) if silu else y
+
+    def forward(self, x: torch.Tensor, add: Optional[torch.Tensor] = None,
+                silu: bool = False) -> torch.Tensor:
+        if not cl.takes_nhwc(x):
+            return self._torch(x, add, silu)
+        cl.calls += 1
+        if x.is_cuda and _needs_grad(x, self.weight, self.bias, add):
+            cl.fallbacks += 1
+            return self._torch(x, add, silu).contiguous(memory_format=torch.channels_last)
+        return group_norm_op.group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
+                                        add, silu)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,18 @@
 """UNet2DConditionModel (SD 1.x / 2.x denoiser), port of the JAX ``models/unet.py``.
 
-NCHW inside, diffusers state-dict key names, so the JAX package's parameter
+NCHW shapes inside, diffusers state-dict key names, so the JAX package's parameter
 trees load through ``models/weights.py``.  Every attention and GEGLU
 projection is a :class:`~.layers.LoRALinear` and the resnet convs are
 :class:`~.layers.LoRAConv2d`, so the reference target sets address them;
 :func:`unet_lora_targets` enumerates them in the JAX package's order (the
 on-disk pair index).  Every attention call goes through ``ops.attention``:
 the flash-attention kernel on the card.
+
+Layout: inside ``ops.channels_last.scope`` (the pipeline's calls on the
+card) a channels-last ``sample`` keeps every activation channels-last:
+``layers.Conv2d``, ``LoRAConv2d`` and ``GroupNorm`` follow their input, and
+the transformers' permutes around ``proj_in``/``proj_out`` are views.
+Outside it (the trainers) the modules run the NCHW code.
 
 Numerics as in the JAX model: GroupNorm eps 1e-5 in the resnets and 1e-6
 before the transformer, LayerNorm eps 1e-5, exact-erf GEGLU, nearest
@@ -33,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..lora import LoraTarget
 from ..ops.attention import attention as attention_op
-from .layers import LoRAConv2d, LoRALinear
+from .layers import Conv2d, GroupNorm, LoRAConv2d, LoRALinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,17 +115,17 @@ class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int = 32,
                  eps: float = 1e-5):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_ch, eps=eps)
+        self.norm1 = GroupNorm(groups, in_ch, eps=eps)
         self.conv1 = LoRAConv2d(in_ch, out_ch, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_ch)
-        self.norm2 = nn.GroupNorm(groups, out_ch, eps=eps)
+        self.norm2 = GroupNorm(groups, out_ch, eps=eps)
         self.conv2 = LoRAConv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = LoRAConv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x, temb):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        # the time embedding joins h inside norm2: h + emb is read only there
+        h = self.conv2(self.norm2(h, add=self.time_emb_proj(F.silu(temb)), silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -186,13 +192,13 @@ class Transformer2DModel(nn.Module):
                  use_linear_projection: bool = False):
         super().__init__()
         self.use_linear_projection = use_linear_projection
-        self.norm = nn.GroupNorm(groups, dim, eps=1e-6)
+        self.norm = GroupNorm(groups, dim, eps=1e-6)
         if use_linear_projection:
             self.proj_in = nn.Linear(dim, dim)
             self.proj_out = nn.Linear(dim, dim)
         else:
-            self.proj_in = nn.Conv2d(dim, dim, 1)
-            self.proj_out = nn.Conv2d(dim, dim, 1)
+            self.proj_in = Conv2d(dim, dim, 1)
+            self.proj_out = Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(dim, context_dim, heads)])
 
@@ -214,7 +220,7 @@ class Transformer2DModel(nn.Module):
 class Downsample2D(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=1)
+        self.conv = Conv2d(ch, ch, 3, stride=2, padding=1)
 
     def forward(self, x):
         return self.conv(x)
@@ -223,7 +229,7 @@ class Downsample2D(nn.Module):
 class Upsample2D(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv = Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -285,7 +291,7 @@ class UNet2DConditionModel(nn.Module):
         def transformer(ch, heads):
             return Transformer2DModel(ch, ctx, heads, g, cfg.use_linear_projection)
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chans[0], temb_dim)
 
         # registered in diffusers' order (down, up, then mid), so that
@@ -321,8 +327,8 @@ class UNet2DConditionModel(nn.Module):
                 if btype == "CrossAttnUpBlock2D" else None,
                 upsample=Upsample2D(ch) if i < len(chans) - 1 else None))
 
-        self.conv_norm_out = nn.GroupNorm(g, chans[0], eps=1e-5)
-        self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, chans[0], eps=1e-5)
+        self.conv_out = Conv2d(chans[0], cfg.out_channels, 3, padding=1)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -367,7 +373,7 @@ class UNet2DConditionModel(nn.Module):
             if blk.upsamplers is not None:
                 h = blk.upsamplers[0](h)
 
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+        return self.conv_out(self.conv_norm_out(h, silu=True))
 
 
 def unet_lora_targets(config: UNetConfig) -> list:

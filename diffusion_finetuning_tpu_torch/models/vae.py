@@ -1,9 +1,12 @@
 """AutoencoderKL, the SD VAE (port of the JAX ``models/vae.py``).
 
-NCHW, diffusers state-dict names with the SD-era attention names
+NCHW logical shapes, diffusers state-dict names with the SD-era attention names
 (``query/key/value/proj_attn``).  The encoder's downsample pads
 asymmetrically (0, 1, 0, 1) before a stride-2 valid conv (JAX :88); the
-single-head mid-block attention stays plain torch (JAX :64-84).  Inference
+single-head mid-block attention stays plain torch (JAX :64-84).  Inside
+``ops.channels_last.scope`` (the pipeline's calls on the card) a
+channels-last input keeps every activation channels-last, as in the UNet
+(``layers.Conv2d``, ``GroupNorm``).  Inference
 decodes ``latents / SCALING_FACTOR``; training encodes and scales by it.
 """
 
@@ -15,6 +18,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Conv2d, GroupNorm
 
 SCALING_FACTOR = 0.18215
 
@@ -42,15 +47,15 @@ class VAEConfig:
 class ResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, groups: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_ch, eps=1e-6)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
-        self.norm2 = nn.GroupNorm(groups, out_ch, eps=1e-6)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
-        self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
+        self.norm1 = GroupNorm(groups, in_ch, eps=1e-6)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
+        self.norm2 = GroupNorm(groups, out_ch, eps=1e-6)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -61,7 +66,7 @@ class AttnBlock(nn.Module):
 
     def __init__(self, ch: int, groups: int):
         super().__init__()
-        self.group_norm = nn.GroupNorm(groups, ch, eps=1e-6)
+        self.group_norm = GroupNorm(groups, ch, eps=1e-6)
         self.query = nn.Linear(ch, ch)
         self.key = nn.Linear(ch, ch)
         self.value = nn.Linear(ch, ch)
@@ -80,7 +85,7 @@ class AttnBlock(nn.Module):
 class Downsample(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=2, padding=0)
+        self.conv = Conv2d(ch, ch, 3, stride=2, padding=0)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -89,7 +94,7 @@ class Downsample(nn.Module):
 class Upsample(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, padding=1)
+        self.conv = Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -126,7 +131,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chans, g = list(cfg.block_out_channels), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         prev = chans[0]
         for i, ch in enumerate(chans):
@@ -135,22 +140,22 @@ class Encoder(nn.Module):
                 downsample=Downsample(ch) if i < len(chans) - 1 else None))
             prev = ch
         self.mid_block = MidBlock(chans[-1], g)
-        self.conv_norm_out = nn.GroupNorm(g, chans[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6)
+        self.conv_out = Conv2d(chans[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
         x = self.conv_in(x)
         for blk in self.down_blocks:
             x = blk(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chans, g = list(reversed(cfg.block_out_channels)), cfg.norm_num_groups
-        self.conv_in = nn.Conv2d(cfg.latent_channels, chans[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, chans[0], 3, padding=1)
         self.mid_block = MidBlock(chans[0], g)
         self.up_blocks = nn.ModuleList()
         prev = chans[0]
@@ -160,14 +165,14 @@ class Decoder(nn.Module):
                  for j in range(cfg.layers_per_block + 1)],
                 upsample=Upsample(ch) if i < len(chans) - 1 else None))
             prev = ch
-        self.conv_norm_out = nn.GroupNorm(g, chans[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(chans[-1], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, chans[-1], eps=1e-6)
+        self.conv_out = Conv2d(chans[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         x = self.mid_block(self.conv_in(z))
         for blk in self.up_blocks:
             x = blk(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class DiagonalGaussian:
@@ -197,8 +202,8 @@ class AutoencoderKL(nn.Module):
         self.config = config
         self.encoder = Encoder(config)
         self.decoder = Decoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+        self.post_quant_conv = Conv2d(config.latent_channels, config.latent_channels, 1)
 
     @property
     def dtype(self) -> torch.dtype:

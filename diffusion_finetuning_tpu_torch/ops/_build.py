@@ -26,7 +26,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("flash_attention", "flash_attention_bwd", "flash_attention_f32",
-           "flash_attention_bwd_f32", "lora_matmul", "conv3x3")
+           "flash_attention_bwd_f32", "lora_matmul", "conv3x3", "group_norm")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 

@@ -57,7 +57,11 @@ overrides a TI file makes (the grown token table under
 ``clip_text.TOKEN_EMBEDDING``), where the JAX pipeline holds the whole
 text parameter tree.  Public layouts are the JAX package's: ``latents``
 (B, h, w, 4), images (B, H, W, 3), img2img's init image (H, W, 3).  The
-model modules run NCHW.
+model modules take NCHW shapes; on the card the UNet's latents and the VAE's
+input are channels-last (``ops/channels_last.py:card_layout``) and the calls
+run inside ``channels_last.scope``, so the UNet and VAE keep that layout
+throughout: their convolutions read cached channels-last filters and their
+GroupNorms run the NHWC kernel (``ops/group_norm.py``).
 
 :meth:`~StableDiffusionPipeline.shard_over` spreads generation over a
 ``parallel.mesh`` mesh (JAX :325-377): every rank calls ``pipe(...)`` with
@@ -93,6 +97,8 @@ from ..models.schedulers import (DDIMScheduler, DDPMScheduler, EulerDiscreteSche
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
 from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
 from ..models.weights import load_module
+from ..ops import channels_last
+from ..ops.channels_last import card_layout
 from ..parallel import mesh as mesh_lib
 from ..parallel import tp as tp_lib
 from ..utils import profiling
@@ -621,10 +627,10 @@ class StableDiffusionPipeline:
         stateful sampler's counter and history (None: DDIM)."""
         b = x.shape[0]
         sigma = isinstance(sch, EulerDiscreteScheduler)
-        with lora_lib.attached(self.unet, unet_lora):
+        with lora_lib.attached(self.unet, unet_lora), self._card_scope():
             for t in timesteps:
                 xin = sch.scale_model_input(x, state, num_steps) if sigma else x
-                x2 = torch.cat([xin, xin])
+                x2 = card_layout(torch.cat([xin, xin]))
                 t2 = torch.full((2 * b,), t, dtype=torch.float32 if sigma else torch.long,
                                 device=self.device)
                 eps = functional_call(self.unet, unet_over, (x2, t2, context))
@@ -636,9 +642,15 @@ class StableDiffusionPipeline:
                     x, state = sch.step(eps, t, x, state, num_steps)
         return x
 
+    def _card_scope(self):
+        """The generation path's channels-last scope, on the card only
+        (``ops/channels_last.py``)."""
+        return channels_last.scope(self.device.type == "cuda")
+
     def _decode(self, x) -> torch.Tensor:
         """Latents -> uint8 (B, H, W, 3) on the device."""
-        images = self.vae.decode(x / SCALING_FACTOR).float()
+        with self._card_scope():
+            images = self.vae.decode(card_layout(x / SCALING_FACTOR)).float()
         images = torch.clamp(images / 2 + 0.5, 0.0, 1.0)
         return torch.round(images * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
 
@@ -746,7 +758,8 @@ class StableDiffusionPipeline:
         (its state lives in the loop), so a capture and its warm-up share it."""
         unet_over, unet_lora, text_over, text_lora = params
         context = self._encode(inputs["ids"], text_over, text_lora)
-        post = self.vae.encode(inputs["image"])
+        with self._card_scope():
+            post = self.vae.encode(card_layout(inputs["image"]))
         latents0 = (post.sample(noise=inputs["sample"]) * SCALING_FACTOR).repeat(
             inputs["noise"].shape[0], 1, 1, 1).float()
         cfg = self.scheduler_config

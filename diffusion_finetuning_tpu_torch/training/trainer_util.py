@@ -28,6 +28,7 @@ from ..parallel.mesh import is_main_process
 from ..models.clip_text import TOKEN_EMBEDDING
 from ..models.vae import AutoencoderKL
 from ..models.weights import load_module
+from ..ops import channels_last
 
 
 def token_table(pipe) -> torch.Tensor:
@@ -110,8 +111,9 @@ def compute_dtype(mixed_precision: Optional[str]) -> torch.dtype:
 
 def kernel_launches() -> Dict[str, int]:
     """The kernel wrappers' launch counters (each adds one where it
-    launches its kernel on the card)."""
-    from ..ops import conv3x3, flash_attention, lora_matmul
+    launches its kernel on the card; ``group_norm`` one a call, which
+    launches its statistics kernel, then its normalisation kernel)."""
+    from ..ops import conv3x3, flash_attention, group_norm, lora_matmul
 
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_fwd_packed": flash_attention.packed_launches,
@@ -119,7 +121,8 @@ def kernel_launches() -> Dict[str, int]:
             "flash_attention_bwd": flash_attention.bwd_launches,
             "flash_attention_bwd_fp32": flash_attention.bwd_fp32_launches,
             "lora_dense": lora_matmul.launches, "lora_dense_fp32": lora_matmul.fp32_launches,
-            "conv3x3": conv3x3.launches, "conv3x3_fp32": conv3x3.fp32_launches}
+            "conv3x3": conv3x3.launches, "conv3x3_fp32": conv3x3.fp32_launches,
+            "group_norm": group_norm.launches}
 
 
 class DispatchLog:
@@ -133,7 +136,12 @@ class DispatchLog:
     whole run's; ``launches`` are the kernel launches the run made (a
     captured graph's count at its warm-up and capture, none at its
     replays); ``graph_captures`` and ``graph_replays`` the CUDA graphs it
-    captured and replayed (``graph.captures``, ``graph.replays``)."""
+    captured and replayed (``graph.captures``, ``graph.replays``);
+    ``nhwc_calls`` and ``nhwc_fallbacks`` the UNet's and VAE's convolutions
+    and GroupNorms that ran channels-last, and those GroupNorms that the
+    NHWC kernel did not take (``ops/channels_last.py``), each counted per
+    Python call (a trainer's own steps feed NCHW: its validation images
+    run channels-last)."""
 
     def __init__(self, label: str, device: torch.device):
         self.label, self.device = label, device
@@ -143,6 +151,7 @@ class DispatchLog:
             torch.cuda.reset_peak_memory_stats(device)
         self.launches0 = kernel_launches()
         self.graphs0 = (graph_lib.captures, graph_lib.replays)
+        self.nhwc0 = (channels_last.calls, channels_last.fallbacks)
         self.start = self.t0 = time.perf_counter()
         self.walls: List[float] = []
         self.stepped: List[int] = []
@@ -174,7 +183,9 @@ class DispatchLog:
                               if self.cuda else None),
                "launches": {k: n - self.launches0[k] for k, n in kernel_launches().items()},
                "graph_captures": graph_lib.captures - self.graphs0[0],
-               "graph_replays": graph_lib.replays - self.graphs0[1]}
+               "graph_replays": graph_lib.replays - self.graphs0[1],
+               "nhwc_calls": channels_last.calls - self.nhwc0[0],
+               "nhwc_fallbacks": channels_last.fallbacks - self.nhwc0[1]}
         sps = "n/a" if out["steps_per_s"] is None else f"{out['steps_per_s']:.3f}"
         peak = ("" if out["peak_bytes"] is None
                 else f", peak memory {out['peak_bytes'] / 2**30:.2f} GiB")

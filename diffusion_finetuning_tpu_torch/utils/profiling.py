@@ -38,7 +38,11 @@ is the one that holds every thread's.  The spans:
   copied), ``graph.fill_inputs`` (inputs copied into a graph's static
   buffers), ``graph.replay``; each with ``key``.  ``graph.captures`` and
   ``graph.replays`` count captures and replays whether or not spans are
-  recorded.
+  recorded, and so do ``ops.channels_last.calls`` (the UNet's and VAE's
+  convolutions and GroupNorms that ran on channels-last activations, per
+  Python call: per capture and per eager call) and
+  ``ops.channels_last.fallbacks`` (those GroupNorms on the card that the
+  NHWC kernel did not take, which ran PyTorch's).
 * ``train.dispatch`` (``FusedDispatcher.drive``: one group's steps, then
   the next group's take and staging; ``steps``), ``train.take`` (the
   trainer's ``take_group``), ``train.stage`` (``FusedDispatcher.prepare``),

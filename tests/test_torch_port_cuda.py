@@ -1877,3 +1877,197 @@ def test_tp_k2_shards_sum_to_the_unsplit_call(card, tmp_path):
     # every case launched K2 once on each rank (and the unsplit call on rank 0)
     assert int(r0["launches"]) == 2 * len(TP_K2_CASES)
     assert int(r1["launches"]) == len(TP_K2_CASES)
+
+
+# -- the channels-last generation path: the NHWC GroupNorm and cached filters --
+
+# (B, C, H, W, add, silu, eps): the UNet's levels at SD1.5 512^2 (batch 2) and
+# SD 2.1 768^2 (batch 8), the VAE's up to 768^2
+GN_CASES = [
+    (2, 320, 64, 64, True, True, 1e-5), (2, 960, 32, 32, False, True, 1e-5),
+    (2, 1280, 16, 16, False, False, 1e-6), (2, 2560, 8, 8, False, True, 1e-5),
+    (8, 320, 96, 96, True, True, 1e-5), (8, 1920, 24, 24, False, True, 1e-5),
+    (8, 2560, 12, 12, True, True, 1e-5), (8, 640, 48, 48, False, False, 1e-6),
+    (1, 512, 96, 96, False, False, 1e-6), (1, 256, 384, 384, False, True, 1e-6),
+    (1, 128, 768, 768, False, True, 1e-6),
+]
+# kernel vs plain version on the same inputs: both round one fp32 value once,
+# from statistics summed in another order (bf16: within one ulp of the
+# largest value; fp32: a few roundings of the statistics)
+GN_TOL = {torch.bfloat16: (2 ** -7, 1e-3), torch.float32: (1e-5, 1e-5)}
+
+
+def _gn_inputs(card, b, c, h, w, with_add, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn((b, c, h, w), generator=g, device=card) * 2 + 0.5).to(dtype)
+    wt = (1 + 0.1 * torch.randn((c,), generator=g, device=card)).to(dtype)
+    bias = (0.1 * torch.randn((c,), generator=g, device=card)).to(dtype)
+    add = torch.randn((b, c), generator=g, device=card).to(dtype) if with_add else None
+    return x.contiguous(memory_format=torch.channels_last), wt, bias, add
+
+
+def _gn_close(y, y_ref, dtype):
+    max_rel, rel_l2 = GN_TOL[dtype]
+    peak = float(y_ref.float().abs().max())
+    assert _max_err(y, y_ref) <= max_rel * peak
+    assert _rel_l2(y, y_ref) <= rel_l2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,c,h,w,with_add,silu,eps", GN_CASES)
+def test_group_norm_kernel_matches_plain(card, b, c, h, w, with_add, silu, eps, dtype):
+    """The NHWC GroupNorm kernel against its plain version at the UNet's and
+    VAE's levels: channels-last y within GN_TOL, a second run equal bit for
+    bit, one call counted."""
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    x, wt, bias, add = _gn_inputs(card, b, c, h, w, with_add, dtype)
+    before = tgn.launches
+    with torch.inference_mode():
+        y = tgn.group_norm(x, 32, wt, bias, eps, add, silu)
+        again = tgn.group_norm(x, 32, wt, bias, eps, add, silu)
+        y_ref = tgn.group_norm_plain(x, 32, wt, bias, eps, add, silu)
+    torch.cuda.synchronize()
+    assert tgn.launches == before + 2
+    assert y.dtype == dtype and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, again) and bool(torch.isfinite(y).all())
+    _gn_close(y, y_ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("loads", [4, 9, 1000])
+@pytest.mark.parametrize("b,c,hw", [(2, 320, (7, 9)), (3, 192, (16, 16)), (1, 2560, (8, 8))])
+def test_group_norm_kernel_forced_grids(card, b, c, hw, loads):
+    """Tiles of 4, 9 and (one tile an image) 1000 loads a thread, ragged
+    images and groups that straddle a thread's channel vector (10 and 6
+    channels a group): within GN_TOL of the plain version, with the add and
+    SiLU."""
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    x, wt, bias, add = _gn_inputs(card, b, c, *hw, True, torch.bfloat16, seed=1)
+    p = tgn.plan(b, hw[0] * hw[1], c)
+    grid = tgn.Plan(p.threads, p.lanes, p.lanes * loads,
+                    -(-hw[0] * hw[1] // (p.lanes * loads)))
+    with torch.inference_mode():
+        y = tgn._group_norm_cuda(x, 32, wt, bias, 1e-5, add, True, grid=grid)
+        y_ref = tgn.group_norm_plain(x, 32, wt, bias, 1e-5, add, True)
+    _gn_close(y, y_ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_group_norm_module_routes_and_falls_back(card):
+    """Inside the channels-last scope ``layers.GroupNorm`` on a
+    channels-last CUDA tensor runs the kernel; one it does not take (fp16)
+    raises, and one that needs a gradient runs PyTorch's, counted in
+    ``channels_last.fallbacks``, with the same values and a channels-last
+    result; an NCHW tensor runs PyTorch's uncounted, and so does a
+    channels-last one outside the scope."""
+    from diffusion_finetuning_tpu_torch.ops import channels_last as tcl
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    norm = tlayers.GroupNorm(32, 320, eps=1e-5).to(card)
+    x = torch.randn((2, 320, 16, 16), device=card)
+    add = torch.randn((2, 320), device=card)
+    want = F.silu(F.group_norm(x + add[:, :, None, None], 32, norm.weight, norm.bias, 1e-5))
+    xc = x.contiguous(memory_format=torch.channels_last)
+    counts = lambda: (tcl.calls, tcl.fallbacks, tgn.launches)  # noqa: E731
+    with torch.no_grad():
+        outside = counts()
+        y_out = norm(xc, add=add, silu=True)
+        assert counts() == outside and torch.equal(y_out, want)
+    with torch.no_grad(), tcl.scope():
+        c0 = counts()
+        y = norm(xc, add=add, silu=True)
+        c1 = counts()
+        with pytest.raises(ValueError, match="does not take"):
+            norm.half()(xc.half(), add=add.half(), silu=True)
+        c2 = counts()
+        norm.float()
+        y_nchw = norm(x, add=add, silu=True)
+        c3 = counts()
+    x_grad = xc.clone().requires_grad_(True)
+    with tcl.scope():
+        y_grad = norm(x_grad, add=add, silu=True)
+    c4 = counts()
+    assert [b - a for a, b in zip(c0, c1)] == [1, 0, 1]
+    assert [b - a for a, b in zip(c1, c2)] == [1, 0, 0]
+    assert c3 == c2 and [b - a for a, b in zip(c3, c4)] == [1, 1, 0]
+    for got in (y, y_grad):
+        assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y_grad, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(y_nchw, want) and y_nchw.is_contiguous()
+    y_grad.sum().backward()
+    assert x_grad.grad is not None
+
+
+@pytest.mark.cuda
+def test_conv3x3_route_on_a_channels_last_input(card, monkeypatch):
+    """K5's opt-in route meets a channels-last input: it takes an NCHW copy
+    and stays within its gate of the plain conv."""
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", True)
+    torch.manual_seed(2)
+    conv = LoRAConv2d(320, 320, 3, padding=1).to(card, torch.bfloat16)
+    conv.bias.data.zero_()  # the layer adds its bias after the kernel's rounding
+    x = torch.randn((2, 320, 64, 64), device=card, dtype=torch.bfloat16)
+    before = tconv.launches
+    with torch.inference_mode():
+        y = conv(x.contiguous(memory_format=torch.channels_last))
+        y_nchw = conv(x)
+        y_ref = tconv.conv3x3_plain(x, conv.weight, conv.bias)
+    assert tconv.launches == before + 2
+    assert torch.equal(y, y_nchw)
+    _conv_close(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_unet_channels_last_matches_nchw_on_the_card(small_pipe):
+    """The bf16 UNet on a channels-last input inside the channels-last scope
+    (NHWC GroupNorm, cached filters, cuDNN's NHWC engines) against the same
+    UNet on NCHW: within 3e-2
+    relative L2 (bf16 roundings in other places through the whole network),
+    every GroupNorm on the kernel, none refused, every filter copy made at
+    the first call."""
+    from diffusion_finetuning_tpu_torch.ops import channels_last as tcl
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    pipe = small_pipe
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((2, 4, 16, 16), generator=g, device="cuda").bfloat16()
+    ctx = torch.randn((2, 77, 32), generator=g, device="cuda").bfloat16()
+    t = torch.tensor([500, 20], device="cuda")
+    norms = sum(isinstance(m, tlayers.GroupNorm) for m in pipe.unet.modules())
+    with torch.inference_mode():
+        want = pipe.unet(x, t, ctx)
+    with torch.inference_mode(), tcl.scope():
+        pipe.unet(x.contiguous(memory_format=torch.channels_last), t, ctx)
+        before = (tcl.fallbacks, tgn.launches, tcl.filter_copies)
+        got = pipe.unet(x.contiguous(memory_format=torch.channels_last), t, ctx)
+    assert (tcl.fallbacks - before[0], tgn.launches - before[1]) == (0, norms)
+    assert tcl.filter_copies == before[2]
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _rel_l2(got, want) <= 3e-2
+
+
+@pytest.mark.cuda
+def test_graphed_channels_last_request_counts(small_pipe):
+    """A graphed txt2img request runs the channels-last path at its capture
+    (its warm-up and capture both count) and its replay equals the eager
+    request bit for bit; no GroupNorm falls back."""
+    from diffusion_finetuning_tpu_torch.ops import channels_last as tcl
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    pipe = small_pipe
+    pipe.unet_lora, pipe.materialize_lora = None, True
+    pipe._graphs = None
+    kw = dict(height=32, width=32, num_inference_steps=3, output_type="device")
+    before = (tcl.calls, tcl.fallbacks, tgn.launches)
+    first = pipe("photo of sks", seed=7, **kw)
+    captured = (tcl.calls - before[0], tcl.fallbacks - before[1], tgn.launches - before[2])
+    mid = (tcl.calls, tgn.launches)
+    again = pipe("photo of sks", seed=7, **kw)
+    assert captured[0] > 0 and captured[1] == 0 and captured[2] > 0
+    assert (tcl.calls, tgn.launches) == mid  # a replay runs no Python
+    want = _eager(pipe, lambda: pipe("photo of sks", seed=7, **kw))
+    assert torch.equal(first, want) and torch.equal(again, want)

@@ -7,11 +7,15 @@ to both packages.  Everything is fp32; tolerance 1e-4 for whole models (the
 same sums in another order through tens of layers), 1e-5 for the scheduler.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from diffusion_finetuning_tpu import lora as jlora
 from diffusion_finetuning_tpu.models import clip_text as jclip
@@ -261,3 +265,270 @@ def test_ddim_matches_jax(prediction_type, steps):
         got = ts.step(torch.from_numpy(eps), t, torch.from_numpy(x), steps).numpy()
         np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
         x = want
+
+
+# -- the channels-last path (ops/channels_last.py) against the NCHW one --------
+
+from diffusion_finetuning_tpu_torch.models import layers as tlayers  # noqa: E402
+from diffusion_finetuning_tpu_torch.ops import channels_last as tcl  # noqa: E402
+
+CL = torch.channels_last
+# fp32 tolerance of a whole channels-last model against the same model on
+# NCHW: the same operations, whose convolutions sum in another order
+CL_ATOL = 1e-4
+
+
+def _nhwc_calls(fn, scope=True):
+    """(fn() inside the channels-last scope or outside it, channels-last
+    calls it made, fallbacks it made)."""
+    calls, falls = tcl.calls, tcl.fallbacks
+    with tcl.scope(scope):
+        out = fn()
+    return out, tcl.calls - calls, tcl.fallbacks - falls
+
+
+def _sd21_style_unet():
+    torch.manual_seed(3)
+    cfg = dataclasses.replace(tunet.UNetConfig.tiny(), use_linear_projection=True)
+    return tunet.UNet2DConditionModel(cfg).eval()
+
+
+@pytest.mark.parametrize("proj", ["conv", "linear"], ids=["sd15_conv_proj", "sd21_linear_proj"])
+def test_unet_channels_last_matches_nchw(unet_pair, proj):
+    """The tiny UNet (SD 1.5's conv proj_in/proj_out, or SD 2.1's linear
+    ones) on a channels-last 16^2 input inside the channels-last scope
+    against the same module on NCHW: within CL_ATOL, the output NCHW-shaped
+    and channels-last, every conv and GroupNorm called once on the
+    channels-last path, none refused."""
+    model = unet_pair[2] if proj == "conv" else _sd21_style_unet()
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, 32)).astype(np.float32))
+    t = torch.tensor([981, 1])
+    with torch.no_grad():
+        want, calls, _ = _nhwc_calls(lambda: model(x, t, ctx), scope=False)
+        assert calls == 0
+        got, calls, falls = _nhwc_calls(lambda: model(x.contiguous(memory_format=CL), t, ctx))
+    convs = sum(isinstance(m, nn.Conv2d) for m in model.modules())
+    norms = sum(isinstance(m, tlayers.GroupNorm) for m in model.modules())
+    assert got.shape == want.shape == x.shape and got.is_contiguous(memory_format=CL)
+    assert calls == convs + norms and falls == 0
+    torch.testing.assert_close(got, want, atol=CL_ATOL, rtol=CL_ATOL)
+
+
+def test_vae_channels_last_matches_nchw(vae_pair):
+    """The tiny VAE's encode (the asymmetric pad) and decode on channels-last
+    inputs against NCHW, within CL_ATOL; outputs NCHW-shaped with the
+    channels innermost (the posterior's mean is a channel slice of the
+    channels-last moments)."""
+    port = vae_pair[2]
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 32, 32)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((2, 4, 16, 16)).astype(np.float32))
+    with torch.no_grad():
+        for fn, arg in ((lambda a: port.encode(a).mean, img), (port.decode, z)):
+            want = fn(arg)
+            got, calls, falls = _nhwc_calls(lambda: fn(arg.contiguous(memory_format=CL)))
+            assert got.shape == want.shape and got.stride(1) == 1
+            assert calls > 0 and falls == 0
+            torch.testing.assert_close(got, want, atol=CL_ATOL, rtol=CL_ATOL)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "permuted_nhwc"])
+def test_nchw_forward_with_autograd_takes_no_cached_filter(unet_pair, layout):
+    """A forward and backward with autograd on outside the scope (the
+    trainers' path), on an NCHW input or on the permuted view of an NHWC
+    array the trainers hand the UNet (channels-last strides), adds nothing
+    to the channels-last counter and caches no filter.  (PyTorch's CPU
+    convolution picks its algorithm by the strides, so the two layouts agree
+    within fp32 sums in another order, as before the channels-last path.)"""
+    model = unet_pair[2]
+    base = torch.randn((1, 8, 8, 4))
+    x = (base.permute(0, 3, 1, 2) if layout == "permuted_nhwc"
+         else base.permute(0, 3, 1, 2).contiguous()).requires_grad_(True)
+    ctx = torch.randn((1, 77, 32))
+    copies, cached = tcl.filter_copies, len(tcl._FILTERS)
+    out, calls, falls = _nhwc_calls(lambda: model(x, torch.tensor([5]), ctx), scope=False)
+    out.square().mean().backward()
+    assert (calls, falls) == (0, 0) and x.grad is not None
+    assert (tcl.filter_copies, len(tcl._FILTERS)) == (copies, cached)
+    with torch.no_grad():
+        want = model(base.permute(0, 3, 1, 2).contiguous(), torch.tensor([5]), ctx)
+    torch.testing.assert_close(out.detach(), want, atol=1e-5, rtol=1e-5)
+
+
+def _export_bytes(pipe, out_dir):
+    from diffusion_finetuning_tpu_torch.io import safetensors_io
+    from diffusion_finetuning_tpu_torch.models.hf_export import save_pretrained
+
+    save_pretrained(pipe, str(out_dir / "hf"))
+    safetensors_io.write_safetensors(pipe.unet.state_dict(), str(out_dir / "unet.safetensors"))
+    return {str(p.relative_to(out_dir)): p.read_bytes()
+            for p in sorted(out_dir.rglob("*")) if p.is_file()}
+
+
+def test_saves_after_a_channels_last_call_are_unchanged(tmp_path):
+    """A pipe's state dicts, a ``.safetensors`` of its UNet and its
+    ``hf_export`` directory after channels-last UNet and VAE calls are byte
+    for byte those from before: parameters stay NCHW and contiguous."""
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline import StableDiffusionPipeline
+
+    unet_p, vae_p, text_p = tiny_params()
+    pipe = StableDiffusionPipeline(
+        tunet.UNetConfig.tiny(), weights.unet_state_dict(unet_p, junet.UNetConfig.tiny()),
+        tvae.VAEConfig.tiny(), weights.vae_state_dict(vae_p, jvae.VAEConfig.tiny()),
+        CLIPTextConfig.tiny(), weights.text_state_dict(text_p, jclip.CLIPTextConfig.tiny()),
+        CLIPTokenizer.tiny(["photo"]), device="cpu")
+    sds = [{k: v.clone() for k, v in m.state_dict().items()} for m in (pipe.unet, pipe.vae)]
+    (tmp_path / "before").mkdir()
+    (tmp_path / "after").mkdir()
+    before = _export_bytes(pipe, tmp_path / "before")
+    x = torch.randn((2, 4, 16, 16)).contiguous(memory_format=CL)
+    with torch.no_grad():
+        _, calls, _ = _nhwc_calls(lambda: (pipe.unet(x, torch.tensor([3, 4]),
+                                                     torch.randn((2, 77, 32))),
+                                           pipe.vae.decode(x)))
+    assert calls > 0
+    for m, sd in zip((pipe.unet, pipe.vae), sds):
+        now = m.state_dict()
+        assert now.keys() == sd.keys()
+        for k, v in now.items():
+            assert v.is_contiguous() and v.stride() == sd[k].stride() and torch.equal(v, sd[k])
+    assert _export_bytes(pipe, tmp_path / "after") == before
+
+
+def test_in_place_weight_write_refreshes_its_cached_filter():
+    """A conv weight rewritten in place is seen through the same cached
+    channels-last copy, rewritten in place (a CUDA graph that read it reads
+    the new values): at the next channels-last call, and at once where a
+    graph's weights are written: a ``load_state_dict`` into the module and a
+    ``graph.ParamBuffers`` refill (a merged adapter's weights); a freed
+    weight drops its copy."""
+    from diffusion_finetuning_tpu_torch.graph import ParamBuffers
+
+    torch.manual_seed(5)
+    conv = tlayers.Conv2d(8, 16, 3, padding=1)
+    x = torch.randn((2, 8, 6, 6)).contiguous(memory_format=CL)
+    with torch.no_grad(), tcl.scope():
+        conv(x)
+        cached = tcl.channels_last_filter(conv.weight)
+        assert cached.is_contiguous(memory_format=CL) and torch.equal(cached, conv.weight)
+        conv.weight.mul_(-2.0)
+        got = conv(x)
+        assert tcl.channels_last_filter(conv.weight) is cached
+        torch.testing.assert_close(got, F.conv2d(x.contiguous(), conv.weight, conv.bias,
+                                                 padding=1), atol=1e-5, rtol=1e-5)
+        new = {k: torch.randn_like(v) for k, v in conv.state_dict().items()}
+        conv.load_state_dict(new)
+        assert torch.equal(cached, new["weight"]) and torch.equal(conv.weight, new["weight"])
+
+        bufs = ParamBuffers({"w": conv.weight})
+        buf_cached = tcl.channels_last_filter(bufs.buffers["w"])
+        merged = conv.weight + 1.0
+        assert bufs.fill({"w": merged}) == merged.numel() * merged.element_size()
+        assert torch.equal(buf_cached, merged)
+        assert tcl.channels_last_filter(bufs.buffers["w"]) is buf_cached
+    key = id(conv.weight)
+    del conv
+    assert key not in tcl._FILTERS
+
+
+def test_conv3x3_route_keeps_a_channels_last_layout(monkeypatch):
+    """The opt-in fused-conv route (``layers.CONV_KERNEL``), which computes
+    on NCHW, hands a channels-last layer its output back channels-last
+    inside the scope, with the values of the NCHW call: the GroupNorm after
+    it stays on the channels-last path."""
+    from diffusion_finetuning_tpu_torch.ops import conv3x3 as tconv
+
+    monkeypatch.setattr(tlayers, "CONV_KERNEL", True)
+    monkeypatch.setattr(tconv, "routes", lambda x, w, stride, padding: w.shape[2:] == (3, 3))
+    torch.manual_seed(6)
+    conv = tlayers.LoRAConv2d(8, 16, 3, padding=1)
+    x = torch.randn((2, 8, 6, 6))
+    with torch.no_grad():
+        want = conv(x)
+        outside = conv(x.contiguous(memory_format=CL))
+        with tcl.scope():
+            got = conv(x.contiguous(memory_format=CL))
+    assert want.is_contiguous() and got.is_contiguous(memory_format=CL)
+    assert outside.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_chip_smoke_request_norms_match_a_channels_last_pipe(monkeypatch):
+    """chip_smoke's ``request_norms`` (the ``group_norm`` launches it wants
+    of a request) equal the NHWC GroupNorm calls of a tiny pipe's txt2img
+    and img2img requests with the channels-last path on, as on the card:
+    every GroupNorm of each UNet call and of the VAE decode (and encode)
+    runs the NHWC GroupNorm once."""
+    import chip_smoke
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+    from diffusion_finetuning_tpu_torch.pipelines import pipeline as tpipe
+
+    unet_p, vae_p, text_p = tiny_params()
+    ucfg, vcfg = tunet.UNetConfig.tiny(), tvae.VAEConfig.tiny()
+    pipe = tpipe.StableDiffusionPipeline(
+        ucfg, weights.unet_state_dict(unet_p, junet.UNetConfig.tiny()),
+        vcfg, weights.vae_state_dict(vae_p, jvae.VAEConfig.tiny()),
+        CLIPTextConfig.tiny(), weights.text_state_dict(text_p, jclip.CLIPTextConfig.tiny()),
+        CLIPTokenizer.tiny(["photo"]), device="cpu")
+    monkeypatch.setattr(tpipe.StableDiffusionPipeline, "_card_scope",
+                        lambda self: tcl.scope(True))
+    monkeypatch.setattr(tpipe, "card_layout", lambda x: x.contiguous(memory_format=CL))
+    seen = {"norms": 0, "unet": 0}
+    real = tgn.group_norm
+
+    def counted(*a, **kw):
+        seen["norms"] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tgn, "group_norm", counted)
+    hook = pipe.unet.register_forward_hook(
+        lambda *_: seen.__setitem__("unet", seen["unet"] + 1))
+    img = np.random.default_rng(13).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    try:
+        for encode, request in ((False, lambda: pipe("photo", num_inference_steps=3, seed=1,
+                                                     height=32, width=32)),
+                                (True, lambda: pipe.img2img("photo", img, strength=0.75,
+                                                            num_inference_steps=4, seed=1))):
+            seen.update(norms=0, unet=0)
+            request()
+            assert seen["unet"] > 0
+            assert seen["norms"] == chip_smoke.request_norms(ucfg, vcfg, seen["unet"], encode)
+    finally:
+        hook.remove()
+
+
+def test_chip_smoke_group_norm_calls_match_a_traced_forward(unet_pair, vae_pair):
+    """chip_smoke's GroupNorm shape lists (its kernel rows' calls per step)
+    equal the GroupNorm calls a forward makes, at the tiny configs."""
+    import chip_smoke
+
+    def traced(model, fn):
+        seen = {}
+
+        def hook(mod, args, kwargs):
+            b, c, h, w = args[0].shape
+            key = (b, c, h, w, kwargs.get("add") is not None, bool(kwargs.get("silu")))
+            seen[key] = seen.get(key, 0) + 1
+
+        hooks = [m.register_forward_pre_hook(hook, with_kwargs=True)
+                 for m in model.modules() if isinstance(m, tlayers.GroupNorm)]
+        try:
+            with torch.no_grad():
+                fn()
+        finally:
+            for h in hooks:
+                h.remove()
+        return seen
+
+    unet, vae = unet_pair[2], vae_pair[2]
+    x = torch.randn((2, 4, 16, 16))
+    assert traced(unet, lambda: unet(x, torch.tensor([1, 2]), torch.randn((2, 77, 32)))) == \
+        chip_smoke.unet_group_norm_calls(tunet.UNetConfig.tiny(), 2, 16)
+    assert traced(vae, lambda: vae.decode(torch.randn((3, 4, 8, 8)))) == \
+        chip_smoke.vae_decoder_group_norm_calls(tvae.VAEConfig.tiny(), 3, 8)

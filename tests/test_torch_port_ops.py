@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from diffusion_finetuning_tpu.ops import flash_attention as jfa
 from diffusion_finetuning_tpu.ops.attention import xla_attention
@@ -290,3 +291,114 @@ def test_kernel_library_is_keyed_on_sources(tmp_path, monkeypatch):
         assert p == _build.library_path(name)
         assert (_build.CSRC / f"{name}.cu").exists()
     assert len(set(paths.values())) == len(paths)
+
+
+# -- NHWC GroupNorm (no JAX counterpart: its plain version against PyTorch's) --
+
+def _gn_inputs(shape, dtype, layout, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    b, c = shape[:2]
+    x = (torch.randn(shape, generator=g) * 2 + 0.5).to(dtype)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = (1 + 0.1 * torch.randn((c,), generator=g)).to(dtype)
+    bias = (0.1 * torch.randn((c,), generator=g)).to(dtype)
+    add = torch.randn((b, c), generator=g).to(dtype)
+    return x, w, bias, add
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("eps,with_add,silu", [(1e-5, True, True), (1e-5, False, True),
+                                               (1e-6, False, False)],
+                         ids=["norm2", "norm1", "transformer"])
+@pytest.mark.parametrize("shape", [(2, 64, 8, 8), (2, 320, 5, 7)])
+def test_group_norm_plain_matches_torch(shape, eps, with_add, silu, dtype, layout):
+    """The NHWC GroupNorm's plain version (32 groups, the resnets' add and
+    SiLU, the transformers' eps) against PyTorch's add, ``F.group_norm``
+    and ``F.silu`` as the NCHW modules run them, in either layout; y keeps
+    x's shape, dtype and memory format.  fp32 within 1e-5; bf16 within one
+    bf16 ulp (2^-7 relative, or absolute near 0): PyTorch rounds after the
+    norm and again after the SiLU, the plain version once."""
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    x, w, b, add = _gn_inputs(shape, _TORCH[dtype], layout)
+    add = add if with_add else None
+    got = tgn.group_norm(x, 32, w, b, eps, add, silu)
+    h = x if add is None else x + add[:, :, None, None]
+    want = F.group_norm(h, 32, w, b, eps)
+    want = F.silu(want) if silu else want
+    fmt = torch.channels_last if layout == "nhwc" else torch.contiguous_format
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert got.is_contiguous(memory_format=fmt)
+    tol = 1e-5 if dtype == "f32" else 2 ** -7
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_group_norm_plain_is_differentiable():
+    """On the CPU the plain version carries gradients (the NHWC path of a
+    module that trains on channels-last inputs)."""
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    x, w, b, add = _gn_inputs((2, 64, 4, 4), torch.float32, "nhwc")
+    for t in (x, w, b, add):
+        t.requires_grad_(True)
+    tgn.group_norm(x, 32, w, b, 1e-5, add, True).square().sum().backward()
+    got = [t.grad.clone() for t in (x, w, b, add)]
+    for t in (x, w, b, add):
+        t.grad = None
+    F.silu(F.group_norm(x + add[:, :, None, None], 32, w, b, 1e-5)).square().sum().backward()
+    for g, t in zip(got, (x, w, b, add)):
+        torch.testing.assert_close(g, t.grad, atol=1e-5, rtol=1e-5)
+
+
+def _gn_shapes():
+    """Every GroupNorm (B, C, HW) of the SD1.5 512^2 and SD 2.1 768^2 UNet
+    steps (batch 1, 2, 8) and of the VAE decodes at 512^2 and 768^2 (batch
+    1 to 4)."""
+    import chip_smoke
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import VAEConfig
+
+    keys = set()
+    for cfg, side in ((UNetConfig.sd15(), 64), (UNetConfig.sd21(), 96)):
+        for batch in (1, 2, 8):
+            keys |= set(chip_smoke.unet_group_norm_calls(cfg, batch, side))
+    for side in (64, 96):
+        for batch in (1, 4):
+            keys |= set(chip_smoke.vae_decoder_group_norm_calls(VAEConfig.sd15(), batch, side))
+    return sorted({(k[0], k[1], k[2] * k[3]) for k in keys})
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+def test_group_norm_plans_at_sd_shapes(itemsize):
+    """The kernel's grid at every SD GroupNorm shape, bf16 and fp32: whole
+    warps of at most 1024 threads, each a channel vector of one of the tile's
+    pixel lanes; tiles covering the image once; shared memory within the
+    227 KB a CTA can have."""
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    shapes = _gn_shapes()
+    assert len(shapes) > 40
+    for b, c, hw in shapes:
+        p = tgn.plan(b, hw, c, itemsize)
+        assert p is not None, (b, c, hw)
+        vectors = c // tgn.vector(itemsize)
+        assert p.threads == vectors * p.lanes and p.threads % 32 == 0 and p.threads <= 1024
+        assert p.tile % p.lanes == 0 and p.tile // p.lanes >= tgn.MIN_LOADS
+        assert (p.tiles - 1) * p.tile < hw <= p.tiles * p.tile
+        assert (2 * p.lanes * c + p.lanes) * 4 <= 200 * 1024
+        assert b * p.tiles <= 8 * tgn.TARGET_CTAS
+
+
+def test_group_norm_plan_examples():
+    from diffusion_finetuning_tpu_torch.ops import group_norm as tgn
+
+    assert tgn.plan(2, 4096, 320) == (480, 12, 48, 86)  # 40 vectors x 12 lanes
+    assert tgn.plan(8, 9216, 320) == (480, 12, 144, 64)
+    assert tgn.plan(2, 64, 2560) == (320, 1, 4, 16)
+    assert tgn.plan(4, 768 * 768, 128) == (512, 32, 4480, 132)
+    assert tgn.plan(2, 256, 192).threads == 480  # 24 vectors: lanes in steps of 4
+    assert tgn.plan(2, 64, 2560, 4).threads == 640
+    assert tgn.plan(1, 64, 12) is None  # not a whole bf16 vector of channels
+    assert tgn.plan(1, 64, 8 * 1000) is None  # no whole warps of at most 1024 threads
