@@ -168,7 +168,16 @@ Phases, each fatal on failure:
      replays; (f) ``train_lora_dreambooth`` from (a)'s directory at 768^2 in
      fp32, SD21_DB_STEPS steps at SD21_DB_SPD a graph.  Launches exact in
      each; phase 2's ``sd21_rows`` time K1, K3 and K2 (bf16 and fp32) at
-     these shapes in rows of their own.
+     these shapes in rows of their own, ``sdxl_rows`` K1, K2 and the NHWC
+     GroupNorm (bf16) at phase 13's (UNet, towers and 1024^2 VAE decode);
+ 13. SDXL 1.0 base (``phase_sdxl``) at its published widths, seeded random
+     weights drawn on the card, a rank-4 dynamic LoRA on the UNet and both
+     towers: a 1024^2 batch of 2, 20 Euler steps, eager (140 K1 and 630 K2
+     a UNet step, 172 K2 in the towers, the predicted NHWC GroupNorms, no
+     GroupNorm fallback, 70 transformer blocks a UNet call, 2 towers) and
+     through its CUDA graph, equal bit for bit.  Phases 4 and 12 hold SD
+     1.5's and SD 2.1's UNets at 16 transformer blocks a call
+     (``unet.transformer_blocks``).
 
 Weights are random from fixed seeds (no checkpoint is read).  The last lines
 are the kernels JSON line, the card's ``name, power.limit`` line and
@@ -673,6 +682,8 @@ def phase_kernels():
     results.update(fp32_rows(gen, flush, iters))
     for name, rows in sd21_rows(gen, flush, iters).items():
         results[name] += rows
+    for name, rows in sdxl_rows(gen, flush, iters).items():
+        results[name] += rows
     return results
 
 
@@ -704,29 +715,44 @@ def sd21_rows(gen, flush, iters):
     library call's (SDPA, SDPA's backward, ``addmm`` plus the low-rank
     product) and the bound."""
     import torch
+
+    return model_rows(gen, flush, iters, "sd21", "SD 2.1", SD21_FLASH,
+                      (("serve", SD21_LORA, "sd21_per_step"),
+                       ("train", SD21_LORA_TRAIN, "sd21_train_per_step")),
+                      (torch.bfloat16, torch.float32), backward=True)
+
+
+def model_rows(gen, flush, iters, model, title, flash, lora, dtypes, backward):
+    """K1 (and K3 if ``backward``) at ``flash``'s (BH, Sq, Skv, d, calls)
+    and K2 at each ``lora`` set's (M, K, N, calls), in ``dtypes``: rows with
+    ``model``, ``per_step`` 0 and the calls under ``{model}_per_step`` (K1,
+    K3) or the set's key (K2); see ``sd21_rows``."""
+    import torch
     import torch.nn.functional as F
 
     from diffusion_finetuning_tpu_torch.ops import flash_attention as fa
     from diffusion_finetuning_tpu_torch.ops import lora_matmul as lm
 
     dev = torch.device("cuda")
+    per_model = f"{model}_per_step"
     out = {name: [] for name in ("flash_attention_fwd", "flash_attention_fwd_fp32",
                                  "flash_attention_bwd", "flash_attention_bwd_fp32",
                                  "lora_dense", "lora_dense_fp32")}
 
     def finish(name, row, errs_ok, desc):
-        row.update(model="sd21", per_step=0)
+        row.update(model=model, per_step=0)
         out[name].append(row)
-        log(f"sd21 {name} {desc}: max_abs={row['max_abs_err']:.3e} rel_l2={row['rel_l2']:.3e} "
+        log(f"{model} {name} {desc}: max_abs={row['max_abs_err']:.3e} "
+            f"rel_l2={row['rel_l2']:.3e} "
             f"repeat equal {row['repeat_equal']} ms={row['ms']:.4f} plain={row['plain_ms']:.3f} "
             f"library={row['library_ms']:.4f} bound={row['bound_ms']:.4f} ({row['bound_by']}) "
             f"{'ok' if errs_ok else 'FAIL'}")
         if not errs_ok:
-            fail(f"{name} disagrees with its plain version at SD 2.1's {row['shape']}")
+            fail(f"{name} disagrees with its plain version at {title}'s {row['shape']}")
 
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         f32 = dtype == torch.float32
-        for bh, sq, skv, d, count in SD21_FLASH:
+        for bh, sq, skv, d, count in flash:
             q, k, v = (torch.randn((bh, n, d), generator=gen, device=dev, dtype=dtype)
                        for n in (sq, skv, skv))
             with torch.inference_mode():
@@ -750,13 +776,13 @@ def sd21_rows(gen, flush, iters):
             nbytes = q.element_size() * bh * (2 * sq + 2 * skv) * d + 4 * bh * sq
             b_ms, by = bound_f32(flops, nbytes)[:2] if f32 else bound(flops, nbytes)
             finish("flash_attention_fwd_fp32" if f32 else "flash_attention_fwd",
-                   dict(shape=[bh, sq, skv, d], sd21_per_step=count, max_abs_err=mx, rel_l2=rel,
+                   dict(shape=[bh, sq, skv, d], **{per_model: count}, max_abs_err=mx, rel_l2=rel,
                         lse_abs_err=lse_err, repeat_equal=same, ms=ms, plain_ms=plain_ms,
                         library_ms=lib_ms, bound_ms=b_ms, bound_by=by,
                         q_tile=fa.fwd_q_tile(bh, sq)), ok,
                    f"BH={bh} Sq={sq} Skv={skv} d={d} x{count}")
             del q, k, v, o, lse, again, o_ref, lse_ref, q4, k4, v4
-        for bh2, sq, skv, d, count in SD21_FLASH:
+        for bh2, sq, skv, d, count in flash if backward else ():
             bh = bh2 // 2  # a train step: batch 1
             q, k, v, do = (torch.randn((bh, n, d), generator=gen, device=dev, dtype=dtype)
                            for n in (sq, skv, skv, sq))
@@ -786,7 +812,7 @@ def sd21_rows(gen, flush, iters):
             nbytes = q.element_size() * bh * (3 * sq + 4 * skv) * d + 8 * bh * sq
             b_ms, by = bound_f32(flops, nbytes)[:2] if f32 else bound(flops, nbytes)
             finish("flash_attention_bwd_fp32" if f32 else "flash_attention_bwd",
-                   dict(shape=[bh, sq, skv, d], sd21_per_step=count,
+                   dict(shape=[bh, sq, skv, d], **{per_model: count},
                         max_abs_err=max(e[0] for e in errs), rel_l2=max(e[2] for e in errs),
                         errors={n: dict(max_abs=e[0], max_rel=e[1], rel_l2=e[2])
                                 for n, e in zip(("dq", "dk", "dv"), errs)},
@@ -796,7 +822,7 @@ def sd21_rows(gen, flush, iters):
                                                  fa.bwd_q_rows_f32(d) if f32 else None)),
                    ok, f"BH={bh} Sq={sq} Skv={skv} d={d} x{count} (train step)")
             del q, k, v, do, o, lse, delta, got, again, want, q4, k4, v4, out4
-        for kind, shapes in (("serve", SD21_LORA), ("train", SD21_LORA_TRAIN)):
+        for kind, shapes, per_set in lora:
             for m, kdim, n, count in shapes:
                 x = torch.randn((m, kdim), generator=gen, device=dev).to(dtype)
                 w = (torch.randn((n, kdim), generator=gen, device=dev) * kdim ** -0.5).to(dtype)
@@ -837,20 +863,23 @@ def sd21_rows(gen, flush, iters):
                 plan = lm.plan_f32(m, n, kdim) if f32 else lm.plan(m, n, kdim)
                 finish("lora_dense_fp32" if f32 else "lora_dense",
                        dict(shape=[m, kdim, n, LORA_RANK],
-                            sd21_per_step=count if kind == "serve" else 0,
-                            sd21_train_per_step=count if kind == "train" else 0,
+                            **{key: count if key == per_set else 0 for _, _, key in lora},
                             max_abs_err=mx, max_abs_ref=top, rel_l2=rel, repeat_equal=same,
                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                             bound_by=by, plan=list(plan)), ok,
                        f"M={m} K={kdim} N={n} r={LORA_RANK} x{count} {kind} plan {plan}")
                 del x, w, b, up, down, y, again, y_ref
+    pers = {per_model: "CFG UNet step's"}
+    pers.update((key, "train step's" if kind == "train" else
+                 "CFG UNet step's" if kind == "serve" else f"{kind}'s") for kind, _, key in lora)
     for name, rows in out.items():
-        for per in ("sd21_per_step", "sd21_train_per_step"):
+        for per, what in pers.items():
             if any(r.get(per) for r in rows):
                 tot = {k: sum(r[k] * r.get(per, 0) for r in rows)
                        for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-                log(f"sd21 {name} summed over a{' train' if 'train' in per or 'bwd' in name else ' CFG UNet'} "
-                    f"step's calls: {tot['ms']:.4f} ms, library {tot['library_ms']:.4f} "
+                what = "train step's" if "bwd" in name else what
+                log(f"{model} {name} summed over a {what} "
+                    f"calls: {tot['ms']:.4f} ms, library {tot['library_ms']:.4f} "
                     f"(x{tot['ms'] / tot['library_ms']:.3f}), bound {tot['bound_ms']:.4f} "
                     f"(x{tot['ms'] / tot['bound_ms']:.2f}), plain {tot['plain_ms']:.3f}")
     return out
@@ -1448,19 +1477,25 @@ GN_SETS = (  # (label, per-call key of the row, model, batch, latent side)
     ("sd21 UNet, 768^2 batch 8 (4 images, CFG)", "sd21_per_step", "sd21", 8, 96),
     ("VAE decode, 768^2 batch 4", "vae_per_decode", "vae", 4, 96),
 )
+# SDXL's (phase 13's path) at the batch cell sdxl_base.serve.batch_lora serves
+SDXL_GN_SETS = (
+    ("sdxl UNet, 1024^2 batch 8 (4 images, CFG)", "sdxl_per_step", "sdxl", 8, 128),
+    ("sdxl VAE decode, 1024^2 batch 4", "sdxl_vae_per_decode", "sdxl_vae", 4, 128),
+)
 
 
-def group_norm_rows(gen, flush, iters):
+def group_norm_rows(gen, flush, iters, sets=GN_SETS, fp32=True):
     """The NHWC GroupNorm (``ops/group_norm.py``, no TPU counterpart) at
-    every distinct GroupNorm shape of an SD1.5 512^2 CFG UNet step (batch
-    2), an SD 2.1 768^2 UNet step at batch 8 and a 768^2 VAE decode of 4
-    images, bf16 channels-last, with the resnets' add and SiLU where they
+    every distinct GroupNorm shape of ``sets`` (by default an SD1.5 512^2
+    CFG UNet step (batch 2), an SD 2.1 768^2 UNet step at batch 8 and a
+    768^2 VAE decode of 4 images), bf16 channels-last, with the resnets' add and SiLU where they
     take them: error against the plain version, a second run equal bit for
     bit, its time, the plain version's, PyTorch's GroupNorm (+ add, + SiLU)
     on the NCHW tensor as the modules ran before (``library_ms``, never
     called by the port) and the bound (x read and y written once, 3.35
-    TB/s).  Then once in fp32.  ``per_step`` holds the SD1.5 step's calls,
-    ``sd21_per_step`` and ``vae_per_decode`` the others'."""
+    TB/s).  Then, if ``fp32``, once in fp32.  ``per_step`` holds the SD1.5
+    step's calls, the set's key (``sd21_per_step``, ``vae_per_decode``, ...)
+    the others'."""
     import torch
     import torch.nn.functional as F
 
@@ -1472,10 +1507,11 @@ def group_norm_rows(gen, flush, iters):
     cl = torch.channels_last
     log(f"limits, NHWC GroupNorm kernel vs plain version: bf16 {GN_TOL}, fp32 {GN_F32_TOL}")
     rows = []
-    for label, per, model, batch, side in GN_SETS:
-        calls = (vae_decoder_group_norm_calls(VAEConfig.sd15(), batch, side) if model == "vae"
-                 else unet_group_norm_calls(UNetConfig.sd15() if model == "sd15"
-                                            else UNetConfig.sd21(), batch, side))
+    unets = {"sd15": UNetConfig.sd15, "sd21": UNetConfig.sd21, "sdxl": UNetConfig.sdxl}
+    vaes = {"vae": VAEConfig.sd15, "sdxl_vae": VAEConfig.sdxl}
+    for label, per, model, batch, side in sets:
+        calls = (vae_decoder_group_norm_calls(vaes[model](), batch, side) if model in vaes
+                 else unet_group_norm_calls(unets[model](), batch, side))
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
         for (b, c, h, w, has_add, silu), count in sorted(calls.items()):
             x = (torch.randn((b, c, h, w), generator=gen, device=dev) * 2 + 0.5).bfloat16()
@@ -1529,6 +1565,8 @@ def group_norm_rows(gen, flush, iters):
             f"{tot['library_ms']:.4f} (x{tot['ms'] / tot['library_ms']:.3f}), bound "
             f"{tot['bound_ms']:.4f} ({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), plain "
             f"{tot['plain_ms']:.3f}")
+    if not fp32:
+        return rows
     # fp32 once, ragged: a 12x11 image, 640 channels, the add and SiLU
     x = torch.randn((2, 640, 12, 11), generator=gen, device=dev).contiguous(memory_format=cl)
     wt, bias = (torch.randn((640,), generator=gen, device=dev) for _ in range(2))
@@ -2030,6 +2068,7 @@ def phase_serving(pipe, lora_dev):
         f"(limit {PIPE_MEAN_ABS}), max {diff.max():.3e}")
     if not diff.mean() <= PIPE_MEAN_ABS:
         fail("the merged and the dynamic LoRA give different images for one seed")
+    check_blocks(pipe, SD_BLOCKS, "sd15")
     return launched, rows
 
 
@@ -4555,6 +4594,7 @@ def sd21_serving(pipe, lora_dev):
     if tuple(img.shape) != (1, SD21_IMAGE, SD21_IMAGE, 3) or not float(img.float().std()) > 0:
         fail("the SD 2.1 image is constant or misshapen")
     row["graphed_equal"] = len(equal)
+    row["blocks_a_unet_call"] = check_blocks(pipe, SD_BLOCKS, "sd21")
     pipe.release_graphs()
     return row
 
@@ -4702,6 +4742,213 @@ def phase_sd21(tmp):
     return launches, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: SDXL 1.0 base
+# ---------------------------------------------------------------------------
+
+SDXL_IMAGE = 1024        # 128x128 latents, the model's sample_size
+SDXL_STEPS = 20
+SDXL_GUIDANCE = 8.0
+SDXL_PROMPTS = ["a photo of sks person", "photo of sks"]
+SDXL_GRAPHED = 2         # timed graphed batches after the capturing one
+SDXL_BLOCKS = 70         # transformer blocks a UNet call: stacks of 2 x 2, 2 x 10, 10, 3 x 10, 3 x 2
+SD_BLOCKS = 16           # SD 1.5's and 2.1's: one a transformer
+SDXL_FLASH_PER_STEP = 2 * SDXL_BLOCKS   # 140 K1: each block's self- and cross-attention
+SDXL_LORA_PER_STEP = 9 * SDXL_BLOCKS    # 630 K2: each block's nine projections
+# the towers' LoRA'd projections, once a request: tower 1 to its penultimate
+# layer (11 of 12), tower 2 whole (32)
+SDXL_TEXT_LORA = 4 * (11 + 32)
+# phase 2's SDXL rows, at the batch of cell sdxl_base.serve.batch_lora: 4
+# images at 1024^2 with CFG, 8 rows.  (tokens, heads, width, transformer
+# blocks a UNet call) by level: 10 heads of 64 at 640 wide over 64^2 tokens
+# (2 down and 3 up transformers of 2 blocks), 20 at 1280 over 32^2 (2 down,
+# the mid and 3 up of 10); cross-attention over 77 tokens, 2048 wide
+SDXL_ROWS = 8
+SDXL_FLASH, SDXL_LORA = [], []
+for _s, _h, _c, _blocks in ((4096, 10, 640, 10), (1024, 20, 1280, 60)):
+    SDXL_FLASH += [(SDXL_ROWS * _h, _s, _s, 64, _blocks), (SDXL_ROWS * _h, _s, 77, 64, _blocks)]
+    SDXL_LORA += [(SDXL_ROWS * _s, _c, _c, 6 * _blocks), (77 * SDXL_ROWS, 2048, _c, 2 * _blocks),
+                  (SDXL_ROWS * _s, _c, 8 * _c, _blocks)]
+# the towers' (M, K, N, calls) over the 4 prompts (the unconditional half is zeros)
+SDXL_TOWER_LORA = [(77 * 4, 768, 768, 4 * 11), (77 * 4, 1280, 1280, 4 * 32)]
+assert sum(r[4] for r in SDXL_FLASH) == SDXL_FLASH_PER_STEP
+assert sum(r[3] for r in SDXL_LORA) == SDXL_LORA_PER_STEP
+assert sum(r[3] for r in SDXL_TOWER_LORA) == SDXL_TEXT_LORA
+
+
+def sdxl_rows(gen, flush, iters):
+    """Phase 2's rows at SDXL's shapes (phase 13's path), bf16 as served:
+    K1 and K2 at the UNet's (``sdxl_per_step``: a CFG UNet step of 4
+    images), K2 at the towers' (``sdxl_towers_per_request``), the NHWC
+    GroupNorm at the UNet's and at the 1024^2 VAE decode's
+    (``sdxl_vae_per_decode``).  Rows of their own, as ``sd21_rows``'s, each
+    against its plain version within the gate of its SD1.5 rows, with its
+    time, the library's and the bound."""
+    import torch
+
+    out = model_rows(gen, flush, iters, "sdxl", "SDXL", SDXL_FLASH,
+                     (("serve", SDXL_LORA, "sdxl_per_step"),
+                      ("request", SDXL_TOWER_LORA, "sdxl_towers_per_request")),
+                     (torch.bfloat16,), backward=False)
+    out = {name: rows for name, rows in out.items() if rows}
+    out["group_norm"] = group_norm_rows(gen, flush, iters, SDXL_GN_SETS, fp32=False)
+    return out
+
+
+def unet_blocks_a_call(pipe):
+    """``unet.transformer_blocks`` counted over one eager call of the pipe's
+    UNet on 16x16 latents (SDXL's with zero added conditioning)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models import unet as unet_mod
+
+    u = pipe.unet_config
+    kw = dict(device=pipe.device, dtype=pipe.dtype)
+    args = [torch.zeros((1, u.in_channels, 16, 16), **kw), torch.zeros(1, **kw),
+            torch.zeros((1, 77, u.cross_attention_dim), **kw)]
+    if u.text_time:
+        args += [torch.zeros((1, pipe.text_config_2.projection_dim), **kw),
+                 torch.zeros((1, 6), **kw)]
+    before = unet_mod.transformer_blocks
+    with torch.inference_mode():
+        pipe.unet(*args)
+    return unet_mod.transformer_blocks - before
+
+
+def check_blocks(pipe, want, label):
+    n = unet_blocks_a_call(pipe)
+    log(f"{label}: unet.transformer_blocks a UNet call {n} (want {want})")
+    if n != want:
+        fail(f"the {label} UNet ran {n} transformer blocks a call, want {want}")
+    return n
+
+
+def sdxl_configs():
+    """stabilityai/stable-diffusion-xl-base-1.0: its unet, text_encoder,
+    text_encoder_2, vae and scheduler configs."""
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextConfig
+    from diffusion_finetuning_tpu_torch.models.unet import UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import VAEConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline_sdxl import SDXL_SCHEDULER
+
+    return (UNetConfig.sdxl(), VAEConfig.sdxl(), CLIPTextConfig.sdxl_l(),
+            CLIPTextConfig.sdxl_g(), SDXL_SCHEDULER)
+
+
+def sdxl_pipe(seed=SEED + 200):
+    """The SDXL pipe in bf16 on the card, each model with torch's default
+    initialisation under a fixed seed, drawn on the card (2.6 B UNet
+    weights are too slow to draw on the host)."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import CLIPTextModel
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel
+    from diffusion_finetuning_tpu_torch.models.vae import AutoencoderKL
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline_sdxl import StableDiffusionXLPipeline
+
+    ucfg, vcfg, t1, t2, sched = sdxl_configs()
+    sds = []
+    for i, (cls, cfg) in enumerate(((UNet2DConditionModel, ucfg), (AutoencoderKL, vcfg),
+                                    (CLIPTextModel, t1), (CLIPTextModel, t2))):
+        torch.manual_seed(seed + i)
+        with torch.device("cuda"):
+            m = cls(cfg)
+        sds.append({k: v.to(torch.bfloat16) for k, v in m.state_dict().items()})
+        del m
+    words = ["photo", "of", "sks", "person"]
+    return StableDiffusionXLPipeline(ucfg, sds[0], vcfg, sds[1], t1, sds[2],
+                                     CLIPTokenizer.tiny(words), t2, sds[3],
+                                     CLIPTokenizer.tiny(words), sched, dtype=torch.bfloat16,
+                                     device="cuda")
+
+
+def phase_sdxl():
+    """Phase 13: SDXL 1.0 base at its published widths, random weights, a
+    rank-4 dynamic LoRA on the UNet and both towers: a 1024^2 batch of 2
+    (20 Euler steps, guidance 8, empty negative prompts) eager, then through
+    its CUDA graph (``graphed_path``: equal bit for bit, launches twice a
+    call at capture and none at replay).  An eager request must run 140 K1
+    and 630 K2 a UNet step, 172 K2 in the towers, the predicted NHWC
+    GroupNorms (the 1024^2 VAE levels among them) with no fallback, 70
+    transformer blocks a UNet call and 2 towers.  Returns the launches and
+    the row."""
+    import torch
+
+    from diffusion_finetuning_tpu_torch.models import clip_text, unet as unet_mod
+
+    t0 = time.time()
+    pipe = sdxl_pipe()
+    ucfg, _, t1, t2, _ = sdxl_configs()
+    pipe.unet_lora = tree_to(random_lora(ucfg, seed=SEED + 210), "cuda")
+    pipe.text_encoder_lora = tree_to(random_text_lora(t1, SEED + 211), "cuda")
+    pipe.text_encoder_2_lora = tree_to(random_text_lora(t2, SEED + 212), "cuda")
+    pipe.materialize_lora = False
+    log(f"phase 13 models: {time.time() - t0:.1f} s; weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    row = {"blocks_a_unet_call": check_blocks(pipe, SDXL_BLOCKS, "sdxl")}
+    kw = dict(seed=[1, 2], num_inference_steps=SDXL_STEPS, guidance_scale=SDXL_GUIDANCE,
+              height=SDXL_IMAGE, width=SDXL_IMAGE, scheduler="euler", output_type="device")
+    per_call = want_counts(
+        flash_attention_fwd=SDXL_FLASH_PER_STEP * SDXL_STEPS,
+        lora_dense=SDXL_LORA_PER_STEP * SDXL_STEPS + SDXL_TEXT_LORA,
+        group_norm=pipe_norms(pipe, SDXL_STEPS))
+    out = {"graphed": []}
+
+    def run(graphs):
+        old, pipe.cuda_graphs = pipe.cuda_graphs, graphs
+        try:
+            img = pipe(SDXL_PROMPTS, **kw)
+        finally:
+            pipe.cuda_graphs = old
+        if graphs:
+            out["graphed"].append(img)
+        else:
+            out["eager"] = img
+
+    reset_counts()
+    blocks, towers = unet_mod.transformer_blocks, clip_text.towers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1_ = time.perf_counter()
+    run(False)
+    torch.cuda.synchronize()
+    row["first_eager_s"] = time.perf_counter() - t1_
+    row["eager_peak_bytes"] = torch.cuda.max_memory_allocated()
+    launched = counts()
+    row["launches_eager"] = launched
+    row["transformer_blocks"] = unet_mod.transformer_blocks - blocks
+    row["text_towers"] = clip_text.towers - towers
+    log(f"sdxl eager batch of 2: {row['first_eager_s']:.2f} s, peak "
+        f"{row['eager_peak_bytes'] / 2**30:.2f} GiB; launches {launched} (want {per_call}); "
+        f"transformer blocks {row['transformer_blocks']} (want "
+        f"{SDXL_BLOCKS * SDXL_STEPS}), towers {row['text_towers']} (want 2)")
+    if launched != per_call:
+        fail(f"the SDXL request launched {launched}, want {per_call}")
+    if row["transformer_blocks"] != SDXL_BLOCKS * SDXL_STEPS or row["text_towers"] != 2:
+        fail("the SDXL request ran another number of transformer blocks or towers")
+    check_no_fallbacks("phase 13")
+    img = out["eager"]
+    if tuple(img.shape) != (2, SDXL_IMAGE, SDXL_IMAGE, 3) or not float(img.float().std()) > 0:
+        fail(f"the SDXL images are constant or misshapen: {tuple(img.shape)}")
+    row["graphed"] = graphed_path(
+        "sdxl_txt2img_1024_b2", lambda: run(False), lambda: run(True),
+        lambda: torch.equal(out["eager"], out["graphed"][-1]), per_call, 2,
+        eager_repeats=1, graphed_repeats=SDXL_GRAPHED)
+    equal = [torch.equal(im, out["eager"]) for im in out["graphed"]]
+    log(f"sdxl {len(equal)} graphed batches equal to the eager one: {sum(equal)}")
+    if len(equal) < 1 + SDXL_GRAPHED or not all(equal):
+        fail("a graphed SDXL batch differs from the eager one")
+    check_no_fallbacks("phase 13 graphed")
+    launches = {"sdxl_txt2img": row["graphed"]["launches_at_capture"]}
+    pipe.release_graphs()
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 13: {time.time() - t0:.1f} s")
+    return launches, row
+
+
 # kernel -> (route, source, the Pallas kernel it replaces, what its times sum over)
 KERNEL_META = {
     "flash_attention_fwd": ("cuda", "diffusion_finetuning_tpu_torch/csrc/flash_attention.cu",
@@ -4751,12 +4998,17 @@ def kernels_line(results, launches):
             bound_by="operations" if ops_bound > step("bound_ms") / 2 else "bytes",
             library_ms=step("library_ms"), per=per, shapes=rows)
         # SD 2.1's rows (phase 12's path), summed over a 768^2 CFG UNet step
-        # (a train step for the backward kernels) apart from the SD1.5 sums
-        for key, sd21_per in (("sd21", per), ("sd21_train", "train_step")):
-            n = "sd21_per_step" if key == "sd21" else "sd21_train_per_step"
-            sd21 = [r for r in rows if r.get(n)]
-            if sd21:
-                entry[key] = dict(per=sd21_per, **{k: sum(r[k] * r[n] for r in sd21) for k in (
+        # (a train step for the backward kernels), and SDXL's (phase 13's),
+        # over a 1024^2 CFG UNet step of 4 images, a request's towers and a
+        # VAE decode of 4, apart from the SD1.5 sums
+        for key, key_per, n in (("sd21", per, "sd21_per_step"),
+                                ("sd21_train", "train_step", "sd21_train_per_step"),
+                                ("sdxl", per, "sdxl_per_step"),
+                                ("sdxl_towers", "request", "sdxl_towers_per_request"),
+                                ("sdxl_vae", "vae_decode", "sdxl_vae_per_decode")):
+            some = [r for r in rows if r.get(n)]
+            if some:
+                entry[key] = dict(per=key_per, **{k: sum(r[k] * r[n] for r in some) for k in (
                     "ms", "plain_ms", "bound_ms", "library_ms")})
         out.append(entry)
     return {"kernels": out}
@@ -4855,18 +5107,19 @@ def main():
         t0 = time.time()
         sd21_launches, sd21 = phase_sd21(tmp)
         log(f"phase 12: {time.time() - t0:.1f} s")
+        sdxl_launches, sdxl = phase_sdxl()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(json.dumps({"unet_step": step, "serving": serving,
                     "train": dict(train, reference=reference), "switched": switched,
                     "graphed": graphed, "serving_entry": entry, "trainers": trainers,
-                    "rest_of_card": rest, "parallel": parallel, "sd21": sd21}))
+                    "rest_of_card": rest, "parallel": parallel, "sd21": sd21, "sdxl": sdxl}))
 
     log(json.dumps(kernels_line(results, dict(
         {"serving": launches, "train": train_launches}, **switched_paths,
         graphed=graphed_launches, **entry_launches,
         **{f"trainer_{k}": v for k, v in trainer_launches.items()}, **rest_launches,
-        **parallel_launches, **sd21_launches))))
+        **parallel_launches, **sd21_launches, **sdxl_launches))))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

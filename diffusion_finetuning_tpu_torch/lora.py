@@ -614,11 +614,16 @@ def save_all(unet_lora: Optional[Mapping[str, Any]], text_lora: Optional[Mapping
              save_lora: bool = True, save_ti: bool = True,
              target_replace_module_text: Set[str] = TEXT_ENCODER_DEFAULT_TARGET_REPLACE,
              target_replace_module_unet: Set[str] = DEFAULT_TARGET_REPLACE,
-             safe_form: bool = True) -> None:
+             safe_form: bool = True, text_2_lora: Optional[Mapping[str, Any]] = None,
+             text_2_targets: Sequence[LoraTarget] = ()) -> None:
     """UNet and text LoRAs and TI embeds together: ``safe_form`` one
     consolidated ``.safetensors``, else the reference's ``.pt`` triple
     ``path``, ``path.text_encoder.pt``, ``path.ti.pt`` (lora.py:755-821).
-    Embeds are saved in fp32."""
+    Embeds are saved in fp32.  ``text_2_lora`` (SDXL's second tower, on
+    ``text_2_targets``) is saved as the safetensors file's
+    ``text_encoder_2`` pairs."""
+    if text_2_lora is not None and not safe_form:
+        raise ValueError("a text_encoder_2 LoRA is saved in the safetensors form only")
     embeds = {k: _host(v, torch.float32) for k, v in (learned_embeds or {}).items()}
     if not safe_form:
         if save_ti:
@@ -645,4 +650,7 @@ def save_all(unet_lora: Optional[Mapping[str, Any]], text_lora: Optional[Mapping
         modelmap["unet"] = (unet_lora, unet_targets, target_replace_module_unet)
         if text_lora is not None:
             modelmap["text_encoder"] = (text_lora, text_targets, target_replace_module_text)
+        if text_2_lora is not None:
+            modelmap["text_encoder_2"] = (text_2_lora, text_2_targets,
+                                          target_replace_module_text)
     save_safeloras_with_embeds(modelmap, embeds if save_ti else None, save_path)

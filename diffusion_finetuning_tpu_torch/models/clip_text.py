@@ -7,6 +7,16 @@ k, v, q, out order of transformers' CLIPAttention (the JAX model's
 :83-88), which :func:`text_encoder_lora_targets` enumerates.  The attention
 itself stays plain torch with the fp32 causal mask (-3.4e38 above the
 diagonal) and an fp32 softmax, as in the JAX package (:94-97, :156).
+
+SDXL's two towers (``CLIPTextConfig.sdxl_l`` and ``sdxl_g``, which the JAX
+package does not have) are read through ``forward(ids, penultimate=True)``:
+the hidden state after the second-to-last layer, before
+``final_layer_norm``, and with ``pooled=True`` (a projected tower,
+``projection_dim``: transformers' ``CLIPTextModelWithProjection`` with its
+bias-free ``text_projection``) the pooled embedding: the last layer's normed
+state at the end-of-text position (the highest id, transformers' rule for
+``eos_token_id`` 2), projected.  :data:`towers` counts the tower encodes
+the Python calls ran.
 """
 
 from __future__ import annotations
@@ -24,6 +34,10 @@ from .layers import ACT2FN, LoRALinear
 # the token table's name in the text encoder's state dict
 TOKEN_EMBEDDING = "text_model.embeddings.token_embedding.weight"
 
+# tower encodes the Python calls ran (an SDXL prompt encode runs 2, an SD one
+# 1); a replayed graph runs none
+towers = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPTextConfig:
@@ -35,6 +49,9 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     hidden_act: str = "quick_gelu"
     layer_norm_eps: float = 1e-5
+    # the width of a projected tower's text_projection (transformers'
+    # CLIPTextModelWithProjection); None: a plain CLIPTextModel
+    projection_dim: Optional[int] = None
 
     @staticmethod
     def sd15() -> "CLIPTextConfig":
@@ -47,6 +64,18 @@ class CLIPTextConfig:
         return CLIPTextConfig(hidden_size=1024, intermediate_size=4096,
                               num_hidden_layers=23, num_attention_heads=16,
                               hidden_act="gelu")
+
+    @staticmethod
+    def sdxl_l() -> "CLIPTextConfig":
+        """SDXL 1.0 base ``text_encoder``: CLIP ViT-L/14's tower."""
+        return CLIPTextConfig()
+
+    @staticmethod
+    def sdxl_g() -> "CLIPTextConfig":
+        """SDXL 1.0 base ``text_encoder_2``: OpenCLIP ViT-bigG/14, projected."""
+        return CLIPTextConfig(hidden_size=1280, intermediate_size=5120,
+                              num_hidden_layers=32, num_attention_heads=20,
+                              hidden_act="gelu", projection_dim=1280)
 
     @staticmethod
     def tiny() -> "CLIPTextConfig":
@@ -133,7 +162,8 @@ class CLIPTextTransformer(nn.Module):
 
 
 class CLIPTextModel(nn.Module):
-    """``forward(input_ids (B, S))`` -> last_hidden_state (B, S, hidden)."""
+    """``forward(input_ids (B, S))`` -> last_hidden_state (B, S, hidden);
+    ``penultimate`` and ``pooled`` for SDXL's reading of a tower."""
 
     lora_prefix = "text_model.encoder."
 
@@ -141,16 +171,44 @@ class CLIPTextModel(nn.Module):
         super().__init__()
         self.config = config
         self.text_model = CLIPTextTransformer(config)
+        if config.projection_dim is not None:
+            self.text_projection = nn.Linear(config.hidden_size, config.projection_dim,
+                                             bias=False)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def _layers(self, input_ids: torch.Tensor, n: int):
+        """(the hidden state after the first ``n`` encoder layers, the
+        causal mask)."""
+        global towers
+        towers += 1
         tm = self.text_model
         x = tm.embeddings(input_ids)
         S = input_ids.shape[1]
         mask = torch.triu(torch.full((S, S), -3.4e38, dtype=torch.float32,
                                      device=input_ids.device), diagonal=1)
-        for layer in tm.encoder.layers:
+        for layer in tm.encoder.layers[:n]:
             x = layer(x, mask)
-        return tm.final_layer_norm(x)
+        return x, mask
+
+    def forward(self, input_ids: torch.Tensor, penultimate: bool = False,
+                pooled: bool = False):
+        """The last layer's normed state; with ``penultimate`` SDXL's
+        reading: the hidden state after the second-to-last layer (no final
+        norm), and with ``pooled`` also the projected pooled embedding (B,
+        projection_dim), for which the last layer runs.  Without ``pooled``
+        the last layer, whose output nothing reads, is not run."""
+        n = self.config.num_hidden_layers
+        if not penultimate:
+            x, _ = self._layers(input_ids, n)
+            return self.text_model.final_layer_norm(x)
+        if not pooled:
+            return self._layers(input_ids, n - 1)[0]
+        if self.config.projection_dim is None:
+            raise ValueError("a pooled embedding needs a projected tower (projection_dim)")
+        x, mask = self._layers(input_ids, n - 1)
+        last = self.text_model.final_layer_norm(self.text_model.encoder.layers[n - 1](x, mask))
+        eos = input_ids.argmax(dim=-1)
+        pooled_out = last[torch.arange(last.shape[0], device=last.device), eos]
+        return x, self.text_projection(pooled_out)
 
 
 def text_encoder_lora_targets(config: CLIPTextConfig) -> List[LoraTarget]:

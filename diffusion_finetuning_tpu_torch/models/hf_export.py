@@ -4,7 +4,9 @@ package's ``models/hf_export.py`` ``save_pretrained``, :204-333).
 The modules' state dicts already carry the diffusers names, so the export is
 their weights, in safetensors, beside the configs, the scheduler config and
 the tokenizer's ``vocab.json`` and ``merges.txt``; or, with ``source_dir``,
-beside the non-weight files copied from another directory.
+beside the non-weight files copied from another directory.  An SDXL pipe
+adds its second tower and tokenizer (``text_encoder_2``, ``tokenizer_2``)
+and the UNet's and VAE's SDXL keys.
 """
 
 from __future__ import annotations
@@ -39,12 +41,18 @@ def save_pretrained(pipe, out_dir: str, source_dir: Optional[str] = None,
     write("unet", "diffusion_pytorch_model.safetensors", pipe.unet.state_dict())
     write("vae", "diffusion_pytorch_model.safetensors", pipe.vae.state_dict())
     write("text_encoder", "model.safetensors", text_sd)
+    tower_2 = getattr(pipe, "text_encoder_2", None)
+    if tower_2 is not None:
+        write("text_encoder_2", "model.safetensors", tower_2.state_dict())
 
     if source_dir is None:
         _write_configs(pipe, out_dir, text_vocab=text_sd[TOKEN_EMBEDDING].shape[0])
         _write_tokenizer_files(pipe.tokenizer, os.path.join(out_dir, "tokenizer"))
+        if tower_2 is not None:
+            _write_tokenizer_files(pipe.tokenizer_2, os.path.join(out_dir, "tokenizer_2"))
         return
-    for sub in ("unet", "vae", "text_encoder", "scheduler", "tokenizer"):
+    for sub in ("unet", "vae", "text_encoder", "scheduler", "tokenizer", "text_encoder_2",
+                "tokenizer_2"):
         src = os.path.join(source_dir, sub)
         if not os.path.isdir(src):
             continue
@@ -83,12 +91,24 @@ def _write_tokenizer_files(tok, d: str) -> None:
     with open(os.path.join(d, "merges.txt"), "w") as f:
         f.write("#version: 0.2\n")
         f.write("\n".join(" ".join(m) for m in merges))
+    if tok.pad_token != tok.eos_token:
+        with open(os.path.join(d, "special_tokens_map.json"), "w") as f:
+            json.dump({"pad_token": tok.pad_token}, f)
 
 
 def _write_configs(pipe, out_dir: str, text_vocab: int) -> None:
-    """The three model configs and the scheduler config (JAX :281)."""
+    """The model configs and the scheduler config (JAX :281)."""
     u, v = pipe.unet_config, pipe.vae_config
     t = dataclasses.replace(pipe.text_config, vocab_size=text_vocab)
+    sdxl = {}
+    if u.text_time or u.transformer_layers_per_block != 1:
+        depth = u.transformer_layers_per_block
+        sdxl = {"transformer_layers_per_block": list(depth) if isinstance(depth, tuple)
+                else depth,
+                "addition_embed_type": u.addition_embed_type,
+                "addition_time_embed_dim": u.addition_time_embed_dim,
+                "projection_class_embeddings_input_dim":
+                    u.projection_class_embeddings_input_dim}
 
     def dump(subdir, name, obj):
         d = os.path.join(out_dir, subdir)
@@ -110,7 +130,7 @@ def _write_configs(pipe, out_dir: str, text_vocab: int) -> None:
         "up_block_types": list(u.up_block_types),
         "norm_num_groups": u.norm_num_groups,
         "use_linear_projection": u.use_linear_projection,
-        "flip_sin_to_cos": u.flip_sin_to_cos, "freq_shift": u.freq_shift,
+        "flip_sin_to_cos": u.flip_sin_to_cos, "freq_shift": u.freq_shift, **sdxl,
     })
     dump("vae", "config.json", {
         "_class_name": "AutoencoderKL",
@@ -119,15 +139,11 @@ def _write_configs(pipe, out_dir: str, text_vocab: int) -> None:
         "block_out_channels": list(v.block_out_channels),
         "layers_per_block": v.layers_per_block,
         "norm_num_groups": v.norm_num_groups, "sample_size": v.sample_size,
+        "scaling_factor": v.scaling_factor,
     })
-    dump("text_encoder", "config.json", {
-        "architectures": ["CLIPTextModel"], "vocab_size": t.vocab_size,
-        "hidden_size": t.hidden_size, "intermediate_size": t.intermediate_size,
-        "num_hidden_layers": t.num_hidden_layers,
-        "num_attention_heads": t.num_attention_heads,
-        "max_position_embeddings": t.max_position_embeddings,
-        "hidden_act": t.hidden_act,
-    })
+    dump("text_encoder", "config.json", _text_config(t))
+    if getattr(pipe, "text_encoder_2", None) is not None:
+        dump("text_encoder_2", "config.json", _text_config(pipe.text_config_2))
     sc = pipe.scheduler_config
     dump("scheduler", "scheduler_config.json", {
         "_class_name": "DDPMScheduler",
@@ -137,4 +153,20 @@ def _write_configs(pipe, out_dir: str, text_vocab: int) -> None:
         "prediction_type": sc.prediction_type,
         "steps_offset": sc.steps_offset,
         "set_alpha_to_one": sc.set_alpha_to_one,
+        **({"timestep_spacing": sc.timestep_spacing} if hasattr(sc, "timestep_spacing")
+           else {}),
     })
+
+
+def _text_config(t) -> dict:
+    out = {"architectures": ["CLIPTextModel" if t.projection_dim is None
+                             else "CLIPTextModelWithProjection"],
+           "vocab_size": t.vocab_size,
+           "hidden_size": t.hidden_size, "intermediate_size": t.intermediate_size,
+           "num_hidden_layers": t.num_hidden_layers,
+           "num_attention_heads": t.num_attention_heads,
+           "max_position_embeddings": t.max_position_embeddings,
+           "hidden_act": t.hidden_act}
+    if t.projection_dim is not None:
+        out["projection_dim"] = t.projection_dim
+    return out

@@ -111,7 +111,16 @@ def unet_config_from_hf(config: dict) -> UNetConfig:
         use_linear_projection=config.get("use_linear_projection", False),
         flip_sin_to_cos=config.get("flip_sin_to_cos", True),
         freq_shift=config.get("freq_shift", 0),
+        transformer_layers_per_block=_int_or_tuple(config.get("transformer_layers_per_block", 1)),
+        addition_embed_type=config.get("addition_embed_type"),
+        addition_time_embed_dim=config.get("addition_time_embed_dim") or 256,
+        projection_class_embeddings_input_dim=(
+            config.get("projection_class_embeddings_input_dim") or 2816),
     )
+
+
+def _int_or_tuple(v):
+    return tuple(v) if isinstance(v, list) else v
 
 
 def vae_config_from_hf(config: dict) -> VAEConfig:
@@ -123,6 +132,7 @@ def vae_config_from_hf(config: dict) -> VAEConfig:
         layers_per_block=config.get("layers_per_block", 2),
         norm_num_groups=config.get("norm_num_groups", 32),
         sample_size=config.get("sample_size", 512),
+        scaling_factor=config.get("scaling_factor", 0.18215),
     )
 
 
@@ -135,6 +145,11 @@ def clip_config_from_hf(config: dict) -> CLIPTextConfig:
         num_attention_heads=config.get("num_attention_heads", 12),
         max_position_embeddings=config.get("max_position_embeddings", 77),
         hidden_act=config.get("hidden_act", "quick_gelu"),
+        layer_norm_eps=config.get("layer_norm_eps", 1e-5),
+        # transformers' CLIPTextModelWithProjection (SDXL's text_encoder_2)
+        projection_dim=(config.get("projection_dim", 768)
+                        if "CLIPTextModelWithProjection" in config.get("architectures", [])
+                        else None),
     )
 
 
@@ -142,17 +157,22 @@ def load_pipeline_components(model_dir: str) -> Dict[str, Any]:
     """The UNet, VAE and text-encoder configs and state dicts (host
     tensors, as stored) of a local diffusers directory, and its scheduler
     config as a dict ({} when absent); the tokenizer is read by
-    ``data.tokenizer``."""
+    ``data.tokenizer``.  An SDXL directory's second tower
+    (``text_encoder_2``) comes as ``text_2_config`` and
+    ``text_2_state_dict``."""
     from .clip_text import CLIPTextModel
     from .unet import UNet2DConditionModel
     from .vae import AutoencoderKL
 
     out: Dict[str, Any] = {}
-    for name, sub, read_cfg, cls, fix in (
-            ("unet", "unet", unet_config_from_hf, UNet2DConditionModel, dict),
-            ("vae", "vae", vae_config_from_hf, AutoencoderKL, vae_state_dict_from_hf),
-            ("text", "text_encoder", clip_config_from_hf, CLIPTextModel,
-             text_state_dict_from_hf)):
+    parts = [("unet", "unet", unet_config_from_hf, UNet2DConditionModel, dict),
+             ("vae", "vae", vae_config_from_hf, AutoencoderKL, vae_state_dict_from_hf),
+             ("text", "text_encoder", clip_config_from_hf, CLIPTextModel,
+              text_state_dict_from_hf)]
+    if os.path.isdir(os.path.join(model_dir, "text_encoder_2")):
+        parts.append(("text_2", "text_encoder_2", clip_config_from_hf, CLIPTextModel,
+                      text_state_dict_from_hf))
+    for name, sub, read_cfg, cls, fix in parts:
         d = os.path.join(model_dir, sub)
         cfg = read_cfg(read_json(os.path.join(d, "config.json")))
         out[f"{name}_config"] = cfg

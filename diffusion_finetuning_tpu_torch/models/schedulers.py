@@ -50,6 +50,18 @@ class SchedulerConfig:
         raise ValueError(f"unknown beta schedule {self.beta_schedule}")
 
 
+@dataclasses.dataclass(frozen=True)
+class SpacedSchedulerConfig(SchedulerConfig):
+    """:class:`SchedulerConfig` with diffusers' ``timestep_spacing``, which
+    the Euler samplers follow: "leading" (``EulerDiscreteScheduler`` as SDXL
+    publishes it: t = i * (T // n) + steps_offset, and the initial noise
+    sqrt(sigma_max^2 + 1)) or "linspace" (the JAX package's grid, which a
+    plain :class:`SchedulerConfig` means).  The JAX package's config has no
+    such key; the SDXL pipe uses this one."""
+
+    timestep_spacing: str = "leading"
+
+
 class DDPMScheduler:
     """Forward process and ancestral sampling step (JAX :59-133)."""
 
@@ -262,7 +274,19 @@ class EulerDiscreteScheduler:
         self.num_train_timesteps = config.num_train_timesteps
         self._sigma_table = np.sqrt((1.0 - ac) / ac)
 
+    @property
+    def spacing(self) -> str:
+        """The grid's ``timestep_spacing`` (:class:`SpacedSchedulerConfig`)."""
+        spacing = getattr(self.config, "timestep_spacing", "linspace")
+        if spacing not in ("linspace", "leading"):
+            raise ValueError(f"unsupported timestep_spacing {spacing!r}")
+        return spacing
+
     def _grid_np(self, n: int) -> np.ndarray:
+        if self.spacing == "leading":
+            ratio = self.num_train_timesteps // n
+            return (np.arange(n) * ratio).round()[::-1].astype(np.float64) + \
+                self.config.steps_offset
         return np.linspace(0, self.num_train_timesteps - 1, n)[::-1].copy()
 
     def _sigmas_np(self, n: int) -> np.ndarray:
@@ -286,7 +310,8 @@ class EulerDiscreteScheduler:
         return torch.tensor(self._grid_np(num_inference_steps), dtype=torch.float32)
 
     def init_noise_sigma(self, num_inference_steps: int) -> float:
-        return float(self._sigmas_np(num_inference_steps)[0])
+        s = float(self._sigmas_np(num_inference_steps)[0])
+        return s if self.spacing == "linspace" else float(np.sqrt(s * s + 1.0))
 
     def init_state(self, sample: torch.Tensor, num_inference_steps: int,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, Any]:

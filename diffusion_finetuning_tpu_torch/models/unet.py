@@ -1,4 +1,4 @@
-"""UNet2DConditionModel (SD 1.x / 2.x denoiser), port of the JAX ``models/unet.py``.
+"""UNet2DConditionModel (SD 1.x / 2.x and SDXL denoiser), port of the JAX ``models/unet.py``.
 
 NCHW shapes inside, diffusers state-dict key names, so the JAX package's parameter
 trees load through ``models/weights.py``.  Every attention and GEGLU
@@ -13,6 +13,16 @@ card) a channels-last ``sample`` keeps every activation channels-last:
 ``layers.Conv2d``, ``LoRAConv2d`` and ``GroupNorm`` follow their input, and
 the transformers' permutes around ``proj_in``/``proj_out`` are views.
 Outside it (the trainers) the modules run the NCHW code.
+
+SDXL (``UNetConfig.sdxl``, which the JAX package does not have) adds two
+things diffusers' config names: ``transformer_layers_per_block`` (a
+``Transformer2DModel`` runs that many ``BasicTransformerBlock``s, the mid
+block the last level's count, the up blocks the levels' counts reversed),
+and ``addition_embed_type="text_time"``: ``forward`` then takes the pooled
+text embedding and six size and crop ids, whose Fourier features
+(``add_time_proj``) are joined to it and mapped by ``add_embedding`` onto
+the time embedding every resnet reads.  :data:`transformer_blocks` counts
+the blocks the Python calls ran (one per block per capture or eager call).
 
 Numerics as in the JAX model: GroupNorm eps 1e-5 in the resnets and 1e-6
 before the transformer, LayerNorm eps 1e-5, exact-erf GEGLU, nearest
@@ -41,6 +51,10 @@ from ..lora import LoraTarget
 from ..ops.attention import attention as attention_op
 from .layers import Conv2d, GroupNorm, LoRAConv2d, LoRALinear
 
+# BasicTransformerBlocks the UNet's Python calls ran (70 an SDXL call, 16 an
+# SD 1.5 or 2.1 one); a replayed graph runs none
+transformer_blocks = 0
+
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
@@ -62,11 +76,31 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     gradient_checkpointing: bool = False
+    # transformer blocks a Transformer2DModel runs, per level (SDXL: 1, 2, 10)
+    transformer_layers_per_block: Union[int, Tuple[int, ...]] = 1
+    # "text_time" (SDXL): the pooled text embedding and the size and crop ids
+    # join the time embedding; None: no added conditioning
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
 
     def heads_for_block(self, i: int) -> int:
         if isinstance(self.attention_head_dim, (tuple, list)):
             return int(self.attention_head_dim[i])
         return int(self.attention_head_dim)
+
+    def depth_for_block(self, i: int) -> int:
+        """Transformer blocks a ``Transformer2DModel`` of level ``i`` runs."""
+        if isinstance(self.transformer_layers_per_block, (tuple, list)):
+            return int(self.transformer_layers_per_block[i])
+        return int(self.transformer_layers_per_block)
+
+    @property
+    def text_time(self) -> bool:
+        """Whether ``forward`` takes SDXL's added conditioning."""
+        if self.addition_embed_type not in (None, "text_time"):
+            raise ValueError(f"unsupported addition_embed_type {self.addition_embed_type!r}")
+        return self.addition_embed_type == "text_time"
 
     @staticmethod
     def sd15() -> "UNetConfig":
@@ -76,6 +110,19 @@ class UNetConfig:
     def sd21() -> "UNetConfig":
         return UNetConfig(cross_attention_dim=1024, attention_head_dim=(5, 10, 20, 20),
                           use_linear_projection=True)
+
+    @staticmethod
+    def sdxl() -> "UNetConfig":
+        """stabilityai/stable-diffusion-xl-base-1.0 ``unet/config.json``."""
+        return UNetConfig(sample_size=128, block_out_channels=(320, 640, 1280),
+                          cross_attention_dim=2048, attention_head_dim=(5, 10, 20),
+                          down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                            "CrossAttnDownBlock2D"),
+                          up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D",
+                                          "UpBlock2D"),
+                          use_linear_projection=True, transformer_layers_per_block=(1, 2, 10),
+                          addition_embed_type="text_time", addition_time_embed_dim=256,
+                          projection_class_embeddings_input_dim=2816)
 
     @staticmethod
     def tiny(cross_attention_dim: int = 32) -> "UNetConfig":
@@ -189,7 +236,7 @@ class BasicTransformerBlock(nn.Module):
 
 class Transformer2DModel(nn.Module):
     def __init__(self, dim: int, context_dim: int, heads: int, groups: int = 32,
-                 use_linear_projection: bool = False):
+                 use_linear_projection: bool = False, depth: int = 1):
         super().__init__()
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm(groups, dim, eps=1e-6)
@@ -200,16 +247,19 @@ class Transformer2DModel(nn.Module):
             self.proj_in = Conv2d(dim, dim, 1)
             self.proj_out = Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(dim, context_dim, heads)])
+            [BasicTransformerBlock(dim, context_dim, heads) for _ in range(depth)])
 
     def forward(self, x, context):
+        global transformer_blocks
+        transformer_blocks += len(self.transformer_blocks)
         b, c, hh, ww = x.shape
         h = self.norm(x)
         if self.use_linear_projection:
             h = self.proj_in(h.permute(0, 2, 3, 1).reshape(b, hh * ww, c))
         else:
             h = self.proj_in(h).permute(0, 2, 3, 1).reshape(b, hh * ww, c)
-        h = self.transformer_blocks[0](h, context)
+        for block in self.transformer_blocks:
+            h = block(h, context)
         if self.use_linear_projection:
             h = self.proj_out(h).reshape(b, hh, ww, c).permute(0, 3, 1, 2)
         else:
@@ -276,7 +326,9 @@ def _remat(block: nn.Module, *args):
 class UNet2DConditionModel(nn.Module):
     """``forward(sample (B, C, H, W), timesteps (B,) or scalar,
     encoder_hidden_states (B, S, cross_attention_dim))`` -> (B, C_out, H, W)
-    in the model's dtype (its weights' dtype; inputs are cast to it)."""
+    in the model's dtype (its weights' dtype; inputs are cast to it).  With
+    text-time conditioning (SDXL) ``forward`` also takes ``text_embeds``
+    (B, pooled) and ``time_ids`` (B, 6)."""
 
     lora_prefix = ""
 
@@ -288,11 +340,16 @@ class UNet2DConditionModel(nn.Module):
         g = cfg.norm_num_groups
         ctx = cfg.cross_attention_dim
 
-        def transformer(ch, heads):
-            return Transformer2DModel(ch, ctx, heads, g, cfg.use_linear_projection)
+        def transformer(ch, level):
+            return Transformer2DModel(ch, ctx, cfg.heads_for_block(level), g,
+                                      cfg.use_linear_projection, cfg.depth_for_block(level))
 
         self.conv_in = Conv2d(cfg.in_channels, chans[0], 3, padding=1)
         self.time_embedding = TimestepEmbedding(chans[0], temb_dim)
+        if cfg.text_time:
+            # diffusers' add_time_proj has no weights: timestep_embedding below
+            self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim,
+                                                   temb_dim)
 
         # registered in diffusers' order (down, up, then mid), so that
         # named_modules() walks the blocks in the canonical LoRA order
@@ -305,7 +362,7 @@ class UNet2DConditionModel(nn.Module):
             n = cfg.layers_per_block
             self.down_blocks.append(_Block(
                 [ResnetBlock2D(prev if j == 0 else ch, ch, temb_dim, g) for j in range(n)],
-                [transformer(ch, cfg.heads_for_block(i)) for _ in range(n)]
+                [transformer(ch, i) for _ in range(n)]
                 if btype == "CrossAttnDownBlock2D" else None,
                 downsample=None if last else Downsample2D(ch)))
             skip_chs += [ch] * (n if last else n + 1)
@@ -314,7 +371,7 @@ class UNet2DConditionModel(nn.Module):
         mid = chans[-1]
         self.mid_block = _Block(
             [ResnetBlock2D(mid, mid, temb_dim, g), ResnetBlock2D(mid, mid, temb_dim, g)],
-            [transformer(mid, cfg.heads_for_block(len(chans) - 1))])
+            [transformer(mid, len(chans) - 1)])
 
         rev = list(reversed(chans))
         for i, btype in enumerate(cfg.up_block_types):
@@ -323,7 +380,7 @@ class UNet2DConditionModel(nn.Module):
             ins = [(prev_ch if j == 0 else ch) + skip_chs.pop() for j in range(n)]
             self.up_blocks.append(_Block(
                 [ResnetBlock2D(cin, ch, temb_dim, g) for cin in ins],
-                [transformer(ch, cfg.heads_for_block(len(chans) - 1 - i)) for _ in range(n)]
+                [transformer(ch, len(chans) - 1 - i) for _ in range(n)]
                 if btype == "CrossAttnUpBlock2D" else None,
                 upsample=Upsample2D(ch) if i < len(chans) - 1 else None))
 
@@ -334,7 +391,8 @@ class UNet2DConditionModel(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
-    def forward(self, sample, timesteps, encoder_hidden_states):
+    def forward(self, sample, timesteps, encoder_hidden_states, text_embeds=None,
+                time_ids=None):
         cfg = self.config
         dtype = self.dtype
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -343,6 +401,15 @@ class UNet2DConditionModel(nn.Module):
         t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0],
                                    cfg.flip_sin_to_cos, cfg.freq_shift).to(dtype)
         temb = self.time_embedding(t_emb)
+        if cfg.text_time:
+            if text_embeds is None or time_ids is None:
+                raise ValueError("this UNet (addition_embed_type='text_time') needs "
+                                 "text_embeds and time_ids")
+            b = text_embeds.shape[0]
+            time_embeds = timestep_embedding(time_ids.reshape(-1), cfg.addition_time_embed_dim,
+                                             cfg.flip_sin_to_cos, cfg.freq_shift)
+            added = torch.cat([text_embeds.float(), time_embeds.reshape(b, -1)], dim=-1)
+            temb = temb + self.add_embedding(added.to(dtype))
         context = encoder_hidden_states.to(dtype)
         if cfg.gradient_checkpointing and torch.is_grad_enabled():
             call = _remat
@@ -379,31 +446,34 @@ class UNet2DConditionModel(nn.Module):
 def unet_lora_targets(config: UNetConfig) -> list:
     """LoRA targets in the JAX package's order (models/unet.py:360):
     down_blocks, then up_blocks, then mid_block; per transformer block
-    attn1 (to_q, to_k, to_v, to_out), GEGLU proj, attn2 (to_q, to_k, to_v,
+    (``transformer_blocks_0`` .. ``_{depth - 1}`` of each transformer) attn1
+    (to_q, to_k, to_v, to_out), GEGLU proj, attn2 (to_q, to_k, to_v,
     to_out).  The order is the on-disk pair index."""
     cfg = config
     targets = []
 
-    def add_transformer_block(prefix: Tuple[str, ...], dim: int):
-        tb = prefix + ("transformer_blocks_0",)
+    def add_transformer(prefix: str, dim: int, level: int):
         ctx = cfg.cross_attention_dim
-        for name in ("to_q", "to_k", "to_v", "to_out"):
-            targets.append(LoraTarget(tb + ("attn1", name), dim, dim, "CrossAttention"))
-        targets.append(LoraTarget(tb + ("ff", "net_0", "proj"), dim, dim * 8, "GEGLU"))
-        for name, (i_f, o_f) in (("to_q", (dim, dim)), ("to_k", (ctx, dim)),
-                                 ("to_v", (ctx, dim)), ("to_out", (dim, dim))):
-            targets.append(LoraTarget(tb + ("attn2", name), i_f, o_f, "CrossAttention"))
+        for k in range(cfg.depth_for_block(level)):
+            tb = (prefix, f"transformer_blocks_{k}")
+            for name in ("to_q", "to_k", "to_v", "to_out"):
+                targets.append(LoraTarget(tb + ("attn1", name), dim, dim, "CrossAttention"))
+            targets.append(LoraTarget(tb + ("ff", "net_0", "proj"), dim, dim * 8, "GEGLU"))
+            for name, (i_f, o_f) in (("to_q", (dim, dim)), ("to_k", (ctx, dim)),
+                                     ("to_v", (ctx, dim)), ("to_out", (dim, dim))):
+                targets.append(LoraTarget(tb + ("attn2", name), i_f, o_f, "CrossAttention"))
 
+    last = len(cfg.block_out_channels) - 1
     for i, (btype, ch) in enumerate(zip(cfg.down_block_types, cfg.block_out_channels)):
         if btype == "CrossAttnDownBlock2D":
             for j in range(cfg.layers_per_block):
-                add_transformer_block((f"down_blocks_{i}_attentions_{j}",), ch)
+                add_transformer(f"down_blocks_{i}_attentions_{j}", ch, i)
     rev = list(reversed(cfg.block_out_channels))
     for i, btype in enumerate(cfg.up_block_types):
         if btype == "CrossAttnUpBlock2D":
             for j in range(cfg.layers_per_block + 1):
-                add_transformer_block((f"up_blocks_{i}_attentions_{j}",), rev[i])
-    add_transformer_block(("mid_block_attentions_0",), cfg.block_out_channels[-1])
+                add_transformer(f"up_blocks_{i}_attentions_{j}", rev[i], last - i)
+    add_transformer("mid_block_attentions_0", cfg.block_out_channels[-1], last)
     return targets
 
 

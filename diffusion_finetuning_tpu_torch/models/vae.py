@@ -7,7 +7,8 @@ single-head mid-block attention stays plain torch (JAX :64-84).  Inside
 ``ops.channels_last.scope`` (the pipeline's calls on the card) a
 channels-last input keeps every activation channels-last, as in the UNet
 (``layers.Conv2d``, ``GroupNorm``).  Inference
-decodes ``latents / SCALING_FACTOR``; training encodes and scales by it.
+decodes ``latents / config.scaling_factor``; training encodes and scales by
+it (SD 1.x and 2.x: 0.18215; SDXL: 0.13025).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 
 from .layers import Conv2d, GroupNorm
 
-SCALING_FACTOR = 0.18215
+SCALING_FACTOR = 0.18215  # SD 1.x and 2.x: VAEConfig.scaling_factor's default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,10 +34,17 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     sample_size: int = 512
+    # latents = scaling_factor * the posterior's sample
+    scaling_factor: float = SCALING_FACTOR
 
     @staticmethod
     def sd15() -> "VAEConfig":
         return VAEConfig()
+
+    @staticmethod
+    def sdxl() -> "VAEConfig":
+        """SDXL 1.0 base ``vae/config.json``: SD's shape, its own scale."""
+        return VAEConfig(sample_size=1024, scaling_factor=0.13025)
 
     @staticmethod
     def tiny() -> "VAEConfig":

@@ -4,16 +4,18 @@
 ``__call__`` is the serving path: CLIP encode of the CFG pair
 ``[uncond; cond]``, a denoise loop whose every step runs the UNet once on
 the doubled batch and mixes ``eps = eps_u + g * (eps_c - eps_u)``, VAE
-decode of ``latents / 0.18215``, then ``clip(x / 2 + 0.5)``, ``round(x *
-255)`` and uint8.  The loop's sampler is any of the JAX pipeline's (:575-680):
-DDIM (the default), PNDM, DPM-Solver++(2M), and Euler, Euler-ancestral or
+decode of ``latents / scaling_factor`` (0.18215 for SD 1.x and 2.x), then
+``clip(x / 2 + 0.5)``, ``round(x * 255)`` and uint8.  The loop's sampler is
+any of the JAX pipeline's (:575-680): DDIM (the default), PNDM,
+DPM-Solver++(2M), and Euler, Euler-ancestral or
 LMS in sigma space (latents scaled by ``init_noise_sigma``, the UNet fed
 ``scale_model_input``; ``:karras`` for the rho-7 grid).
 :meth:`~StableDiffusionPipeline.img2img` (JAX :945, ``_build_img2img_fn``
 :808) starts any of those samplers part-way: VAE encode of the init image, a
-posterior sample times 0.18215 for every prompt, forward noising to the
-first used timestep (sigma-space samplers: to its sigma), then the sampler
-restarted on the grid's tail (``schedulers.restart_on_tail``).  On the card the
+posterior sample times the VAE's scaling factor for every prompt, forward
+noising to the first used timestep (sigma-space samplers: to its sigma), then
+the sampler restarted on the grid's tail (``schedulers.restart_on_tail``).  On
+the card the
 UNet's attention calls go through the flash-attention kernels, with a
 dynamic LoRA its LoRA projections through the fused LoRA kernel, and with
 ``DFT_CONV_PALLAS`` its resnet 3x3 convs through the fused conv.
@@ -77,7 +79,7 @@ import collections
 import gc
 import os
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -95,7 +97,7 @@ from ..models.schedulers import (DDIMScheduler, DDPMScheduler, EulerDiscreteSche
                                  SchedulerConfig, img2img_scheduler, restart_on_tail,
                                  txt2img_scheduler)
 from ..models.unet import UNet2DConditionModel, UNetConfig, unet_all_lora_targets
-from ..models.vae import SCALING_FACTOR, AutoencoderKL, VAEConfig
+from ..models.vae import AutoencoderKL, VAEConfig
 from ..models.weights import load_module
 from ..ops import channels_last
 from ..ops.channels_last import card_layout
@@ -110,6 +112,16 @@ MERGED_LORA_CACHE_SIZE = max(1, int(os.environ.get("DFT_MERGED_LORA_CACHE", "8")
 # (unet overrides, unet LoRA tree, text overrides, text LoRA tree)
 GenerationParams = Tuple[Dict[str, torch.Tensor], Optional[Dict], Dict[str, torch.Tensor],
                          Optional[Dict]]
+
+
+class LoRATree(NamedTuple):
+    """One LoRA tree a pipe serves: the installed tree's attribute, its
+    slot in the merged caches, the module it sits on and its keyword in
+    ``adapter_generation_params``."""
+    attr: str
+    which: str
+    module: str
+    kwarg: str
 
 
 def img2img_start(num_steps: int, strength: float) -> int:
@@ -197,8 +209,8 @@ def param_signature(params: GenerationParams):
     return tuple((k, tuple(flat[k].shape), flat[k].dtype) for k in sorted(flat)), flat
 
 
-def _unflatten(flat: Dict[Tuple, torch.Tensor]) -> GenerationParams:
-    parts: List[Dict] = [{}, {}, {}, {}]
+def _unflatten(flat: Dict[Tuple, torch.Tensor], n: int = 4) -> GenerationParams:
+    parts: List[Dict] = [{} for _ in range(n)]
     for (i, *path), t in flat.items():
         node = parts[i]
         for k in path[:-1]:
@@ -213,12 +225,27 @@ class StableDiffusionPipeline:
     ``text_encoder_lora`` (JAX-path-addressed, see ``lora.py``) and text
     overrides ``text_params``."""
 
+    # whether the pipe feeds the UNet SDXL's added conditioning
+    # (``pipeline_sdxl.StableDiffusionXLPipeline`` does), and its text towers
+    _text_time = False
+    _towers = 1
+    # its LoRA trees; generation params hold (overrides, dynamic tree) of
+    # each, in this order (a subclass appends its towers')
+    _lora_trees = (LoRATree("unet_lora", "unet", "unet", "unet_lora"),
+                   LoRATree("text_encoder_lora", "text", "text_encoder", "text_lora"))
+
     def __init__(self, unet_config: UNetConfig, unet_params: Dict,
                  vae_config: VAEConfig, vae_params: Dict,
                  text_config: CLIPTextConfig, text_params: Dict,
                  tokenizer: CLIPTokenizer,
                  scheduler_config: Optional[SchedulerConfig] = None,
                  dtype: torch.dtype = torch.float32, device="cuda"):
+        if unet_config.text_time and not self._text_time:
+            raise ValueError(
+                "this UNet takes SDXL's text-time conditioning, which "
+                f"{type(self).__name__} does not give it: build "
+                "pipelines.pipeline_sdxl.StableDiffusionXLPipeline (the trainers and "
+                "img2img do not run SDXL yet)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.unet_config, self.vae_config, self.text_config = unet_config, vae_config, text_config
@@ -404,7 +431,7 @@ class StableDiffusionPipeline:
         if not installed:
             while len(self._merged_cache) >= MERGED_LORA_CACHE_SIZE:
                 self._merged_cache.popitem(last=False)
-        model = self.unet if which == "unet" else self.text_encoder
+        model = self._lora_model(which)
         w = next(model.parameters())
         with torch.inference_mode(False), torch.no_grad():
             out = (_tree_to(lora, w.device, w.dtype) if dynamic
@@ -412,39 +439,53 @@ class StableDiffusionPipeline:
         cache[slot] = (lora, out)
         return out
 
-    def _resolve(self, unet_lora, text_lora, text_params, materialize: bool,
+    def _lora_model(self, which: str):
+        """The module a LoRA tree of slot ``which`` sits on."""
+        return getattr(self, next(t.module for t in self._lora_trees if t.which == which))
+
+    def _resolve(self, trees: Sequence[Optional[Dict]], text_params, materialize: bool,
                  installed: bool) -> GenerationParams:
-        unet_over: Dict[str, torch.Tensor] = {}
-        text_over = dict(text_params)
-        if unet_lora is not None:
-            unet_lora = self._merged("unet", unet_lora, not materialize, installed)
-            if materialize:
-                unet_over, unet_lora = unet_lora, None
-        if text_lora is not None:
-            text_lora = self._merged("text", text_lora, not materialize, installed)
-            if materialize:
-                text_over.update(text_lora)
-                text_lora = None
-        return unet_over, unet_lora, text_over, text_lora
+        """(overrides, dynamic tree) of each of ``_lora_trees`` from
+        ``trees``, in its order; tower 1's overrides start from
+        ``text_params``, another tree's merged set is the cached dict."""
+        parts = []
+        for t, lora in zip(self._lora_trees, trees):
+            over = dict(text_params) if t.which == "text" else {}
+            if lora is not None:
+                lora = self._merged(t.which, lora, not materialize, installed)
+                if materialize:
+                    if t.which == "text":
+                        over.update(lora)
+                    else:
+                        over = lora
+                    lora = None
+            parts += [over, lora]
+        return tuple(parts)
 
     def _generation_params(self) -> GenerationParams:
-        """(unet overrides, unet LoRA, text overrides, text LoRA) of the
-        installed trees under the materialization policy, read as one
-        consistent set."""
+        """(unet overrides, unet LoRA, text overrides, text LoRA, and so on
+        for each further tree) of the installed trees under the
+        materialization policy, read as one consistent set."""
         with self._swap_lock:
-            return self._resolve(self.unet_lora, self.text_encoder_lora, self.text_params,
-                                 self.materialize_lora, installed=True)
+            return self._resolve([getattr(self, t.attr) for t in self._lora_trees],
+                                 self.text_params, self.materialize_lora, installed=True)
 
     def adapter_generation_params(self, unet_lora=None, text_lora=None, text_params=None,
-                                  materialize: Optional[bool] = None) -> GenerationParams:
+                                  materialize: Optional[bool] = None,
+                                  **more_trees) -> GenerationParams:
         """The generation params of an explicit adapter tree set, installing
         nothing (JAX :470): what ``GenerationServer`` resolves per batch and
         passes as ``__call__(..., adapter_params=...)``.  ``text_params``
-        defaults to the pipe's; ``materialize`` to ``materialize_lora``.
+        defaults to the pipe's; ``materialize`` to ``materialize_lora``;
+        ``more_trees`` are a subclass's further trees by their ``kwarg``.
         Merged sets go into the LRU."""
+        given = dict(unet_lora=unet_lora, text_lora=text_lora, **more_trees)
+        unknown = set(given) - {t.kwarg for t in self._lora_trees}
+        if unknown:
+            raise TypeError(f"{type(self).__name__} serves no LoRA tree {sorted(unknown)}")
         with self._swap_lock:
             mat = self.materialize_lora if materialize is None else materialize
-            return self._resolve(unet_lora, text_lora,
+            return self._resolve([given.get(t.kwarg) for t in self._lora_trees],
                                  self.text_params if text_params is None else text_params,
                                  mat, installed=False)
 
@@ -467,7 +508,7 @@ class StableDiffusionPipeline:
             key = key + (self.scheduler_config, sig, kernel_switches())
             if self._graphs is None:
                 self._graphs = Graphs(self.device)
-            static_params = _unflatten(self._graphs.param_buffers(sig, flat))
+            static_params = _unflatten(self._graphs.param_buffers(sig, flat), len(params))
             return self._graphs.run(key, lambda static: body(static_params, static), inputs,
                                     signature=sig).clone()
 
@@ -580,13 +621,11 @@ class StableDiffusionPipeline:
         steps = num_inference_steps
         params = (adapter_params if adapter_params is not None
                   else self._generation_params())
-        with profiling.span("pipe.prepare"):
-            ids = self._token_ids(negs + prompts)
-            self._check_ids_in_vocab(ids, params[2])
+        with profiling.span("pipe.prepare", towers=self._towers):
+            text, text_key = self._text_inputs(negs, prompts, params, height, width)
             x, drawn = self._initial_latents(b, height, width, latents, seed,
                                              steps if ancestral and noise is None else 0)
-            inputs = {"ids": self._to_device(ids, torch.long), "latents": x,
-                      "guidance": self._guidance(guidance_scale)}
+            inputs = {**text, "latents": x, "guidance": self._guidance(guidance_scale)}
             if ancestral:
                 if noise is not None:
                     n = noise if isinstance(noise, torch.Tensor) else torch.from_numpy(
@@ -597,16 +636,28 @@ class StableDiffusionPipeline:
                             f"noise {tuple(drawn.shape)} != {(steps,) + tuple(x.shape)}")
                 inputs["noise"] = drawn
         images = self._generate(
-            ("txt2img", steps, height, width, scheduler, b),
+            ("txt2img", steps, height, width, scheduler, b) + text_key,
             lambda p, inp: self._txt2img(p, inp, steps, scheduler), inputs, params)
         return self._postprocess(self._gather(images, rows), output_type)
 
     def _guidance(self, scale: float) -> torch.Tensor:
         return torch.full((), scale, dtype=torch.float32, device=self.device)
 
+    def _text_inputs(self, negs, prompts, params, height: int, width: int):
+        """(the request's text inputs on the device, what they add to the
+        graph key): the token ids of ``[negs; prompts]``."""
+        ids = self._token_ids(negs + prompts)
+        self._check_ids_in_vocab(ids, params[2])
+        return {"ids": self._to_device(ids, torch.long)}, ()
+
+    def _condition(self, params, inputs):
+        """What the UNet reads beside the latents and timesteps: the CLIP
+        encoding of ``[uncond; cond]``."""
+        return self._encode(inputs["ids"], params[2], params[3])
+
     def _txt2img(self, params, inputs, num_steps: int, scheduler: str) -> torch.Tensor:
-        unet_over, unet_lora, text_over, text_lora = params
-        context = self._encode(inputs["ids"], text_over, text_lora)
+        unet_over, unet_lora = params[0], params[1]
+        context = self._condition(params, inputs)
         sch = txt2img_scheduler(scheduler, self.scheduler_config)
         x, state = inputs["latents"], None
         if isinstance(sch, EulerDiscreteScheduler):  # sigma space
@@ -622,10 +673,13 @@ class StableDiffusionPipeline:
                  state=None):
         """The CFG loop over ``timesteps``: the UNet on [x; x] (sigma-space
         samplers: on their scaled input, at float timesteps) against
-        ``context`` ([uncond; cond]), eps_u + g (eps_c - eps_u) in fp32 (``g``
-        a 0-d fp32 device tensor), a ``sch.step`` each; ``state`` carries a
-        stateful sampler's counter and history (None: DDIM)."""
+        ``context`` ([uncond; cond]; a tuple is the UNet's arguments after
+        the timesteps, SDXL's context and added conditioning), eps_u + g
+        (eps_c - eps_u) in fp32 (``g`` a 0-d fp32 device tensor), a
+        ``sch.step`` each; ``state`` carries a stateful sampler's counter and
+        history (None: DDIM)."""
         b = x.shape[0]
+        cond = context if isinstance(context, tuple) else (context,)
         sigma = isinstance(sch, EulerDiscreteScheduler)
         with lora_lib.attached(self.unet, unet_lora), self._card_scope():
             for t in timesteps:
@@ -633,7 +687,7 @@ class StableDiffusionPipeline:
                 x2 = card_layout(torch.cat([xin, xin]))
                 t2 = torch.full((2 * b,), t, dtype=torch.float32 if sigma else torch.long,
                                 device=self.device)
-                eps = functional_call(self.unet, unet_over, (x2, t2, context))
+                eps = functional_call(self.unet, unet_over, (x2, t2) + cond)
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u.float() + g * (eps_c - eps_u).float()
                 if state is None:
@@ -650,7 +704,7 @@ class StableDiffusionPipeline:
     def _decode(self, x) -> torch.Tensor:
         """Latents -> uint8 (B, H, W, 3) on the device."""
         with self._card_scope():
-            images = self.vae.decode(card_layout(x / SCALING_FACTOR)).float()
+            images = self.vae.decode(card_layout(x / self.vae_config.scaling_factor)).float()
         images = torch.clamp(images / 2 + 0.5, 0.0, 1.0)
         return torch.round(images * 255.0).to(torch.uint8).permute(0, 2, 3, 1)
 
@@ -683,7 +737,7 @@ class StableDiffusionPipeline:
         ``scripts/run_img2img.ipynb`` flow).
 
         ``init_image`` (H, W, 3), uint8 or floats in [0, 1], is mapped to
-        [-1, 1] and encoded; one posterior sample times 0.18215 serves every
+        [-1, 1] and encoded; one posterior sample times the scaling factor serves every
         prompt, each with its own forward noise to ``ts[t_start]`` of the
         sampler's grid ``ts``, where ``t_start = min(len(ts) - 1, round((1 -
         strength) * len(ts)))`` (Python's half-to-even ``round``: strength
@@ -760,7 +814,7 @@ class StableDiffusionPipeline:
         context = self._encode(inputs["ids"], text_over, text_lora)
         with self._card_scope():
             post = self.vae.encode(card_layout(inputs["image"]))
-        latents0 = (post.sample(noise=inputs["sample"]) * SCALING_FACTOR).repeat(
+        latents0 = (post.sample(noise=inputs["sample"]) * self.vae_config.scaling_factor).repeat(
             inputs["noise"].shape[0], 1, 1, 1).float()
         cfg = self.scheduler_config
         state = None
@@ -906,7 +960,7 @@ def tune_lora_scale_pipe(pipe: StableDiffusionPipeline, alpha: float = 1.0,
     """Set the installed trees' scales to ``alpha`` (new trees: the merged
     set is rebuilt, a graph's buffers refilled, nothing captured)."""
     with pipe._swap_lock:
-        if which in ("both", "unet") and pipe.unet_lora is not None:
-            pipe.unet_lora = lora_lib.tune_lora_scale(pipe.unet_lora, alpha)
-        if which in ("both", "text") and pipe.text_encoder_lora is not None:
-            pipe.text_encoder_lora = lora_lib.tune_lora_scale(pipe.text_encoder_lora, alpha)
+        for t in pipe._lora_trees:
+            tree = getattr(pipe, t.attr)
+            if tree is not None and which in ("both", "unet" if t.which == "unet" else "text"):
+                setattr(pipe, t.attr, lora_lib.tune_lora_scale(tree, alpha))

@@ -157,7 +157,7 @@ class GenerationServer:
         """Register a named LoRA/TI adapter for per-request routing.
         ``source``: a ``.safetensors`` / ``.pt`` path (``build_adapter``) or
         a dict with any of ``unet_lora``, ``text_encoder_lora``,
-        ``text_params``.  ``materialize`` serves this adapter merged (True)
+        ``text_params`` and, for an SDXL pipe, ``text_encoder_2_lora``.  ``materialize`` serves this adapter merged (True)
         or dynamic (False) whatever the pipe's ``materialize_lora`` says.
         Re-registering a name swaps it for later batches."""
         if isinstance(source, str):
@@ -175,9 +175,7 @@ class GenerationServer:
             return None
         with self._adapter_lock:
             trees = self._adapters[name]
-        return self.pipe.adapter_generation_params(
-            unet_lora=trees.get("unet_lora"), text_lora=trees.get("text_encoder_lora"),
-            text_params=trees.get("text_params"), materialize=trees.get("materialize"))
+        return adapter_params(self.pipe, trees)
 
     def submit(self, prompt: str, negative_prompt: str = "", height: int = 512,
                width: int = 512, steps: int = 30, guidance_scale: float = 7.5,
@@ -337,6 +335,20 @@ class GenerationServer:
             self._drain_and_fail()
 
 
+def adapter_params(pipe, trees: Dict[str, Any]):
+    """The pipe's generation params of a registered adapter's trees, one
+    for each LoRA tree the pipe serves (``_lora_trees``)."""
+    served = {t.attr for t in pipe._lora_trees}
+    stray = sorted(k for k, v in trees.items()
+                   if k.endswith("_lora") and v is not None and k not in served)
+    if stray:
+        raise ValueError(f"the adapter holds {', '.join(stray)}; {type(pipe).__name__} has "
+                         "no module for it")
+    return pipe.adapter_generation_params(
+        text_params=trees.get("text_params"), materialize=trees.get("materialize"),
+        **{t.kwarg: trees.get(t.attr) for t in pipe._lora_trees})
+
+
 def follow(pipe, adapters: Optional[Dict[str, Any]] = None) -> int:
     """The loop of a rank other than 0 under a meshed pipe's
     :class:`GenerationServer`: receive each call rank 0 broadcasts and make
@@ -356,9 +368,6 @@ def follow(pipe, adapters: Optional[Dict[str, Any]] = None) -> int:
         name = call.pop("adapter")
         params = None
         if name is not None:
-            t = trees[name]
-            params = pipe.adapter_generation_params(
-                unet_lora=t.get("unet_lora"), text_lora=t.get("text_encoder_lora"),
-                text_params=t.get("text_params"), materialize=t.get("materialize"))
+            params = adapter_params(pipe, trees[name])
         pipe(**call, output_type="device", adapter_params=params)
         calls += 1

@@ -34,7 +34,7 @@ import torch
 from torch.func import functional_call
 
 from ..lora import attached
-from ..models.vae import SCALING_FACTOR, DiagonalGaussian
+from ..models.vae import DiagonalGaussian
 
 TOKEN_EMBEDDING = "text_model.embeddings.token_embedding.weight"
 
@@ -177,7 +177,7 @@ def loss_step(batch: Mapping[str, Any], *, unet, text_encoder, vae, scheduler,
             posterior = vae.encode(px.permute(0, 3, 1, 2))
         mean = posterior.mean
         eps = draw("sample", mean.dtype).permute(0, 3, 1, 2)
-        latents = ((mean + posterior.std * eps) * SCALING_FACTOR).float()
+        latents = ((mean + posterior.std * eps) * vae.config.scaling_factor).float()
 
     noise = draw("noise", torch.float32).permute(0, 3, 1, 2)
     timesteps = torch.as_tensor(draws["timesteps"]).to(dev).long()

@@ -197,6 +197,9 @@ def build_train_step(*, unet, text_encoder, vae, scheduler, optimizer: MultiGrou
     ``backward`` and the update the gradients are summed over the mesh
     (:func:`reduce_gradients`), before the TI row mask and the clip, in a
     fixed order.  ``metrics["loss"]`` is then the global loss."""
+    if unet.config.text_time:
+        raise ValueError("the trainers do not give the UNet SDXL's text-time conditioning "
+                         "yet: an SDXL UNet cannot be trained")
     if partition.ti and partition.ti_constrained and clip_ti_decay and ti_lr_schedule is None:
         raise ValueError(
             "clip_ti_decay needs ti_lr_schedule (lambda = min(1, 100*lr)); "

@@ -25,6 +25,7 @@ from torch import nn
 from .. import graph as graph_lib
 from ..models import hf_loading
 from ..parallel.mesh import is_main_process
+from ..models import clip_text, unet
 from ..models.clip_text import TOKEN_EMBEDDING
 from ..models.vae import AutoencoderKL
 from ..models.weights import load_module
@@ -141,7 +142,9 @@ class DispatchLog:
     and GroupNorms that ran channels-last, and those GroupNorms that the
     NHWC kernel did not take (``ops/channels_last.py``), each counted per
     Python call (a trainer's own steps feed NCHW: its validation images
-    run channels-last)."""
+    run channels-last); ``transformer_blocks`` and ``text_towers`` the
+    UNet's transformer blocks and the text towers the Python calls ran
+    (``models/unet.py``, ``models/clip_text.py``)."""
 
     def __init__(self, label: str, device: torch.device):
         self.label, self.device = label, device
@@ -152,6 +155,7 @@ class DispatchLog:
         self.launches0 = kernel_launches()
         self.graphs0 = (graph_lib.captures, graph_lib.replays)
         self.nhwc0 = (channels_last.calls, channels_last.fallbacks)
+        self.model0 = (unet.transformer_blocks, clip_text.towers)
         self.start = self.t0 = time.perf_counter()
         self.walls: List[float] = []
         self.stepped: List[int] = []
@@ -185,7 +189,9 @@ class DispatchLog:
                "graph_captures": graph_lib.captures - self.graphs0[0],
                "graph_replays": graph_lib.replays - self.graphs0[1],
                "nhwc_calls": channels_last.calls - self.nhwc0[0],
-               "nhwc_fallbacks": channels_last.fallbacks - self.nhwc0[1]}
+               "nhwc_fallbacks": channels_last.fallbacks - self.nhwc0[1],
+               "transformer_blocks": unet.transformer_blocks - self.model0[0],
+               "text_towers": clip_text.towers - self.model0[1]}
         sps = "n/a" if out["steps_per_s"] is None else f"{out['steps_per_s']:.3f}"
         peak = ("" if out["peak_bytes"] is None
                 else f", peak memory {out['peak_bytes'] / 2**30:.2f} GiB")

@@ -31,7 +31,13 @@ is the one that holds every thread's.  The spans:
   its generation; ``images``, ``rows`` (after padding to the ladder),
   ``adapter``.  Children: ``server.coalesce`` (the worker waiting for more
   requests to join) and ``pipe.prepare`` (``StableDiffusionPipeline``:
-  tokenising, the vocabulary check, latents, copies to the device).
+  tokenising, the vocabulary check, latents, copies to the device;
+  ``towers``, the text towers the request runs: 1, or 2 for SDXL).
+* ``pipe.condition`` (``pipeline_sdxl.StableDiffusionXLPipeline``): both
+  towers, the pooled projection and the context's assembly, inside a
+  request's body, so on eager calls and a graph's warm-up and capture (a
+  replay runs no Python); ``towers``, ``rows`` (rows encoded),
+  ``zeroed_uncond`` (the unconditional half is zeros).
 * ``server.resolve``: a finished batch's images to the callers, ``batch``;
   child ``server.copy_wait`` (the host waiting for the images' copy).
 * ``graph.capture``, ``graph.refill`` (``ParamBuffers.fill``; ``bytes``
@@ -42,7 +48,10 @@ is the one that holds every thread's.  The spans:
   convolutions and GroupNorms that ran on channels-last activations, per
   Python call: per capture and per eager call) and
   ``ops.channels_last.fallbacks`` (those GroupNorms on the card that the
-  NHWC kernel did not take, which ran PyTorch's).
+  NHWC kernel did not take, which ran PyTorch's), ``models.unet.transformer_blocks``
+  (the BasicTransformerBlocks the UNet's Python calls ran: 70 an SDXL call,
+  16 an SD 1.5 or 2.1 one) and ``models.clip_text.towers`` (the text-tower
+  encodes: 2 an SDXL prompt encode, 1 an SD one).
 * ``train.dispatch`` (``FusedDispatcher.drive``: one group's steps, then
   the next group's take and staging; ``steps``), ``train.take`` (the
   trainer's ``take_group``), ``train.stage`` (``FusedDispatcher.prepare``),

@@ -2071,3 +2071,93 @@ def test_graphed_channels_last_request_counts(small_pipe):
     assert (tcl.calls, tgn.launches) == mid  # a replay runs no Python
     want = _eager(pipe, lambda: pipe("photo of sks", seed=7, **kw))
     assert torch.equal(first, want) and torch.equal(again, want)
+
+
+# an SDXL-topology pipe at a card-test size: three levels of 64, 128 and 128
+# channels (heads of 64), the first without attention, stacks of 1, 2 and 3
+# blocks, text-time conditioning; towers of 32 and 64 (projected) wide
+SMALL_SDXL_UNET = dict(sample_size=16, block_out_channels=(64, 128, 128), layers_per_block=1,
+                       cross_attention_dim=96, attention_head_dim=(1, 2, 2), norm_num_groups=8,
+                       down_block_types=("DownBlock2D", "CrossAttnDownBlock2D",
+                                         "CrossAttnDownBlock2D"),
+                       up_block_types=("CrossAttnUpBlock2D", "CrossAttnUpBlock2D", "UpBlock2D"),
+                       use_linear_projection=True, transformer_layers_per_block=(1, 2, 3),
+                       addition_embed_type="text_time", addition_time_embed_dim=16,
+                       projection_class_embeddings_input_dim=64 + 6 * 16)
+
+
+@pytest.fixture(scope="module")
+def small_sdxl_pipe():
+    """A bf16 SDXL pipe on the card with random weights and a dynamic LoRA
+    on the UNet and both towers; images of 32^2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    import dataclasses
+
+    from diffusion_finetuning_tpu_torch import lora as lora_lib
+    from diffusion_finetuning_tpu_torch.data.tokenizer import CLIPTokenizer
+    from diffusion_finetuning_tpu_torch.models.clip_text import (CLIPTextConfig, CLIPTextModel,
+                                                                 text_encoder_lora_targets)
+    from diffusion_finetuning_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+    from diffusion_finetuning_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+    from diffusion_finetuning_tpu_torch.pipelines.pipeline_sdxl import StableDiffusionXLPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t2 = dataclasses.replace(CLIPTextConfig.tiny(), hidden_size=64, intermediate_size=128,
+                             projection_dim=64)
+    cfgs = (UNetConfig(**SMALL_SDXL_UNET), dataclasses.replace(VAEConfig.tiny(),
+                                                               scaling_factor=0.13025),
+            CLIPTextConfig.tiny(), t2)
+    sds = []
+    for i, (cls, cfg) in enumerate(zip((UNet2DConditionModel, AutoencoderKL, CLIPTextModel,
+                                        CLIPTextModel), cfgs)):
+        torch.manual_seed(10 + i)
+        sds.append(cls(cfg).state_dict())
+    tok = CLIPTokenizer.tiny(["photo", "sks"])
+    pipe = StableDiffusionXLPipeline(cfgs[0], sds[0], cfgs[1], sds[1], cfgs[2], sds[2], tok,
+                                     cfgs[3], sds[3], CLIPTokenizer.tiny(["photo", "sks"]),
+                                     dtype=torch.bfloat16, device="cuda")
+    pipe.unet_lora = _small_lora(cfgs[0], 7, "cuda")
+    for attr, cfg, seed in (("text_encoder_lora", cfgs[2], 8), ("text_encoder_2_lora", cfgs[3], 9)):
+        g = torch.Generator().manual_seed(seed)
+        tree = lora_lib.inject_trainable_lora(text_encoder_lora_targets(cfg), g, r=4,
+                                              dtype=torch.bfloat16)
+        for _, leaf in lora_lib.lora_leaves(tree):
+            leaf["up"] = (torch.randn(leaf["up"].shape, generator=g) * 0.05).bfloat16()
+        setattr(pipe, attr, _tree_to(tree, "cuda"))
+    return pipe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("materialize", [False, True], ids=["dynamic", "merged"])
+def test_sdxl_graph_equals_eager(small_sdxl_pipe, materialize):
+    """SDXL txt2img (3 Euler steps, batches 1 and 2, a LoRA on the UNet and
+    both towers) through its CUDA graph equals the eager request bit for
+    bit; the capture runs the channels-last path with no GroupNorm
+    fallback, the UNet's K1 and (dynamic) K2, and a replay runs no Python
+    (the block and tower counters stand still)."""
+    from diffusion_finetuning_tpu_torch.models import clip_text as tclip
+    from diffusion_finetuning_tpu_torch.models import unet as tunet
+    from diffusion_finetuning_tpu_torch.ops import channels_last as tcl
+
+    pipe = small_sdxl_pipe
+    pipe.materialize_lora = materialize
+    pipe.invalidate_merged_cache()
+    pipe._graphs = None
+    kw = dict(height=32, width=32, num_inference_steps=3, output_type="device")
+    for prompt, seed in (("photo of sks", 1), (["photo", "sks photo"], [2, 3])):
+        before = (tcl.fallbacks, tlm.launches, tfa.launches, tunet.transformer_blocks)
+        got = pipe(prompt, seed=seed, **kw)
+        captured = (tcl.fallbacks - before[0], tlm.launches - before[1],
+                    tfa.launches - before[2], tunet.transformer_blocks - before[3])
+        mid = (tunet.transformer_blocks, tclip.towers)
+        again = pipe(prompt, seed=seed, **kw)
+        assert (tunet.transformer_blocks, tclip.towers) == mid
+        want = _eager(pipe, lambda: pipe(prompt, seed=seed, **kw))
+        assert torch.equal(got, want) and torch.equal(again, want)
+        # warm-up and capture: 3 steps of 18 blocks each, 2 K1 a block
+        assert captured[0] == 0 and captured[3] == 2 * 3 * 18
+        assert captured[2] == 2 * 3 * 18 * 2
+        assert (captured[1] > 0) == (not materialize)
+    assert len(pipe._graphs.graphs) == 2
